@@ -1,0 +1,35 @@
+"""Global configuration for neptune_tpu_torch.
+
+The PyTorch counterpart of `neptune_tpu/config.py`, trimmed to what the port
+runs today: one process-wide config object with environment overrides.
+
+Environment variables:
+  NEPTUNE_TORCH_BACKEND     "auto" | "torch" | "cuda"   (default "auto")
+  NEPTUNE_TORCH_DUMP_IR     "1" to print IR after every pipeline stage
+  NEPTUNE_TORCH_FOLD_AFFINE "0" to turn off affine folding
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+@dataclasses.dataclass
+class Config:
+    # Apply-executor backend: "torch" (eager PyTorch on the tensors' device),
+    # "cuda" (generated Hopper kernels; an apply they cannot take raises), or
+    # "auto" (the kernels where `cuda_backend.supported` holds, eager
+    # otherwise). Mirrors the JAX package's "jnp" / "pallas" / "auto".
+    backend: str = os.environ.get("NEPTUNE_TORCH_BACKEND", "auto")
+
+    # Print IR after each pipeline stage.
+    dump_ir: bool = os.environ.get("NEPTUNE_TORCH_DUMP_IR", "0") == "1"
+
+    # Affine folding of constant-coefficient sums of stencil accesses
+    # (`lowering/torch_backend.py`): the eager path and the kernel generator
+    # fold through the same walker, so both see identical arithmetic.
+    fold_affine: bool = os.environ.get("NEPTUNE_TORCH_FOLD_AFFINE", "1") == "1"
+
+
+config = Config()

@@ -1,0 +1,235 @@
+"""Generate the CUDA sources of the Hopper kernels from the IR.
+
+Only the per-operator scalar body is generated: `COps` is an op table for
+`torch_backend.eval_scalar_dag` whose values are C expressions, so the body
+is folded, rounded and ordered exactly as the eager PyTorch path evaluates
+it. Constants are emitted as hex-float literals of the value the eager path
+rounds them to. Everything else -- indexing, neighbour reads, copy-through,
+reductions, grid syncs, the CG loop -- is fixed code in `csrc/*.cuh`.
+"""
+
+from __future__ import annotations
+
+import math
+
+from ..ir.core import Operation
+from ..ir.types import TempType
+from ..lowering.torch_backend import eval_scalar_dag, round_to
+
+_CTYPE = {
+    "float32": "float",
+    "bfloat16": "float",  # bf16 values are carried in f32 registers
+    "float64": "double",
+    "index": "int",
+    "int32": "int",
+    "bool": "bool",
+}
+_F32ISH = ("float32", "bfloat16")
+
+_INFIX = {
+    "arith.add": "+", "arith.sub": "-", "arith.mul": "*", "arith.div": "/",
+    "arith.and": "&&", "arith.or": "||",
+}
+_CMP = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">", "ge": ">="}
+_MATH = {
+    "math.exp": "exp", "math.log": "log", "math.sqrt": "sqrt", "math.sin": "sin",
+    "math.cos": "cos", "math.tan": "tan", "math.tanh": "tanh", "math.abs": "fabs",
+    "math.erf": "erf",
+}
+
+
+def c_literal(value, tname: str) -> str:
+    """`value` rounded into scalar type `tname`, as an exact C literal."""
+    v = round_to(value, tname)
+    if tname == "bool":
+        return "true" if v else "false"
+    if tname in ("index", "int32"):
+        return f"({v})"
+    if math.isnan(v):
+        return "__int_as_float(0x7fc00000)" if tname in _F32ISH else "__longlong_as_double(0x7ff8000000000000ll)"
+    if math.isinf(v):
+        if tname in _F32ISH:
+            return "__int_as_float(0x7f800000)" if v > 0 else "__int_as_float(0xff800000)"
+        return "__longlong_as_double(0x7ff0000000000000ll)" if v > 0 else "__longlong_as_double(0xfff0000000000000ll)"
+    suffix = "f" if tname in _F32ISH else ""
+    return f"({float(v).hex()}{suffix})"
+
+
+class COps:
+    """Op table for `eval_scalar_dag` that emits one C statement per
+    operation. Every bf16 result is rounded to bf16 (`nt_bf`), as each eager
+    bf16 operation rounds its f32 result."""
+
+    def __init__(self):
+        self.lines: list[str] = []
+        self._n = 0
+
+    def emit(self, expr: str, tname: str) -> str:
+        if tname == "bfloat16":
+            expr = f"nt_bf({expr})"
+        name = f"v{self._n}"
+        self._n += 1
+        self.lines.append(f"const {_CTYPE[tname]} {name} = {expr};")
+        return name
+
+    def constant(self, value, tname):
+        return c_literal(value, tname)
+
+    def binop(self, name, a, b, tname):
+        if name in ("arith.min", "arith.max"):
+            return self.emit(f"nt_{name[6:]}({a}, {b})", tname)
+        if name == "arith.pow":
+            fn = "powf" if tname in _F32ISH else "pow"
+            return self.emit(f"{fn}({a}, {b})", tname)
+        return self.emit(f"({a} {_INFIX[name]} {b})", tname)
+
+    def unary(self, name, a, tname):
+        if name == "arith.neg":
+            return self.emit(f"(-{a})", tname)
+        if name == "arith.not":
+            return self.emit(f"(!{a})", tname)
+        if name == "math.abs" and tname in ("index", "int32"):
+            return self.emit(f"abs({a})", tname)
+        fn = _MATH[name] + ("f" if tname in _F32ISH else "")
+        return self.emit(f"{fn}({a})", tname)
+
+    def cmp(self, pred, a, b, tname):
+        return self.emit(f"({a} {_CMP[pred]} {b})", "bool")
+
+    def select(self, c, a, b, tname):
+        return self.emit(f"({c} ? {a} : {b})", tname)
+
+    def cast(self, v, tname):
+        return self.emit(f"static_cast<{_CTYPE[tname]}>({v})", tname)
+
+    def add(self, a, b, tname):
+        return self.binop("arith.add", a, b, tname)
+
+    def neg(self, a, tname):
+        return self.unary("arith.neg", a, tname)
+
+    def scale(self, a, c, tname):
+        return self.binop("arith.mul", a, c_literal(c, tname), tname)
+
+    def add_const(self, a, c, tname):
+        return self.binop("arith.add", a, c_literal(c, tname), tname)
+
+
+def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
+    """A C++ struct holding one apply's generated body (see csrc/nt_apply.cuh).
+
+    scalar_exprs: C expressions for the apply's scalar operands; by default
+    they are fields of the struct's `Scalars`, passed by value at launch. An
+    input whose logical lower bound differs from the output's reads at a
+    shifted physical position.
+    """
+    out_type: TempType = op.results[0].type
+    rank = out_type.bounds.rank
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    body = op.region(0)
+    lb = out_type.bounds.lb
+    input_lbs = [v.type.bounds.lb for v in op.operands[:n_in]]
+    scalar_types = [a.type.name for a in body.args[rank + n_in:]]
+    if scalar_exprs is None:
+        scalar_exprs = [f"s.s{k}" for k in range(len(scalar_types))]
+    pad = 3 - rank  # rank-2 grids are (1, n0, n1) in the kernels
+
+    ops = COps()
+
+    def access_fn(k, offset):
+        adj = [o + (lo - li) for o, lo, li in zip(offset, lb, input_lbs[k])]
+        idx = ", ".join(
+            f"i{d} + ({o})" for d, o in enumerate([0] * pad + adj)
+        )
+        return ops.emit(f"nt_ld<kPeriodic>(in[{k}], g, {idx})", "float32")
+
+    def index_fn(d):
+        return ops.emit(f"i{d + pad} + g.lb[{d + pad}]", "index")
+
+    yields = eval_scalar_dag(body, rank, n_in, access_fn, index_fn, scalar_exprs, ops)
+
+    fields = "".join(
+        f" {_CTYPE[t] if t != 'bool' else 'int'} s{k};" for k, t in enumerate(scalar_types)
+    )
+    loads = "".join(
+        f" s.s{k} = static_cast<{_CTYPE[t] if t != 'bool' else 'int'}>(v[{k}]);"
+        for k, t in enumerate(scalar_types)
+    )
+    elem = "__nv_bfloat16" if out_type.element == "bfloat16" else "float"
+    stmts = "\n".join(f"    {line}" for line in ops.lines)
+    outs = "\n".join(
+        f"    y[{j}] = static_cast<float>({y});" for j, y in enumerate(yields)
+    )
+    return f"""struct {name} {{
+  using T = {elem};
+  static constexpr int kIn = {n_in};
+  static constexpr int kOut = {len(op.results)};
+  static constexpr bool kPeriodic = {'true' if op.attrs.get('periodic') else 'false'};
+  struct Scalars {{{fields} }};
+  static Scalars load(const double* v) {{ Scalars s;{loads} (void)v; return s; }}
+  static __device__ __forceinline__ void eval(const NtGrid& g, const T* const* in,
+                                              const Scalars& s, int i0, int i1, int i2,
+                                              float* y) {{
+    (void)g; (void)in; (void)s; (void)i0; (void)i1; (void)i2;
+{stmts}
+{outs}
+  }}
+}};
+"""
+
+
+def apply_source(op: Operation) -> str:
+    """The complete source of kernel A for one apply."""
+    return (
+        '#include "nt_apply.cuh"\n\n'
+        + body_struct(op, "NtBody")
+        + "\nNT_DEFINE_APPLY(NtBody)\n"
+    )
+
+
+def grid_literal(shape, lb, blo, bhi) -> str:
+    """An NtGrid initializer for a rank-2 grid, (1, n0, n1) in the kernels."""
+    def three(v, fill):
+        return "{" + ", ".join(str(x) for x in [fill] + list(v)) + "}"
+    return (
+        f"{{{three(shape, 1)}, {three(lb, 0)}, {three(blo, 0)}, {three(bhi, 1)}}}"
+    )
+
+
+def fused_cg_source(stages) -> str:
+    """The complete source of kernel B for a matvec plan
+    (`solvers.fused.matvec_plan`): one generated body per stage and the
+    matvec that runs them with a grid sync between stages."""
+    structs, calls = [], []
+    last = len(stages) - 1
+    for i, st in enumerate(stages):
+        scalars = [c_literal(v, "float32") for v in st.scalars]
+        structs.append(body_struct(st.op, f"NtStage{i}", scalar_exprs=scalars))
+        outer = st.op.results[0].type.bounds
+        sl = st.op.attrs["bounds"].rel_slices(outer)
+        g = grid_literal(outer.shape, outer.lb, [s.start for s in sl], [s.stop for s in sl])
+        ins = ", ".join("x" if r == "x" else f"scratch[{r}]" for r in st.inputs) or "nullptr"
+        out, dot = ("y", "x") if i == last else (f"scratch[{i}]", "nullptr")
+        ret = "return " if i == last else ""
+        calls.append(
+            f"    {{\n      const NtGrid g = {g};\n      const float* in[] = {{{ins}}};\n"
+            f"      {ret}nt_stage<NtStage{i}>(g, in, {out}, {dot});\n    }}"
+        )
+    matvec = "\n    grid.sync();\n".join(calls)
+    return (
+        '#include "nt_fused_cg.cuh"\n\n'
+        + "\n".join(structs)
+        + f"""
+struct NtMatvec {{
+  static constexpr int kScratch = {last};
+  static __device__ __forceinline__ double apply(const float* x, float* y,
+                                                 float* const* scratch,
+                                                 cg::grid_group& grid) {{
+    (void)scratch; (void)grid;
+{matvec}
+  }}
+}};
+
+NT_DEFINE_FUSED_CG(NtMatvec)
+"""
+    )
