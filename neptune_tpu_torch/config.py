@@ -7,6 +7,8 @@ Environment variables:
   NEPTUNE_TORCH_BACKEND     "auto" | "torch" | "cuda"   (default "auto")
   NEPTUNE_TORCH_DUMP_IR     "1" to print IR after every pipeline stage
   NEPTUNE_TORCH_FOLD_AFFINE "0" to turn off affine folding
+  NEPTUNE_TORCH_DTYPE       element dtype of DSL opdefs that name none
+                            (default "float64")
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ class Config:
     # (`lowering/torch_backend.py`): the eager path and the kernel generator
     # fold through the same walker, so both see identical arithmetic.
     fold_affine: bool = os.environ.get("NEPTUNE_TORCH_FOLD_AFFINE", "1") == "1"
+
+    # Element dtype of an opdef whose DSL decorator names none. f64, the
+    # reference's precision, as in the JAX package; PyTorch runs f64 on
+    # every device, so unlike there it never degrades to f32.
+    default_dtype: str = os.environ.get("NEPTUNE_TORCH_DTYPE", "float64")
 
 
 config = Config()

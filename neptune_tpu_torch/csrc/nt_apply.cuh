@@ -19,8 +19,9 @@
 //   static constexpr int kIn, kOut;        tensor inputs, results
 //   static constexpr bool kPeriodic;
 //   struct Scalars {...}; static Scalars load(const double* v);
-//   static __device__ void eval(const NtGrid&, const T* const* in,
-//                               const Scalars&, int i0, int i1, int i2, float* y);
+//   template <class A, class S>
+//   static __device__ void eval(const A& a, const S& s, float* y);
+// where `a` is an NtGlobalAcc (nt_common.cuh) and `s` the Scalars.
 #pragma once
 
 #include "nt_common.cuh"
@@ -44,7 +45,9 @@ __global__ void __launch_bounds__(kNtApplyThreads)
       const long long idx = nt_index(g, i0, i1, i2);
       if (nt_in_bounds(g, i0, i1, i2)) {
         float y[B::kOut];
-        B::eval(g, p.in, s, i0, i1, i2, y);
+        const NtGlobalAcc<B::kPeriodic, T> a{&g, p.in, i0, i1, i2,
+                                             i0 + g.lb[0], i1 + g.lb[1], i2 + g.lb[2]};
+        B::eval(a, s, y);
 #pragma unroll
         for (int j = 0; j < B::kOut; ++j) p.out[j][idx] = nt_cast<T>(y[j]);
       } else {

@@ -74,6 +74,27 @@ __device__ __forceinline__ bool nt_in_bounds(const NtGrid& g, int i0, int i1, in
          i2 >= g.blo[2] && i2 < g.bhi[2];
 }
 
+__device__ __forceinline__ bool nt_in_grid(const int* n, int i0, int i1, int i2) {
+  return (unsigned)i0 < (unsigned)n[0] && (unsigned)i1 < (unsigned)n[1] &&
+         (unsigned)i2 < (unsigned)n[2];
+}
+
+// What a generated body sees of its inputs (kernels A and B): input k at an
+// offset from the cell (i0, i1, i2), read from global memory under nt_ld's
+// rule; c0..c2 are the cell's logical coordinates, for index() bodies.
+// The generated body calls a.ld(k, o0, o1, o2) and reads a.c0..a.c2; the
+// shared-memory tiles of kernels C and D provide the same interface.
+template <bool PERIODIC, class T>
+struct NtGlobalAcc {
+  const NtGrid* g;
+  const T* const* in;
+  int i0, i1, i2;
+  int c0, c1, c2;
+  __device__ __forceinline__ float ld(int k, int o0, int o1, int o2) const {
+    return nt_ld<PERIODIC>(in[k], *g, i0 + o0, i1 + o1, i2 + o2);
+  }
+};
+
 // NaN-propagating min / max, as torch.minimum / torch.maximum
 __device__ __forceinline__ float nt_min(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);

@@ -61,7 +61,9 @@ __device__ __forceinline__ double nt_stage(const NtGrid& g, const float* const* 
     float v;
     if (nt_in_bounds(g, 0, i1, i2)) {
       float y[1];
-      B::eval(g, in, typename B::Scalars{}, 0, i1, i2, y);
+      const NtGlobalAcc<B::kPeriodic, float> a{&g, in, 0, i1, i2,
+                                               g.lb[0], i1 + g.lb[1], i2 + g.lb[2]};
+      B::eval(a, typename B::Scalars{}, y);
       v = y[0];
     } else {
       v = B::kIn > 0 ? in[0][idx] : 0.0f;

@@ -1,0 +1,185 @@
+// Shared-memory tiles for kernels C (stencil_sweeps) and D (stencil_chain).
+//
+// A block owns one output tile of T0 x T1 x T2 cells (a rank-2 grid is
+// (1, n0, n1), so T0 = 1 and H0 = 0 there) and holds it in shared memory
+// with a halo of H0, H1, H2 cells on each side. Tile position p stands for
+// the grid cell q = org - H + p, where org is the tile's first output cell.
+//
+// Cells beyond the grid, two rules:
+//   * bounded tiles hold 0 there and never compute there (the cell lies
+//     outside every apply's bounds, so it copies its seed through, which is
+//     0 again); a neighbour read off the grid therefore reads 0, kernel A's
+//     rule, with no test per read;
+//   * wrapped tiles (some apply is periodic) hold the value of the wrapped
+//     cell w = q mod n, and every apply evaluates there as at w: its mask,
+//     its index() values, and -- for a bounded apply among periodic ones --
+//     a read that leaves the grid from w reads 0 (NtTileAcc<.., CHECK>).
+//     A table of w per position and dim (nt_tile_wraps) follows the tile's
+//     buffers in shared memory.
+// Threads walk a box of positions with neighbouring lanes on neighbouring
+// positions along dim 2 (nt_tile_for). Every box is known at compile time,
+// so the walk divides by constants only.
+#pragma once
+
+#include "nt_common.cuh"
+
+constexpr int kNtTileThreads = 512;
+
+template <int T0_, int T1_, int T2_, int H0_, int H1_, int H2_>
+struct NtTile {
+  static constexpr int T0 = T0_, T1 = T1_, T2 = T2_;
+  static constexpr int H0 = H0_, H1 = H1_, H2 = H2_;
+  static constexpr int W0 = T0 + 2 * H0, W1 = T1 + 2 * H1, W2 = T2 + 2 * H2;
+  static constexpr int kCells = W0 * W1 * W2;
+  static constexpr int kS0 = W1 * W2, kS1 = W2;
+  static constexpr int kTab = W0 + W1 + W2;  // ints of the wrapped-cell table
+  static __device__ __forceinline__ int at(int p0, int p1, int p2) {
+    return p0 * kS0 + p1 * kS1 + p2;
+  }
+};
+
+// calls f(p0, p1, p2) for each position of the box [L, L + E) of a tile,
+// spread over the block's kNtTileThreads threads. Rows along dim 2 that
+// fill warps (E2 >= 64) go a warp per row, a lane per position; shorter
+// rows, as in rank-3 tiles, are walked flat so that lanes do not idle.
+template <int L0, int L1, int L2, int E0, int E1, int E2, class F>
+__device__ __forceinline__ void nt_tile_for(F&& f) {
+  if constexpr (E2 >= 64) {
+    constexpr int kWarps = kNtTileThreads / 32;
+    const int lane = (int)threadIdx.x & 31;
+    for (int r = (int)threadIdx.x >> 5; r < E0 * E1; r += kWarps) {
+      const int p0 = r / E1, p1 = r - p0 * E1;
+      for (int p2 = lane; p2 < E2; p2 += 32) f(L0 + p0, L1 + p1, L2 + p2);
+    }
+  } else {
+    constexpr int kPlane = E1 * E2, kTotal = E0 * kPlane;
+    for (int j = (int)threadIdx.x; j < kTotal; j += kNtTileThreads) {
+      const int p0 = j / kPlane, r = j - p0 * kPlane;
+      const int p1 = r / E2;
+      f(L0 + p0, L1 + p1, L2 + (r - p1 * E2));
+    }
+  }
+}
+
+// the tile's first output cell: blocks tile the grid in C order
+template <class Tl>
+__device__ __forceinline__ void nt_tile_origin(int (&org)[3]) {
+  org[0] = (int)blockIdx.z * Tl::T0;
+  org[1] = (int)blockIdx.y * Tl::T1;
+  org[2] = (int)blockIdx.x * Tl::T2;
+}
+
+// The wrapped cell of each tile position, per dim (dim 0's W0 entries, then
+// dim 1's, then dim 2's), for wrapped tiles: the modulo once per block, not
+// per cell and sweep.
+template <class Tl>
+__device__ __forceinline__ void nt_tile_wraps(const NtGrid& g, const int (&org)[3], int* tab) {
+  for (int j = (int)threadIdx.x; j < Tl::kTab; j += kNtTileThreads) {
+    const int d = j < Tl::W0 ? 0 : (j < Tl::W0 + Tl::W1 ? 1 : 2);
+    const int p = j - (d == 0 ? 0 : (d == 1 ? Tl::W0 : Tl::W0 + Tl::W1));
+    const int h = d == 0 ? Tl::H0 : (d == 1 ? Tl::H1 : Tl::H2);
+    tab[j] = nt_wrap(org[d] - h + p, g.n[d]);
+  }
+}
+
+// the grid cell that tile position p stands for: wrapped (from the table)
+// or as it is
+template <class Tl, bool WRAP>
+__device__ __forceinline__ void nt_tile_cell(const int (&org)[3], const int* tab, int p0, int p1,
+                                             int p2, int& w0, int& w1, int& w2) {
+  if (WRAP) {
+    w0 = tab[p0];
+    w1 = tab[Tl::W0 + p1];
+    w2 = tab[Tl::W0 + Tl::W1 + p2];
+  } else {
+    w0 = org[0] - Tl::H0 + p0;
+    w1 = org[1] - Tl::H1 + p1;
+    w2 = org[2] - Tl::H2 + p2;
+  }
+}
+
+// The whole tile, halo included, from global memory. A wrapped tile needs
+// its table (nt_tile_wraps) filled and synced first.
+template <class Tl, bool WRAP>
+__device__ __forceinline__ void nt_tile_load(const NtGrid& g, const int (&org)[3], const int* tab,
+                                             const float* __restrict__ src, float* dst) {
+  nt_tile_for<0, 0, 0, Tl::W0, Tl::W1, Tl::W2>([&](int p0, int p1, int p2) {
+    int w0, w1, w2;
+    nt_tile_cell<Tl, WRAP>(org, tab, p0, p1, p2, w0, w1, w2);
+    dst[Tl::at(p0, p1, p2)] =
+        WRAP || nt_in_grid(g.n, w0, w1, w2) ? src[nt_index(g, w0, w1, w2)] : 0.0f;
+  });
+}
+
+// the tile's centre, the cells of the grid only, to global memory
+template <class Tl>
+__device__ __forceinline__ void nt_tile_store(const NtGrid& g, const int (&org)[3],
+                                              const float* src, float* __restrict__ dst) {
+  nt_tile_for<Tl::H0, Tl::H1, Tl::H2, Tl::T0, Tl::T1, Tl::T2>([&](int p0, int p1, int p2) {
+    const int q0 = org[0] - Tl::H0 + p0, q1 = org[1] - Tl::H1 + p1, q2 = org[2] - Tl::H2 + p2;
+    if (nt_in_grid(g.n, q0, q1, q2)) dst[nt_index(g, q0, q1, q2)] = src[Tl::at(p0, p1, p2)];
+  });
+}
+
+// What a generated body sees of a tile: input k at an offset from tile
+// position i, NIN inputs each in its own tile buffer. CHECK: a bounded apply
+// in a wrapped tile, whose reads that leave the grid from the wrapped cell
+// (w0, w1, w2) read 0.
+template <class Tl, int NIN, bool CHECK>
+struct NtTileAcc {
+  const float* b[NIN];
+  int i;
+  int c0, c1, c2;  // logical coordinates, for index() bodies
+  int w0, w1, w2;  // the wrapped cell (read only when CHECK)
+  const int* n;    // grid extents (read only when CHECK)
+  __device__ __forceinline__ float ld(int k, int o0, int o1, int o2) const {
+    if (CHECK && !nt_in_grid(n, w0 + o0, w1 + o1, w2 + o2)) return 0.0f;
+    return b[k][i + o0 * Tl::kS0 + o1 * Tl::kS1 + o2];
+  }
+};
+
+// an apply's bounds, physical, rank-3 padded: cells with lo <= w < hi compute
+struct NtBox {
+  int lo[3];
+  int hi[3];
+};
+
+__device__ __forceinline__ bool nt_in_box(const NtBox& b, int w0, int w1, int w2) {
+  return w0 >= b.lo[0] && w0 < b.hi[0] && w1 >= b.lo[1] && w1 < b.hi[1] && w2 >= b.lo[2] &&
+         w2 < b.hi[2];
+}
+
+// One apply (body B, NIN tile inputs) over the tile positions [L, W - L):
+// the body's value where the cell lies inside the apply's bounds, input 0's
+// value (the copy-through seed) elsewhere, handed to put(p0, p1, p2, i, v).
+template <class Tl, class B, bool WRAP, int NIN, int L0, int L1, int L2, class S, class Put>
+__device__ __forceinline__ void nt_tile_apply(const NtGrid& g, const int (&org)[3],
+                                              const int* tab, const NtBox& box,
+                                              const float* const (&in)[NIN], const S& s,
+                                              Put&& put) {
+  constexpr bool kCheck = WRAP && !B::kPeriodic;
+  nt_tile_for<L0, L1, L2, Tl::W0 - 2 * L0, Tl::W1 - 2 * L1, Tl::W2 - 2 * L2>(
+      [&](int p0, int p1, int p2) {
+        int w0, w1, w2;
+        nt_tile_cell<Tl, WRAP>(org, tab, p0, p1, p2, w0, w1, w2);
+        const int i = Tl::at(p0, p1, p2);
+        float v = in[0][i];
+        if (nt_in_box(box, w0, w1, w2)) {
+          NtTileAcc<Tl, NIN, kCheck> a;
+#pragma unroll
+          for (int k = 0; k < NIN; ++k) a.b[k] = in[k];
+          a.i = i;
+          a.c0 = w0 + g.lb[0];
+          a.c1 = w1 + g.lb[1];
+          a.c2 = w2 + g.lb[2];
+          a.w0 = w0;
+          a.w1 = w1;
+          a.w2 = w2;
+          a.n = g.n;
+          float y[1];
+          B::eval(a, s, y);
+          v = y[0];
+        }
+        put(p0, p1, p2, i, v);
+      });
+}

@@ -4,7 +4,10 @@ Only the per-operator scalar body is generated: `COps` is an op table for
 `torch_backend.eval_scalar_dag` whose values are C expressions, so the body
 is folded, rounded and ordered exactly as the eager PyTorch path evaluates
 it. Constants are emitted as hex-float literals of the value the eager path
-rounds them to. Everything else -- indexing, neighbour reads, copy-through,
+rounds them to. A body reads its inputs through an accessor argument
+(`a.ld(k, o0, o1, o2)`, and `a.c0 .. a.c2` for index() values), so one body
+serves global memory (kernels A and B) and shared-memory tiles (kernels C
+and D). Everything else -- indexing, neighbour reads, copy-through, tiles,
 reductions, grid syncs, the CG loop -- is fixed code in `csrc/*.cuh`.
 """
 
@@ -118,10 +121,12 @@ class COps:
 def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
     """A C++ struct holding one apply's generated body (see csrc/nt_apply.cuh).
 
-    scalar_exprs: C expressions for the apply's scalar operands; by default
-    they are fields of the struct's `Scalars`, passed by value at launch. An
-    input whose logical lower bound differs from the output's reads at a
-    shifted physical position.
+    `eval(a, s, y)` reads input k at an offset through the accessor `a`
+    (rank-3 padded: a rank-2 grid is (1, n0, n1)) and the scalars through
+    `s`. scalar_exprs: C expressions for the apply's scalar operands; by
+    default they are fields of the struct's `Scalars`, passed by value at
+    launch. An input whose logical lower bound differs from the output's
+    reads at a shifted position.
     """
     out_type: TempType = op.results[0].type
     rank = out_type.bounds.rank
@@ -132,50 +137,49 @@ def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
     scalar_types = [a.type.name for a in body.args[rank + n_in:]]
     if scalar_exprs is None:
         scalar_exprs = [f"s.s{k}" for k in range(len(scalar_types))]
-    pad = 3 - rank  # rank-2 grids are (1, n0, n1) in the kernels
+    pad = 3 - rank
 
     ops = COps()
 
     def access_fn(k, offset):
         adj = [o + (lo - li) for o, lo, li in zip(offset, lb, input_lbs[k])]
-        idx = ", ".join(
-            f"i{d} + ({o})" for d, o in enumerate([0] * pad + adj)
-        )
-        return ops.emit(f"nt_ld<kPeriodic>(in[{k}], g, {idx})", "float32")
+        return ops.emit(f"a.ld({k}, {', '.join(str(o) for o in [0] * pad + adj)})", "float32")
 
     def index_fn(d):
-        return ops.emit(f"i{d + pad} + g.lb[{d + pad}]", "index")
+        return ops.emit(f"a.c{d + pad}", "index")
 
     yields = eval_scalar_dag(body, rank, n_in, access_fn, index_fn, scalar_exprs, ops)
 
-    fields = "".join(
-        f" {_CTYPE[t] if t != 'bool' else 'int'} s{k};" for k, t in enumerate(scalar_types)
-    )
-    loads = "".join(
-        f" s.s{k} = static_cast<{_CTYPE[t] if t != 'bool' else 'int'}>(v[{k}]);"
-        for k, t in enumerate(scalar_types)
-    )
-    elem = "__nv_bfloat16" if out_type.element == "bfloat16" else "float"
     stmts = "\n".join(f"    {line}" for line in ops.lines)
     outs = "\n".join(
         f"    y[{j}] = static_cast<float>({y});" for j, y in enumerate(yields)
     )
     return f"""struct {name} {{
-  using T = {elem};
+  using T = {"__nv_bfloat16" if out_type.element == "bfloat16" else "float"};
   static constexpr int kIn = {n_in};
   static constexpr int kOut = {len(op.results)};
   static constexpr bool kPeriodic = {'true' if op.attrs.get('periodic') else 'false'};
-  struct Scalars {{{fields} }};
-  static Scalars load(const double* v) {{ Scalars s;{loads} (void)v; return s; }}
-  static __device__ __forceinline__ void eval(const NtGrid& g, const T* const* in,
-                                              const Scalars& s, int i0, int i1, int i2,
-                                              float* y) {{
-    (void)g; (void)in; (void)s; (void)i0; (void)i1; (void)i2;
+{scalars_struct(scalar_types)}
+  template <class A, class S>
+  static __device__ __forceinline__ void eval(const A& a, const S& s, float* y) {{
+    (void)a; (void)s;
 {stmts}
 {outs}
   }}
 }};
 """
+
+
+def scalars_struct(types) -> str:
+    """`struct Scalars` with one field per scalar type name, and `load`
+    from the launch's f64 values (a bool travels as an int)."""
+    ctype = [_CTYPE[t] if t != "bool" else "int" for t in types]
+    fields = "".join(f" {c} s{k};" for k, c in enumerate(ctype))
+    loads = "".join(f" s.s{k} = static_cast<{c}>(v[{k}]);" for k, c in enumerate(ctype))
+    return (
+        f"  struct Scalars {{{fields} }};\n"
+        f"  static Scalars load(const double* v) {{ Scalars s;{loads} (void)v; return s; }}"
+    )
 
 
 def apply_source(op: Operation) -> str:
@@ -231,5 +235,81 @@ struct NtMatvec {{
 }};
 
 NT_DEFINE_FUSED_CG(NtMatvec)
+"""
+    )
+
+
+def _ints(v) -> str:
+    return ", ".join(str(x) for x in v)
+
+
+def sweeps_source(op: Operation, depth: int, halo, tile) -> str:
+    """The complete source of kernel C: `depth` sweeps of one apply per
+    launch. halo: the apply's halo per dim; tile: the output tile extents;
+    both rank-3 padded."""
+    return (
+        '#include "nt_sweeps.cuh"\n\n'
+        + body_struct(op, "NtBody")
+        + f"""
+struct NtSweepPlan {{
+  using Body = NtBody;
+  using Tile = NtTile<{_ints(tile)}, {_ints(depth * h for h in halo)}>;
+  static constexpr int kDepth = {depth};
+  static constexpr int kH0 = {halo[0]}, kH1 = {halo[1]}, kH2 = {halo[2]};
+}};
+
+NT_DEFINE_SWEEPS(NtSweepPlan)
+"""
+    )
+
+
+def chain_source(plan) -> str:
+    """The complete source of kernel D for a `lowering.chain.ChainPlan`:
+    one generated body per stage, and the chain that runs them in DAG
+    order over the tile's shrinking regions."""
+    pad = 3 - plan.rank
+    structs, calls = [], []
+    last = len(plan.stages) - 1
+    for i, st in enumerate(plan.stages):
+        exprs = [
+            f"s.s{b[1]}" if b[0] == "arg" else c_literal(b[1], b[2].name) for b in st.scalars
+        ]
+        structs.append(body_struct(st.op, f"NtStage{i}", scalar_exprs=exprs))
+        sl = st.op.attrs["bounds"].rel_slices(plan.outer)
+        box = (
+            f"NtBox{{{{{_ints([0] * pad + [x.start for x in sl])}}}, "
+            f"{{{_ints([1] * pad + [x.stop for x in sl])}}}}}"
+        )
+        ins = ", ".join(f"buf[{plan.buffer[s]}]" for s in st.in_slots)
+        head = f"Tile, NtStage{i}, kWrap, {len(st.in_slots)}"
+        if i == last:
+            call = f"nt_chain_last<{head}>(g, org, tab, {box}, in, out, s);"
+        else:
+            reg = _ints([0] * pad + list(plan.creep[st.out_slot]))
+            call = (
+                f"nt_chain_stage<{head}, {reg}>(g, org, tab, {box}, in, "
+                f"buf[{plan.buffer[st.out_slot]}], s);"
+            )
+        calls.append(f"    {{\n      const float* const in[] = {{{ins}}};\n      {call}\n    }}")
+    stages = "\n".join(calls)
+    return (
+        '#include "nt_chain.cuh"\n\n'
+        + "\n".join(structs)
+        + f"""
+struct NtChain {{
+  using Tile = NtTile<{_ints([1] * pad + list(plan.tile))}, {_ints([0] * pad + list(plan.reach))}>;
+  static constexpr bool kWrap = {'true' if plan.periodic else 'false'};
+  static constexpr int kFields = {plan.n_fields};
+  static constexpr int kBuffers = {plan.n_buffers};
+{scalars_struct(plan.scalar_types)}
+  static __device__ __forceinline__ void run(const NtGrid& g, const int (&org)[3],
+                                             const int* tab, float* const* buf, float* out,
+                                             const Scalars& s) {{
+    (void)tab; (void)buf;
+{stages}
+  }}
+}};
+
+NT_DEFINE_CHAIN(NtChain)
 """
     )

@@ -9,10 +9,14 @@ The port of `neptune_tpu/lowering/executor.py`:
     storage-cell environment.
 
 Each apply goes to kernel A (`cuda_backend`) where `cuda_backend.supported`
-holds and to the eager path otherwise. CG solves route to kernel B
-(`solvers.fused`) under exactly the conditions the JAX package routes them
-to its fused TPU kernel, whatever the device, so both packages take the
-same iterations; only the kernel wrappers look at the device.
+holds and to the eager path otherwise. A composite opdef that
+`chain.chain_plan` takes runs as one launch of kernel D; `sweeps` runs an
+operator that `sweeps.sweep_plan` takes as launches of kernel C. CG solves
+route to kernel B (`solvers.fused`) under exactly the conditions the JAX
+package routes them to its fused TPU kernel. Every route is chosen by plan,
+before any launch and whatever the device, so both packages take the same
+routes; only the kernel wrappers look at the device, and each runs its plain
+version for CPU tensors and launches its kernel, or raises, for CUDA ones.
 
 `device=None` keeps tensors where the caller put them (NumPy inputs go to
 the CPU); a device given here receives every input. Nothing moves work to
@@ -37,7 +41,7 @@ from ..utils.options import (
     merged_linear_options,
     split_precond_options,
 )
-from . import cuda_backend, torch_backend
+from . import chain, cuda_backend, sweeps, torch_backend
 
 _BACKENDS = ("auto", "torch", "cuda")
 
@@ -83,7 +87,11 @@ class CompiledModule:
             if skey is not None and skey in self._structure_cache:
                 self._opdef_cache[name] = self._structure_cache[skey]
             else:
-                cb = self._make_callable(fn)
+                cb = None
+                if self.backend in ("auto", "cuda"):
+                    cb = self.chain_callable(name)
+                if cb is None:
+                    cb = self._make_callable(fn)
                 self._opdef_cache[name] = cb
                 if skey is not None:
                     self._structure_cache[skey] = cb
@@ -96,12 +104,72 @@ class CompiledModule:
         return self._fn_cache[name]
 
     def sweeps(self, name: str, k: int) -> Callable:
-        raise _roadmap(
-            "CompiledModule.sweeps", "queue 1, item 3, and the pallas_multisweep kernels of queue 2"
-        )
+        """x -> opdef @name applied k times (fixed-point / smoother sweeps).
 
-    def chain_callable(self, name: str) -> Callable:
-        raise _roadmap("chain_callable", "queue 2, pallas_chain.execute_chain")
+        As `neptune_tpu`'s: an operator that `sweeps.sweep_plan` takes runs
+        k // depth launches of kernel C, `depth` sweeps each, then the
+        leftover sweeps as single applies; any other operator runs k single
+        applies. On CPU tensors kernel C's plain version runs instead.
+        """
+        fn = self.module.lookup(name)
+        if not fn.is_opdef:
+            raise ValueError(f"@{name} is not an opdef")
+        n_temps = sum(1 for t in fn.ftype.inputs if isinstance(t, TempType))
+        if n_temps != 1 or len(fn.ftype.results) != 1:
+            raise ValueError(
+                f"sweeps(@{name}): repeated application needs a unary "
+                f"operator (one temp in, one temp out); got {n_temps} "
+                f"inputs, {len(fn.ftype.results)} results"
+            )
+        one = self.opdef(name)
+        n_scalars = len(fn.ftype.inputs) - 1
+        plan = None
+        if self.backend in ("auto", "cuda"):
+            plan = sweeps.sweep_plan(self.module, name, k)
+        n_full, rem = divmod(k, plan.depth) if plan is not None else (0, k)
+
+        def run(x, *scalars):
+            if len(scalars) != n_scalars:
+                raise TypeError(f"sweeps(@{name}) expects {n_scalars} scalars, got {len(scalars)}")
+            u = self._tensor(x, torch_backend.DTYPES[fn.ftype.inputs[0].element])
+            for _ in range(n_full):
+                u = sweeps.run_sweeps(plan, u, scalars)
+            for _ in range(rem):
+                u = one(u, *scalars)
+            return u
+
+        run.__name__ = f"neptune_sweeps_{name}"
+        return run
+
+    def chain_callable(self, name: str) -> Optional[Callable]:
+        """Composite opdef @name as one launch of kernel D, or None when
+        `chain.chain_plan` refuses it (the opdef then runs stage at a time)."""
+        plan = chain.chain_plan(self.module, name)
+        if plan is None:
+            return None
+        args_in = self.module.lookup(name).body.args
+        n_args = plan.n_fields + plan.n_scalars
+
+        def run(*args):
+            if len(args) != n_args:
+                raise TypeError(f"@{name} expects {n_args} args, got {len(args)}")
+            fields = []
+            for barg, a in zip(args_in[: plan.n_fields], args):
+                a = self._tensor(a, torch.float32)
+                if tuple(a.shape) != plan.outer.shape:
+                    raise TypeError(
+                        f"@{name} arg {barg.name_hint}: shape {tuple(a.shape)} != "
+                        f"declared {barg.type}"
+                    )
+                fields.append(a)
+            scalars = [
+                torch_backend.scalar_tensor(a, barg.type)
+                for barg, a in zip(args_in[plan.n_fields :], args[plan.n_fields :])
+            ]
+            return chain.run_chain(plan, fields, scalars)
+
+        run.__name__ = f"neptune_chain_{name}"
+        return run
 
     def low_precision_opdef(self, name: str) -> Callable:
         raise _roadmap("low_precision_opdef (passes/retype)", "queue 1, item 2")
@@ -138,12 +206,7 @@ class CompiledModule:
                     env[barg.uid] = a
                     cells[barg.uid] = a
                 elif isinstance(t, ScalarType):
-                    # scalars stay where they are: a host number becomes a
-                    # 0-dim CPU tensor, which kernels read without a sync
-                    dt = torch_backend.scalar_dtype(t)
-                    env[barg.uid] = (
-                        a.to(dt) if isinstance(a, torch.Tensor) else torch.tensor(a, dtype=dt)
-                    )
+                    env[barg.uid] = torch_backend.scalar_tensor(a, t)
                 else:
                     env[barg.uid] = a
             outs = self._run_block(fn, env, cells)

@@ -45,6 +45,14 @@ def scalar_dtype(t: ScalarType) -> torch.dtype:
     return DTYPES[t.name]
 
 
+def scalar_tensor(a, t: ScalarType) -> torch.Tensor:
+    """A scalar argument as the executor binds it: a 0-dim tensor of type t.
+    A tensor keeps its device; a host number becomes a CPU tensor, which
+    kernels read without a sync."""
+    dt = scalar_dtype(t)
+    return a.to(dt) if isinstance(a, torch.Tensor) else torch.tensor(a, dtype=dt)
+
+
 def round_to(value, tname: str):
     """`value` as the nearest number of scalar type `tname`, as a Python
     number (a constant is rounded once into the array dtype, like a

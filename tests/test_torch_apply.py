@@ -194,7 +194,7 @@ def test_generated_source(case):
         for a in op.region(0).ops
         if a.name == "neptune.access"
     }
-    assert src.count("nt_ld<kPeriodic>") == len(reads)  # one load per distinct read
+    assert src.count("a.ld(") == len(reads)  # one load per distinct read
 
 
 def test_division_is_the_ieee_quotient():

@@ -16,7 +16,8 @@ from neptune_tpu_torch.config import config  # noqa: E402
 from neptune_tpu_torch.ir import F32, Bounds, NeptuneBuilder, TempType  # noqa: E402
 from neptune_tpu_torch.ir import verify_and_annotate  # noqa: E402
 from neptune_tpu_torch.kernels.build import Builder  # noqa: E402
-from neptune_tpu_torch.lowering import cuda_backend, torch_backend  # noqa: E402
+from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps, torch_backend  # noqa: E402
+from neptune_tpu_torch.lowering.executor import CompiledModule  # noqa: E402
 from neptune_tpu_torch.solvers import fused  # noqa: E402
 from neptune_tpu_torch.solvers.precond import extract_diagonal, safe_inv_diag  # noqa: E402
 
@@ -166,3 +167,121 @@ def test_step_3d_on_gpu_matches_cpu(cuda):
     got = entry.build_step_3d(16, "float32", device=cuda).function("step3d")(u)
     assert cuda_backend.counter.count > before
     assert float((got.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+# (module, opdef, k, scalars): kernel C cases, with grids that leave partial
+# tiles and, for the torus, tiles larger than the grid
+SWEEPS = {
+    "jacobi5_k16": (lambda: stencils.jacobi5((100, 70)), "jacobi", 16, ()),
+    "adv4_k16": (lambda: stencils.advection4((96, 136)), "adv4", 16, ()),
+    "adv4_periodic_k5": (lambda: stencils.advection4((32, 40), periodic=True), "adv4", 5, ()),
+    "heat7_k8": (lambda: stencils.heat7((20, 18, 40)), "heat", 8, ()),
+    "heat7_periodic_k4": (lambda: stencils.heat7((12, 10, 24), periodic=True), "heat", 4, ()),
+    "relax_k8": (lambda: stencils.damped_jacobi((64, 128)), "relax", 8, (0.8,)),
+    "graded_k8": (lambda: stencils.graded((100, 70), lb=(3, -5)), "graded", 8, ()),
+    "graded_periodic_k5": (
+        lambda: stencils.graded((36, 44), lb=(3, -5), periodic=True), "graded", 5, ()
+    ),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SWEEPS)
+def test_stencil_sweeps_matches_plain_and_kernel_a(case, cuda):
+    build, name, k, scalars = SWEEPS[case]
+    module = build()
+    plan = sweeps.sweep_plan(module, name, k)
+    shape = plan.op.results[0].type.bounds.shape
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(shape).astype(np.float32)).to(cuda)
+    before = sweeps.counter.count
+    got = sweeps.run_sweeps(plan, x, scalars)
+    torch.cuda.synchronize()
+    assert sweeps.counter.count == before + 1
+    assert torch.equal(got, sweeps.sweeps_plain(plan, x, scalars))
+    sv = [torch.tensor(s, dtype=torch.float32) for s in scalars]
+    ref = x
+    for _ in range(plan.depth):
+        ref = cuda_backend.try_execute_apply(plan.op, [ref] + sv)
+    assert torch.equal(got, ref)  # --fmad=false: bitwise depth launches of kernel A
+    # the executor's route: k // depth launches, the rest single applies
+    cm = CompiledModule(module)
+    before = sweeps.counter.count, cuda_backend.counter.count
+    y = cm.sweeps(name, k)(x, *scalars)
+    torch.cuda.synchronize()
+    assert sweeps.counter.count - before[0] == k // plan.depth
+    assert cuda_backend.counter.count - before[1] == k % plan.depth
+    z = x
+    for _ in range(k):
+        z = cm.opdef(name)(z, *scalars)
+    assert torch.equal(y, z)
+
+
+@pytest.mark.gpu
+def test_stencil_sweeps_one_launch_at_full_depth(cuda):
+    module = stencils.heat7((16, 16, 40))
+    plan = sweeps.sweep_plan(module, "heat", 8, depth=8)
+    assert plan.depth == 8
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((16, 16, 40)).astype(np.float32)).to(cuda)
+    assert torch.equal(sweeps.run_sweeps(plan, x, ()), sweeps.sweeps_plain(plan, x, ()))
+
+
+# (module, opdef, field count, scalars): kernel D cases
+CHAINS = {
+    "composite": (lambda: stencils.composite((64, 128)), "wrapped", 1, ()),
+    "composite_ragged": (lambda: stencils.composite((70, 45)), "wrapped", 1, ()),
+    "mixed": (lambda: stencils.composite((40, 72), mixed=True), "wrapped", 1, ()),
+    "coupled": (lambda: stencils.coupled((64, 100)), "couple", 2, (0.7, -1.3)),
+    "composite_3d": (lambda: stencils.composite((12, 20, 40)), "wrapped", 1, ()),
+    "mixed_3d": (lambda: stencils.composite((10, 12, 36), mixed=True), "wrapped", 1, ()),
+    "graded_mixed": (lambda: stencils.graded_chain((40, 72), lb=(3, -5)), "wrapped", 1, ()),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CHAINS)
+def test_stencil_chain_matches_per_stage(case, cuda):
+    build, name, n_fields, scalars = CHAINS[case]
+    module = build()
+    plan = chain.chain_plan(module, name)
+    rng = np.random.default_rng(5)
+    fields = [
+        torch.from_numpy(rng.standard_normal(plan.outer.shape).astype(np.float32)).to(cuda)
+        for _ in range(n_fields)
+    ]
+    sv = [torch.tensor(s, dtype=torch.float32) for s in scalars]
+    cm = CompiledModule(module)
+    before = chain.counter.count, cuda_backend.counter.count
+    got = cm.opdef(name)(*fields, *scalars)
+    torch.cuda.synchronize()
+    assert chain.counter.count - before[0] == 1
+    assert cuda_backend.counter.count == before[1]
+    assert torch.equal(got, chain.chain_plain(plan, fields, sv))
+    # stage at a time through kernel A
+    before = cuda_backend.counter.count
+    per_stage = cm._make_callable(module.lookup(name))(*fields, *scalars)
+    assert cuda_backend.counter.count - before == len(plan.stages)
+    assert torch.equal(got, per_stage)
+
+
+@pytest.mark.gpu
+def test_dsl_sweeps_and_composite_on_gpu(cuda):
+    import neptune_tpu_torch as ntt
+
+    ntt.reset_context()
+    try:
+        n = 96
+
+        @ntt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]), dtype="float32")
+        def lap(u):
+            return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal((n, n)).astype(np.float32)).to(cuda)
+        before = sweeps.counter.count
+        y = ntt.sweeps(lap, 8)(x)
+        assert sweeps.counter.count == before + 1
+        ref = x
+        for _ in range(8):
+            ref = lap(ref)
+        assert torch.equal(y, ref) and y.device.type == "cuda"
+    finally:
+        ntt.reset_context()
