@@ -13,8 +13,8 @@ went through its kernels, and prints CUDA-event timings. It exits non-zero,
 printing no result, when there is no CUDA device, when the port is not
 beside it, or when any phase fails.
 
-Phases (one or more lines each, then the kernels' JSON line, the card's
-nvidia-smi line, and the result line):
+Phases (one or more lines each, then the total time, the kernels' JSON
+line, the card's nvidia-smi line, and the result line):
   1. device and build: versions, nvcc seconds per library;
   2. kernel A (stencil_apply) against its plain version: f32 bitwise, bf16
      within one bf16 ulp;
@@ -28,7 +28,24 @@ nvidia-smi line, and the result line):
      plain version and by kernel A, bitwise;
   7. the DSL path end to end: bench.py's K-sweep and composite rows built
      with `neptune_tpu_torch`'s decorators, with launch counts, against the
-     per-stage route.
+     per-stage route;
+  8. the sharded path on a mesh of one process (`neptune_tpu_torch.parallel`):
+     first the shard-local kernel forms (kernel A's window form, kernel C's
+     local form, kernel D's origin form) against their plain versions on a
+     block at a global start that is not 0, bitwise; then the JAX package's
+     `shardmap_*` benchmark rows, each bitwise against the same route with
+     the kernels off and against the whole-grid route, with launch counts
+     and times;
+  9. four processes on the one card, joined by gloo (NCCL refuses two
+     processes on one GPU): the sharded routes on (2,2) and (4,1) meshes
+     and a sharded GMRES solve, gathered and held against the one-process
+     whole-grid result.
+
+The kernels' JSON line gives, for each kernel, its time and its plain
+version's at the main path's shape, the least time the card could take
+(bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
+over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
+PyTorch call that computes the same function where there is one.
 """
 
 from __future__ import annotations
@@ -44,6 +61,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+
+# the H100 SXM's published peaks (NVIDIA's data sheet): device memory rate
+# and f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def say(*parts) -> None:
@@ -134,6 +156,41 @@ def busy_share(fn, reps: int) -> tuple[float, float]:
     return dev / reps / 1e3, dev / wall_us
 
 
+def op_profile(fn, reps: int) -> tuple[float, float, float]:
+    """(host wall ms per call, device ms per call, device operations per
+    call) of fn(), from a torch.profiler trace of `reps` calls: what a
+    host-bound call spends beside its device work, and on how many
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (wall_ms / reps, sum(e.device_time_total for e in dev) / reps / 1e3,
+            sum(e.count for e in dev) / reps)
+
+
+def host_ms(fn, reps: int, sync) -> tuple[float, float, float]:
+    """(median, min, max) host milliseconds of single calls of fn(), each
+    synchronised, after one warm-up call."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), min(times), max(times)
+
+
 def copy_gbs(nbytes: int, reps: int = 20) -> float:
     """A same-moment device-to-device copy moving `nbytes` (read + write)."""
     import torch
@@ -142,6 +199,89 @@ def copy_gbs(nbytes: int, reps: int = 20) -> float:
     dst = torch.empty_like(src)
     ms = cuda_ms(lambda: dst.copy_(src), reps)
     return 2 * src.numel() * 4 / ms / 1e6
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it): each input
+    byte read once and each output byte written once over the memory rate,
+    against the operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def impulse_weight(apply_at, rank: int, reach: int, start):
+    """The coefficients of a linear constant-coefficient stencil, as a
+    convolution weight: apply_at(block, start) on a unit impulse at the
+    centre of a (4 reach + 1)^rank block whose cells all compute; None when
+    the stencil is not linear (its response to 0 is not 0)."""
+    import torch
+
+    n = 4 * reach + 1
+    delta = torch.zeros((n,) * rank, dtype=torch.float32)
+    if bool(apply_at(delta, start).abs().max() > 0):
+        return None
+    delta[(2 * reach,) * rank] = 1.0
+    y = apply_at(delta, start)
+    # y[p - o] = c_o; a convolution reads w[k] at x[i + k - reach]
+    w = torch.flip(y[(slice(reach, 3 * reach + 1),) * rank], dims=tuple(range(rank)))
+    return w.float()
+
+
+def conv_call(w, x):
+    """One PyTorch convolution computing a stencil's interior."""
+    import torch.nn.functional as F
+
+    conv = F.conv2d if x.dim() == 2 else F.conv3d
+    return lambda: conv(x[None, None], w.to(x.device, x.dtype)[None, None])
+
+
+def _library(w, x, got, reach: int):
+    """(ms, text) of the convolution with weight w on x, after checking
+    that it computes got's interior (cells `reach` in from the edge)."""
+    import torch
+
+    call = conv_call(w, x)
+    lib = call()[0, 0]
+    inner = got[(slice(reach, -reach),) * got.dim()].float()
+    rel = ((lib.float() - inner).abs().max() / inner.abs().max()).item()
+    require(rel <= (1e-5 if x.dtype == torch.float32 else 3e-2),
+            f"library convolution differs from the kernel by {rel!r}")
+    ms = cuda_ms(call, 20)
+    return ms, f"{ms:.4f} ms (conv{x.dim()}d {tuple(w.shape)}, interior rel diff {rel:.1e})"
+
+
+def library_for_apply(op, args, got):
+    """One PyTorch convolution computing a single-input, linear,
+    constant-coefficient bounded apply's interior: (ms, text), or (None,
+    "none")."""
+    from neptune_tpu_torch.lowering import torch_backend
+
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    if n_in != 1 or len(op.operands) != 1 or len(op.results) != 1 or op.attrs.get("periodic"):
+        return None, "none"
+    rank = op.results[0].type.bounds.rank
+    reach = max(max(h) for h in op.attrs["shape"].halo())
+    w = impulse_weight(
+        lambda d, st: torch_backend.execute_apply_window(op, [d], [], st),
+        rank, reach, op.attrs["bounds"].lb,
+    )
+    if w is None:
+        return None, "none"
+    return _library(w, args[0], got, reach)
+
+
+def library_for_chain(plan, fields, got):
+    """The same for a one-field linear chain (its composed stencil)."""
+    from neptune_tpu_torch.lowering import chain
+
+    reach = max(plan.reach)
+    start = [lo + reach for lo in plan.outer.lb]
+    w = impulse_weight(
+        lambda d, st: chain.chain_plain(plan, [d], [], global_start=st), plan.rank, reach, start
+    )
+    if w is None:
+        return None, "none"
+    return _library(w, fields[0], got, reach)
 
 
 def rand(rng, shape, dev):
@@ -154,7 +294,10 @@ def counters():
     from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps
     from neptune_tpu_torch.solvers import fused
 
-    return {c.name: c for c in (cuda_backend.counter, fused.counter, sweeps.counter, chain.counter)}
+    return {c.name: c for c in (
+        cuda_backend.counter, fused.counter, sweeps.counter, chain.counter,
+        cuda_backend.window_counter, sweeps.local_counter, chain.origin_counter,
+    )}
 
 
 def dsl_rows(ntt):
@@ -244,7 +387,365 @@ def dsl_rows(ntt):
     return rows
 
 
+
+def sharded_rows():
+    """The JAX package's `shardmap_*` rows (bench.py, benchmarks/results.json)
+    at their full sizes: (row, module, opdef, sweeps per call or None, the
+    local form the row must launch)."""
+    from neptune_tpu_torch import stencils
+
+    return [
+        ("shardmap_fused_1dev_4096", stencils.jacobi5((4096, 4096)), "jacobi", None,
+         "stencil_apply_window"),
+        ("shardmap_fused_1dev_4096_bf16", stencils.jacobi5((4096, 4096), "bfloat16"), "jacobi",
+         None, "stencil_apply_window"),
+        ("shardmap_fused_1dev_heat3d_256", stencils.heat7((256, 256, 256)), "heat", None,
+         "stencil_apply_window"),
+        ("shardmap_sweeps_k8_1dev_4096", stencils.jacobi5((4096, 4096)), "jacobi", 8,
+         "stencil_sweeps_local"),
+        ("shardmap_composite_1dev_1024", stencils.composite((1024, 1024)), "wrapped", None,
+         "stencil_chain_origin"),
+        ("shardmap_composite_1dev_4096", stencils.composite((4096, 4096)), "wrapped", None,
+         "stencil_chain_origin"),
+        ("shardmap_dma_1dev_adv4_4096", stencils.advection4((4096, 4096)), "adv4", None,
+         "stencil_apply_window"),
+        ("advection4_8192_twolevel_sharded_k16", stencils.advection4((8192, 8192)), "adv4", 16,
+         "stencil_sweeps_local"),
+    ]
+
+
+# phase 9: (label, builder of the module, opdef, mesh, sweeps per call or
+# None, the local form each rank must launch, or None for the eager route)
+PHASE9 = [
+    ("5-pt 4096^2 on (2,2)", "jacobi5", "jacobi", (2, 2), None, "stencil_apply_window"),
+    ("7-pt 256^3 on (4,1)", "heat7", "heat", (4, 1), None, "stencil_apply_window"),
+    ("K=8 sweeps 4096^2 on (2,2)", "jacobi5", "jacobi", (2, 2), 8, "stencil_sweeps_local"),
+    ("composite 4096^2 on (2,2)", "composite", "wrapped", (2, 2), None, "stencil_chain_origin"),
+    ("periodic adv4 4096^2 on (2,2)", "adv4_periodic", "adv4", (2, 2), None, None),
+]
+
+
+# single calls timed per phase-9 case, on each rank's host clock
+PHASE9_REPS = 5
+
+
+def phase9_module(kind: str, n: int, m: int):
+    from neptune_tpu_torch import stencils
+
+    return {
+        "jacobi5": lambda: stencils.jacobi5((n, n)),
+        "heat7": lambda: stencils.heat7((m, m, m)),
+        "composite": lambda: stencils.composite((n, n)),
+        "adv4_periodic": lambda: stencils.advection4((n, n), periodic=True),
+    }[kind]()
+
+
+def phase9_rank(argv) -> int:
+    """One of phase 9's four processes: chip_smoke.py --phase9-rank RANK
+    WORLD PORT OUT_DIR DEVICE N M runs the phase-9 cases at N^2 / M^3 on its
+    blocks and writes OUT_DIR/rankRANK.json; rank 0 also runs the
+    one-process whole-grid routes and compares."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, out, device, n, m = argv
+    rank, world, n, m = int(rank), int(world), int(n), int(m)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    sys.path.insert(0, str(ROOT))
+    from neptune_tpu_torch import entry
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import (
+        GridMesh, initialize_multihost, shardmap_opdef, shardmap_sweeps,
+    )
+    from neptune_tpu_torch.solvers import krylov
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    report = {"rank": rank, "device": str(dev), "rows": []}
+    for label, kind, name, mesh, k, form in PHASE9:
+        module = phase9_module(kind, n, m)
+        gm = GridMesh(mesh, ("x", "y"), device=dev)
+        cm = CompiledModule(module)
+        shape = module.lookup(name).ftype.inputs[0].bounds.shape
+        x = np.random.default_rng(SEED).standard_normal(shape, dtype=np.float32)
+        xl = gm.shard(x)
+        f = shardmap_opdef(cm, name, gm) if k is None else shardmap_sweeps(cm, name, gm, k)
+        f(xl)
+        sync()
+        for c in counters().values():
+            c.reset()
+        gm.staged_bytes = gm.sent_bytes = 0
+        dist.barrier()
+        y = f(xl)
+        sync()
+        row = {
+            "label": label, "launches": {c.name: c.count for c in counters().values() if c.count},
+            "form": form, "sent_bytes": gm.sent_bytes, "staged_bytes": gm.staged_bytes,
+            "device": str(y.device),
+        }
+        dist.barrier()
+        row["call_ms"] = host_ms(lambda: f(xl), PHASE9_REPS, sync)
+        g = gm.gather(y)
+        if rank == 0:
+            xg = torch.from_numpy(x).to(dev)
+            whole = cm.opdef(name) if k is None else cm.sweeps(name, k)
+            ref = whole(xg)
+            row["whole_ms"] = host_ms(lambda: whole(xg), PHASE9_REPS, sync)
+            row["bitwise"] = bool(torch.equal(g, ref))
+            row["max_abs_err"] = (g.float() - ref.float()).abs().max().item()
+        report["rows"].append(row)
+        del g, y, xl
+        dist.barrier()
+
+    # sharded GMRES on the 256^3 heat3d_A system of the 3-D entry step
+    cm3 = entry.build_step_3d(m, "float32", device=dev)
+    gm = GridMesh((4, 1), ("x", "y"), device=dev)
+    b = np.random.default_rng(SEED + 1).standard_normal((m, m, m), dtype=np.float32)
+    mv = shardmap_opdef(cm3, "heat3d_A", gm)
+    t0 = time.perf_counter()
+    xs, info = krylov.gmres(mv, gm.shard(b), tol=1e-6, maxiter=120, group=gm.group)
+    sync()
+    gm_ms = (time.perf_counter() - t0) * 1e3
+    xg = gm.gather(xs)
+    solve = {"iters": info.iters, "converged": info.converged, "ms": gm_ms}
+    if rank == 0:
+        bg = torch.from_numpy(b).to(dev)
+        A = cm3.opdef("heat3d_A")
+        t0 = time.perf_counter()
+        _, winfo = krylov.gmres(A, bg, tol=1e-6, maxiter=120)
+        sync()
+        solve["whole_ms"] = (time.perf_counter() - t0) * 1e3
+        solve["whole_iters"] = winfo.iters
+        solve["true_rel_residual"] = (
+            torch.linalg.vector_norm(bg - A(xg)) / torch.linalg.vector_norm(bg)
+        ).item()
+    report["gmres"] = solve
+    Path(out, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase9(device: str, n: int, m: int, timeout: float) -> dict:
+    """Spawn the four phase-9 processes (the kernels are built already),
+    wait for them, and check their reports."""
+    import os
+    import socket
+    import tempfile
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    out = tempfile.mkdtemp(prefix="nt_phase9_")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase9-rank", str(r), "4", port,
+             out, device, str(n), str(m)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(4)
+    ]
+    logs = []
+    try:
+        deadline = time.perf_counter() + timeout
+        for pr in procs:
+            logs.append(pr.communicate(timeout=max(deadline - time.perf_counter(), 1))[0])
+    except subprocess.TimeoutExpired:
+        fail("phase 9: the four processes did not finish in time")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, (pr, log) in enumerate(zip(procs, logs)):
+        require(pr.returncode == 0, f"phase 9 rank {r} exited {pr.returncode}:\n{log[-4000:]}")
+    reports = [json.loads(Path(out, f"rank{r}.json").read_text()) for r in range(4)]
+    for r in range(4):
+        Path(out, f"rank{r}.json").unlink()
+    os.rmdir(out)
+    return {"reports": reports}
+
+
+def phase8_forms(dev, rng):
+    """The shard-local kernel forms against their plain versions on a block
+    at a global start that is not 0 (bitwise; bf16 within one ulp), and
+    their times, bounds and library calls at the main path's shapes (the
+    1-process mesh: the whole 4096^2 grid as one block)."""
+    import torch
+
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.kernels import codegen
+    from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps, torch_backend
+
+    checks = []
+    errs = {"stencil_apply_window": 0.0, "stencil_sweeps_local": 0.0, "stencil_chain_origin": 0.0}
+
+    def err_of(name, got, ref):
+        errs[name] = max(errs[name], (got.float() - ref.float()).abs().max().item())
+
+    for label, module, block, gstart in (
+        ("jacobi5", stencils.jacobi5((4096, 4096)), (2048, 2048), (2048, 2048)),
+        ("jacobi5 bf16", stencils.jacobi5((4096, 4096), "bfloat16"), (2048, 2048), (0, 2048)),
+        ("adv4 (h0=2)", stencils.advection4((4096, 4096)), (2048, 4096), (2048, 0)),
+        ("heat7 rank 3", stencils.heat7((256, 256, 256)), (64, 256, 256), (128, 0, 0)),
+        ("graded index()", stencils.graded((4096, 4096), lb=(3, -5)), (2048, 2048), (2051, 2043)),
+    ):
+        op = stencils.the_apply(module)
+        dtype = torch_backend.DTYPES[op.results[0].type.element]
+        x = rand(rng, block, dev).to(dtype)
+        got = cuda_backend.apply_window(op, [x], [], gstart)
+        ref = torch_backend.execute_apply_window(op, [x], [], gstart)
+        err_of("stencil_apply_window", got, ref)
+        if dtype == torch.float32:
+            require(torch.equal(got, ref), f"window form {label}: kernel != plain")
+        else:
+            ulps = int((got.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max())
+            require(ulps <= 1, f"window form {label}: {ulps} bf16 ulps from plain")
+        checks.append(f"window {label} block {block} at {gstart}")
+    for label, module, k, block, gstart in (
+        ("jacobi5 K=8", stencils.jacobi5((4096, 4096)), 8, (2048, 2048), (2048, 0)),
+        ("adv4 K=16", stencils.advection4((8192, 8192)), 16, (4096, 8192), (4096, 0)),
+    ):
+        op = stencils.the_apply(module)
+        plan = sweeps.local_sweep_plan(op, block, k)
+        x = rand(rng, block, dev)
+        got = sweeps.run_sweeps(plan, x, [], gstart)
+        ref = sweeps.sweeps_plain(plan, x, [], gstart)
+        err_of("stencil_sweeps_local", got, ref)
+        require(torch.equal(got, ref), f"local form {label}: kernel != plain")
+        checks.append(f"local {label} (depth {plan.depth}) block {block} at {gstart}")
+    for label, module, name, n_f, sc, block, gstart in (
+        ("composite", stencils.composite((4096, 4096)), "wrapped", 1, (), (2048, 2048), (2048, 2048)),
+        ("two fields + scalars", stencils.coupled((4096, 4096)), "couple", 2, (0.7, -1.3),
+         (2048, 4096), (2048, 0)),
+    ):
+        plan = chain.chain_plan(module, name, block)
+        fields = [rand(rng, block, dev) for _ in range(n_f)]
+        sv = [torch.tensor(v, dtype=torch.float32) for v in sc]
+        got = chain.run_chain(plan, fields, sv, global_start=gstart)
+        ref = chain.chain_plain(plan, fields, sv, global_start=gstart)
+        err_of("stencil_chain_origin", got, ref)
+        require(torch.equal(got, ref), f"origin form {label}: kernel != plain")
+        checks.append(f"origin {label} block {block} at {gstart}")
+    torch.cuda.synchronize()
+    say("phase 8 forms: bitwise equal to their plain versions (bf16 within 1 ulp): "
+        + "; ".join(checks))
+
+    # times at the main path's shapes: the 4096^2 grid as the 1-process block
+    out = {}
+    g0 = (0, 0)
+    x = rand(rng, (4096, 4096), dev)
+    cells = float(x.numel())
+    op = stencils.the_apply(stencils.jacobi5((4096, 4096)))
+    k_ms, p_ms = abba(lambda: cuda_backend.apply_window(op, [x], [], g0),
+                      lambda: torch_backend.execute_apply_window(op, [x], [], g0), 20)
+    lib_ms, lib_txt = library_for_apply(op, [x], cuda_backend.apply_window(op, [x], [], g0))
+    out["stencil_apply_window"] = (k_ms, p_ms, bound(8 * cells, codegen.body_ops(op) * cells),
+                                   lib_ms, "jacobi5 4096^2 f32, one block")
+    plan = sweeps.local_sweep_plan(op, (4096, 4096), 8)
+    k_ms, p_ms = abba(lambda: sweeps.run_sweeps(plan, x, [], g0),
+                      lambda: sweeps.sweeps_plain(plan, x, [], g0), 3)
+    out["stencil_sweeps_local"] = (
+        k_ms, p_ms, bound(8 * cells, plan.depth * cells * codegen.body_ops(op)), None,
+        f"jacobi5 4096^2 f32, {plan.depth} sweeps, one block")
+    comp = stencils.composite((4096, 4096))
+    cplan = chain.chain_plan(comp, "wrapped", (4096, 4096))
+    k_ms, p_ms = abba(lambda: chain.run_chain(cplan, [x], [], global_start=g0),
+                      lambda: chain.chain_plain(cplan, [x], [], global_start=g0), 10)
+    y = chain.run_chain(cplan, [x], [], global_start=g0)
+    lib_ms_d, lib_txt_d = library_for_chain(cplan, [x], y)
+    out["stencil_chain_origin"] = (
+        k_ms, p_ms, bound(8 * cells, cells * sum(codegen.body_ops(st.op) for st in cplan.stages)),
+        lib_ms_d, "u + 0.01 lap(lap u) 4096^2 f32, one block")
+    for name, (k_ms, p_ms, (b_ms, b_by), lib, shape) in out.items():
+        out[name] = (k_ms, p_ms, (b_ms, b_by), lib, shape, errs[name])
+        say(f"phase 8 {name} at {shape}: max_abs_err={errs[name]!r}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library "
+            + (lib_txt if name == "stencil_apply_window" else
+               lib_txt_d if name == "stencil_chain_origin" else "none"))
+    return out
+
+
+def phase8_rows(dev, rng, check_launches: bool = True) -> dict:
+    """The JAX package's shardmap_* rows on a mesh of one process: each
+    bitwise against the same route with the kernels off and against the
+    whole-grid route, with its launches and times. Returns the launch
+    counts of all rows together."""
+    import torch
+
+    from neptune_tpu_torch.lowering import sweeps
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.lowering.torch_backend import DTYPES
+    from neptune_tpu_torch.parallel import GridMesh, shardmap_opdef, shardmap_sweeps
+
+    gm = GridMesh((1,), ("x",), device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rows = []
+    for label, module, name, k, form in sharded_rows():
+        cm = CompiledModule(module)
+        t = module.lookup(name).ftype.inputs[0]
+        x = rand(rng, t.bounds.shape, dev).to(DTYPES[t.element])
+        if k is None:
+            f, plain, whole = (shardmap_opdef(cm, name, gm), shardmap_opdef(cm, name, gm, "torch"),
+                               cm.opdef(name))
+        else:
+            f, plain, whole = (shardmap_sweeps(cm, name, gm, k),
+                               shardmap_sweeps(cm, name, gm, k, "torch"), cm.sweeps(name, k))
+        rows.append((label, x, f, plain, whole, k, form, module, name))
+        f(x)  # warm up
+    sync()
+    for c in counters().values():
+        c.reset()
+    outs, per_row = [], []
+    for label, x, f, *_ in rows:
+        before = {n: c.count for n, c in counters().items()}
+        outs.append(f(x))
+        sync()
+        per_row.append({n: c.count - before[n] for n, c in counters().items()})
+    launches = {n: c.count for n, c in counters().items()}
+    for (label, x, f, plain, whole, k, form, module, name), y, got in zip(rows, outs, per_row):
+        if check_launches:
+            require(got[form] > 0, f"phase 8 {label}: {form} not launched ({got})")
+            if k is not None:
+                plan = sweeps.local_sweep_plan(sweeps.find_sweep_apply(module, name), tuple(x.shape), k)
+                require((got["stencil_sweeps_local"], got["stencil_apply_window"])
+                        == (k // plan.depth, k % plan.depth), f"phase 8 {label}: launches {got}")
+        p = plain(x)
+        w = whole(x)
+        if x.dtype == torch.float32:
+            require(torch.equal(y, p), f"phase 8 {label}: kernels != kernels off "
+                    f"(max err {(y - p).abs().max().item()})")
+        else:
+            ulps = int((y.view(torch.int16).int() - p.view(torch.int16).int()).abs().max())
+            require(ulps <= 1, f"phase 8 {label}: {ulps} bf16 ulps from the kernels-off route")
+        require(torch.equal(y, w) and bool(torch.isfinite(y.float()).all()),
+                f"phase 8 {label}: sharded route != whole-grid route")
+        if dev.type != "cuda":
+            continue
+        # timed in turns whole, sharded, sharded, whole; the two sharded
+        # runs give the spread
+        reps = 3 if x.numel() > 3e7 else 10
+        w1, s1, s2, w2 = (cuda_ms(g, reps) for g in (lambda: whole(x), lambda: f(x),
+                                                     lambda: f(x), lambda: whole(x)))
+        wall, dev_ms, n_ops = op_profile(lambda: f(x), reps)
+        say(f"phase 8 {label}: launches {json.dumps({n: v for n, v in got.items() if v})}; "
+            f"bitwise = kernels off = whole-grid route; {(s1 + s2) / 2:.4f} ms per call "
+            f"(runs of {reps}: {s1:.4f}, {s2:.4f}), whole-grid route {(w1 + w2) / 2:.4f} ms "
+            f"({w1:.4f}, {w2:.4f}); traced: {n_ops:.0f} device ops per call, device busy "
+            f"{dev_ms:.4f} of {wall:.4f} ms wall ({1e3 * (wall - dev_ms) / n_ops:.1f} us "
+            f"idle per device op)")
+    return launches
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
+        return phase9_rank(sys.argv[2:])
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -324,6 +825,20 @@ def main() -> int:
             d_plans.append(chain.chain_plan(cm.module, name))
         else:
             c_plans.append(sweeps.sweep_plan(cm.module, name, k))
+    # phases 8 and 9: the local forms' plans at their block shapes, and the
+    # applies they reach (the window form builds kernel A's source)
+    for module, k, blocks in (
+        (stencils.jacobi5((4096, 4096)), 8, ((4096, 4096), (2048, 2048))),
+        (stencils.advection4((8192, 8192)), 16, ((8192, 8192), (4096, 8192))),
+    ):
+        op = stencils.the_apply(module)
+        c_plans += [sweeps.local_sweep_plan(op, b, k) for b in blocks]
+    for module, name, blocks in (
+        (stencils.composite((4096, 4096)), "wrapped", ((4096, 4096), (2048, 2048))),
+        (stencils.composite((1024, 1024)), "wrapped", ((1024, 1024),)),
+        (stencils.coupled((4096, 4096)), "couple", ((2048, 4096),)),
+    ):
+        d_plans += [chain.chain_plan(module, name, b) for b in blocks]
     require(all(p is not None for p in c_plans + d_plans), "a kernel C or D case has no plan")
 
     # ---- phase 1: device and build -------------------------------------
@@ -335,6 +850,7 @@ def main() -> int:
         sources.append(codegen.apply_source(stencils.the_apply(m)))
     config.fold_affine = fold_default
     sources.append(codegen.apply_source(stencils.the_apply(step3d_cm.module)))
+    sources.append(codegen.apply_source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
     cg_sources = [codegen.fused_cg_source(fused.matvec_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -349,7 +865,7 @@ def main() -> int:
         + ", ".join(f"{k}={v:.1f}" for k, v in sorted(builder.build_seconds.items())))
 
     # ---- phase 2: kernel A against its plain version -------------------
-    a_err, a_ms, a_plain_ms = 0.0, None, None
+    a_err, a_ms, a_plain_ms, a_bound, a_lib = 0.0, None, None, None, None
     for label, module, fold in A_CASES:
         config.fold_affine = fold
         op = stencils.the_apply(module)
@@ -388,19 +904,22 @@ def main() -> int:
         dev_us = device_us(lambda: cuda_backend.try_execute_apply(op, args), 20, "nt_apply_kernel")
         cells = float(np.prod(shape))
         nbytes = (n_in + len(op.results)) * cells * gots[0].element_size()
+        b_ms, b_by = bound(nbytes, codegen.body_ops(op) * cells)
+        lib_ms, lib_txt = library_for_apply(op, args, gots[0])
         dev_txt = "not measured" if dev_us is None else (
             f"{dev_us:.1f} us ({cells / dev_us / 1e3:.2f} Gcell/s, {nbytes / dev_us / 1e3:.1f} GB/s)"
         )
         say(f"phase 2 stencil_apply {label}: max_abs_err={err!r} bf16_ulps={ulps} "
             f"launches+{launched}; kernel {k_ms:.4f} ms per call ({cells / k_ms / 1e6:.2f} Gcell/s, "
             f"{nbytes / k_ms / 1e6:.1f} GB/s), device time {dev_txt}; plain {p_ms:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}); library {lib_txt}; "
             f"d2d copy of the same bytes {copy_gbs(int(nbytes)):.1f} GB/s")
         if label == "jacobi5 4096^2 f32":
-            a_ms, a_plain_ms = k_ms, p_ms
+            a_ms, a_plain_ms, a_bound, a_lib = k_ms, p_ms, (b_ms, b_by), lib_ms
     config.fold_affine = fold_default
 
     # ---- phase 3: kernel B against its plain version -------------------
-    b_err, b_ms, b_plain_ms = 0.0, None, None
+    b_err, b_ms, b_plain_ms, b_bound = 0.0, None, None, None
     for label, module, name, tol, maxiter, jacobi in B_CASES:
         n = module.lookup(name).ftype.inputs[0].bounds.shape
         stages = fused.matvec_plan(module, name)
@@ -436,14 +955,20 @@ def main() -> int:
         p_ms = cuda_ms(
             lambda: fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv), reps=1
         )
-        say(f"phase 3 fused_cg {label}: iters kernel {int(it_k)} plain {int(it_p)}; "
+        cells = float(np.prod(n))
+        # per iteration: the matvec's stages, then 13 vector operations per
+        # cell (two dot products, three axpys, the Jacobi scaling, the norm)
+        ops = int(it_k) * cells * (sum(codegen.body_ops(st.op) for st in stages) + 13)
+        b_ms_cg, b_by_cg = bound((3 if jacobi else 2) * 4 * cells, ops)
+        say(f"phase 3 fused_cg {label}: bound {b_ms_cg:.4f} ms ({b_by_cg}), library none; "
+            f"iters kernel {int(it_k)} plain {int(it_p)}; "
             f"recurrence resnorm {rn_k.item()!r}; true residual kernel {res_k!r} plain {res_p!r} "
             f"(tol*||b|| {tol * bnorm!r}); rel x diff {rel_x!r}; max_abs_err={err!r}; "
             f"launches+{launched}; kernel {k_ms:.3f} ms/solve ({int(it_k) / k_ms * 1e3:.0f} iters/s; "
             f"device time {'not measured' if k_dev is None else f'{k_dev / 1e3:.3f} ms'}) "
             f"plain {p_ms:.3f} ms/solve")
         if name == "poisson":
-            b_ms, b_plain_ms = k_ms, p_ms
+            b_ms, b_plain_ms, b_bound = k_ms, p_ms, (b_ms_cg, b_by_cg)
 
     # ---- phase 4: the main path end to end ------------------------------
     step, (u0,) = entry.entry(dev)
@@ -530,7 +1055,7 @@ def main() -> int:
         f"{4096 * 4096 / jac_ms / 1e6:.2f} Gcell/s); wall {wall:.1f}s")
 
     # ---- phase 5: kernel C against its plain version and kernel A -------
-    c_err, c_ms, c_plain_ms = 0.0, None, None
+    c_err, c_ms, c_plain_ms, c_bound = 0.0, None, None, None
     for label, module, name, k, sc, depths in C_CASES:
         plan = sweeps.sweep_plan(module, name, k)
         shape = plan.op.results[0].type.bounds.shape
@@ -569,7 +1094,7 @@ def main() -> int:
         plain = CompiledModule(module, backend="torch").sweeps(name, k)
         reps = 3 if cells > 3e7 else 10
         k_ms, p_ms = abba(lambda: run(x, *sc), lambda: plain(x, *sc), reps)
-        a_ms = cuda_ms(k_launches, reps)
+        ka_ms = cuda_ms(k_launches, reps)
         dev_us = device_us(lambda: run(x, *sc), reps, "nt_sweeps_kernel")
         depth_txt = []
         for d in depths:
@@ -585,18 +1110,20 @@ def main() -> int:
             depth_txt.append(f"depth {d} (tile {pd.tile}, {pd.smem_bytes} B smem, recompute "
                              f"{pd.recompute:.2f}) {cuda_ms(at_depth, reps):.4f} ms")
         dev_txt = "not measured" if dev_us is None else f"{dev_us:.1f} us"
-        say(f"phase 5 stencil_sweeps {label}: depth {plan.depth} x{k // plan.depth} launches "
+        b_ms_c, b_by_c = bound(8 * cells, k * cells * codegen.body_ops(plan.op))
+        say(f"phase 5 stencil_sweeps {label}: bound {b_ms_c:.4f} ms ({b_by_c}), library none; "
+            f"depth {plan.depth} x{k // plan.depth} launches "
             f"(tile {plan.tile}, {plan.smem_bytes} B smem, recompute {plan.recompute:.2f}), "
             f"bitwise = plain = {k} kernel-A launches; kernel {k_ms:.4f} ms per call "
             f"({k_ms * 1e3 / k:.2f} us per sweep, {8 * cells * k / k_ms / 1e6:.1f} GB/s effective; "
             f"d2d copy {copy_gbs(int(8 * cells)):.1f} GB/s), device {dev_txt}; "
-            f"plain {p_ms:.4f} ms; {k} kernel-A launches {a_ms:.4f} ms"
+            f"plain {p_ms:.4f} ms; {k} kernel-A launches {ka_ms:.4f} ms"
             + ("; " + "; ".join(depth_txt) if depth_txt else ""))
         if label == "jacobi5 4096^2 K=16":
-            c_ms, c_plain_ms = k_ms, p_ms
+            c_ms, c_plain_ms, c_bound = k_ms, p_ms, (b_ms_c, b_by_c)
 
     # ---- phase 6: kernel D against the stages one at a time -------------
-    d_err, d_ms, d_plain_ms = 0.0, None, None
+    d_err, d_ms, d_plain_ms, d_bound, d_lib = 0.0, None, None, None, None
     for label, module, name, n_fields, sc in D_CASES:
         plan = chain.chain_plan(module, name)
         shape = plan.outer.shape
@@ -623,18 +1150,21 @@ def main() -> int:
         d_err = max(d_err, err)
         reps = 5 if cells > 3e7 else 20
         k_ms, p_ms = abba(lambda: run(*fields, *sc), lambda: chain.chain_plain(plan, fields, sv), reps)
-        a_ms = cuda_ms(lambda: stages(*fields, *sc), reps)
+        ka_ms = cuda_ms(lambda: stages(*fields, *sc), reps)
         dev_us = device_us(lambda: run(*fields, *sc), reps, "nt_chain_kernel")
         nbytes = (n_fields + 1) * 4 * cells
         dev_txt = "not measured" if dev_us is None else (
             f"{dev_us:.1f} us ({nbytes / dev_us / 1e3:.1f} GB/s)")
-        say(f"phase 6 stencil_chain {label}: {len(plan.stages)} stages in 1 launch (tile "
+        b_ms_d, b_by_d = bound(nbytes, cells * sum(codegen.body_ops(st.op) for st in plan.stages))
+        lib_ms_d, lib_txt_d = library_for_chain(plan, fields, y) if n_fields == 1 else (None, "none")
+        say(f"phase 6 stencil_chain {label}: bound {b_ms_d:.4f} ms ({b_by_d}), library {lib_txt_d}; "
+            f"{len(plan.stages)} stages in 1 launch (tile "
             f"{plan.tile}, reach {plan.reach}, {plan.n_buffers} buffers, {plan.smem_bytes} B smem), "
             f"bitwise = plain = per-stage kernel A; kernel {k_ms:.4f} ms per call, device "
             f"{dev_txt}; d2d copy of (fields + result) {copy_gbs(int(nbytes)):.1f} GB/s; "
-            f"plain {p_ms:.4f} ms; per-stage kernel A {a_ms:.4f} ms")
+            f"plain {p_ms:.4f} ms; per-stage kernel A {ka_ms:.4f} ms")
         if label == "composite 4096^2":
-            d_ms, d_plain_ms = k_ms, p_ms
+            d_ms, d_plain_ms, d_bound, d_lib = k_ms, p_ms, (b_ms_d, b_by_d), lib_ms_d
 
     # ---- phase 7: the DSL path end to end --------------------------------
     inputs = [
@@ -678,40 +1208,87 @@ def main() -> int:
             f"DSL path launches {dsl_launches}")
     say(f"phase 7 DSL path launches: {json.dumps(dsl_launches)}")
 
+    # ---- phase 8: the sharded path on a mesh of one process ---------------
+    forms = phase8_forms(dev, rng)
+    sh_launches = phase8_rows(dev, rng)
+    say(f"phase 8 sharded path launches: {json.dumps({n: v for n, v in sh_launches.items() if v})}")
+
+    # ---- phase 9: four processes on the one card --------------------------
+    t9 = time.perf_counter()
+    reports = phase9("cuda:0", 4096, 256, timeout=480)["reports"]
+    for i, (label, _, _, mesh, k, form) in enumerate(PHASE9):
+        rows = [r["rows"][i] for r in reports]
+        require(all(row["device"].startswith("cuda") for row in rows),
+                f"phase 9 {label}: a result is not on the card")
+        if form is not None:
+            require(all(row["launches"].get(form, 0) > 0 for row in rows),
+                    f"phase 9 {label}: {form} not launched on every rank: "
+                    f"{[row['launches'] for row in rows]}")
+        r0 = rows[0]
+        require(r0["bitwise"], f"phase 9 {label}: gathered != whole grid (max err {r0['max_abs_err']})")
+        say(f"phase 9 {label}: gathered result bitwise = one-process whole-grid route; rank-0 "
+            f"launches {json.dumps(r0['launches'])}; strips sent per rank "
+            f"{max(row['sent_bytes'] for row in rows)} B, of which through host memory "
+            f"{max(row['staged_bytes'] for row in rows)} B; per call (host clock, rank 0, "
+            f"median [min, max] of {PHASE9_REPS}) {r0['call_ms'][0]:.3f} "
+            f"[{r0['call_ms'][1]:.3f}, {r0['call_ms'][2]:.3f}] ms, whole grid in one process "
+            f"{r0['whole_ms'][0]:.3f} [{r0['whole_ms'][1]:.3f}, {r0['whole_ms'][2]:.3f}] ms")
+    g = [r["gmres"] for r in reports]
+    g0 = g[0]
+    require(all(x["iters"] == g0["iters"] for x in g), f"phase 9 GMRES: ranks disagree {g}")
+    require(abs(g0["iters"] - g0["whole_iters"]) <= 1,
+            f"phase 9 GMRES: {g0['iters']} iterations against {g0['whole_iters']} in one process")
+    require(g0["converged"] and g0["true_rel_residual"] <= 1e-6,
+            f"phase 9 GMRES: true relative residual {g0['true_rel_residual']!r}")
+    say(f"phase 9 sharded GMRES heat3d_A 256^3 on (4,1), tol 1e-6: {g0['iters']} iterations "
+        f"(one process {g0['whole_iters']}), true relative residual {g0['true_rel_residual']!r}; "
+        f"{g0['ms']:.1f} ms (one process {g0['whole_ms']:.1f} ms; single solves); phase wall "
+        f"{time.perf_counter() - t9:.1f} s")
+
+    def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
+        if also:
+            e["also_replaces"] = also
+        e.update({
+            "launches": launches_n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib, "shape": shape,
+        })
+        return e
+
     kernels = [
-        {
-            "name": "stencil_apply", "route": "cuda",
-            "source": "neptune_tpu_torch/csrc/nt_apply.cuh",
-            "replaces": "neptune_tpu/lowering/pallas_backend.py:332",
-            "also_replaces": ["neptune_tpu/lowering/pallas_backend.py:845",
-                              "neptune_tpu/lowering/pallas_backend.py:1094"],
-            "launches": launches["stencil_apply"], "max_abs_err": a_err,
-            "ms": a_ms, "plain_ms": a_plain_ms, "shape": "jacobi5 4096^2 f32",
-        },
-        {
-            "name": "fused_cg", "route": "cuda",
-            "source": "neptune_tpu_torch/csrc/nt_fused_cg.cuh",
-            "replaces": "neptune_tpu/solvers/fused.py:201",
-            "launches": launches["fused_cg"], "max_abs_err": b_err,
-            "ms": b_ms, "plain_ms": b_plain_ms, "shape": "poisson 512^2 jacobi tol 1e-4",
-        },
-        {
-            "name": "stencil_sweeps", "route": "cuda",
-            "source": "neptune_tpu_torch/csrc/nt_sweeps.cuh",
-            "replaces": "neptune_tpu/lowering/pallas_multisweep.py:406",
-            "also_replaces": ["neptune_tpu/lowering/pallas_multisweep.py:676",
-                              "neptune_tpu/lowering/pallas_multisweep.py:904"],
-            "launches": dsl_launches["stencil_sweeps"], "max_abs_err": c_err,
-            "ms": c_ms, "plain_ms": c_plain_ms, "shape": "jacobi5 4096^2 f32, 16 sweeps",
-        },
-        {
-            "name": "stencil_chain", "route": "cuda",
-            "source": "neptune_tpu_torch/csrc/nt_chain.cuh",
-            "replaces": "neptune_tpu/lowering/pallas_chain.py:516",
-            "launches": dsl_launches["stencil_chain"], "max_abs_err": d_err,
-            "ms": d_ms, "plain_ms": d_plain_ms, "shape": "u + 0.01 lap(lap u) 4096^2 f32",
-        },
+        entry_of("stencil_apply", "neptune_tpu_torch/csrc/nt_apply.cuh",
+                 "neptune_tpu/lowering/pallas_backend.py:332", launches["stencil_apply"], a_err,
+                 a_ms, a_plain_ms, a_bound, a_lib, "jacobi5 4096^2 f32",
+                 ["neptune_tpu/lowering/pallas_backend.py:845",
+                  "neptune_tpu/lowering/pallas_backend.py:1094"]),
+        entry_of("fused_cg", "neptune_tpu_torch/csrc/nt_fused_cg.cuh",
+                 "neptune_tpu/solvers/fused.py:201", launches["fused_cg"], b_err, b_ms,
+                 b_plain_ms, b_bound, None, "poisson 512^2 jacobi tol 1e-4"),
+        entry_of("stencil_sweeps", "neptune_tpu_torch/csrc/nt_sweeps.cuh",
+                 "neptune_tpu/lowering/pallas_multisweep.py:406", dsl_launches["stencil_sweeps"],
+                 c_err, c_ms, c_plain_ms, c_bound, None, "jacobi5 4096^2 f32, 16 sweeps",
+                 ["neptune_tpu/lowering/pallas_multisweep.py:676",
+                  "neptune_tpu/lowering/pallas_multisweep.py:904"]),
+        entry_of("stencil_chain", "neptune_tpu_torch/csrc/nt_chain.cuh",
+                 "neptune_tpu/lowering/pallas_chain.py:516", dsl_launches["stencil_chain"], d_err,
+                 d_ms, d_plain_ms, d_bound, d_lib, "u + 0.01 lap(lap u) 4096^2 f32"),
     ]
+    for name, source, replaces, also in (
+        ("stencil_apply_window", "neptune_tpu_torch/csrc/nt_apply.cuh",
+         "neptune_tpu/lowering/pallas_backend.py:1310",
+         ["neptune_tpu/lowering/pallas_backend.py:845 (global_start)",
+          "neptune_tpu/lowering/pallas_backend.py:1094 (global_start)"]),
+        ("stencil_sweeps_local", "neptune_tpu_torch/csrc/nt_sweeps.cuh",
+         "neptune_tpu/lowering/pallas_multisweep.py:959",
+         ["neptune_tpu/lowering/pallas_multisweep.py:676 (global_start)",
+          "neptune_tpu/lowering/pallas_multisweep.py:904 (global_start)"]),
+        ("stencil_chain_origin", "neptune_tpu_torch/csrc/nt_chain.cuh",
+         "neptune_tpu/lowering/pallas_chain.py:516 (global_start)", None),
+    ):
+        k_ms, p_ms, bnd, lib, shape, err = forms[name]
+        kernels.append(entry_of(name, source, replaces, sh_launches[name], err, k_ms, p_ms, bnd,
+                                lib, shape, also))
+    say(f"all phases passed in {time.perf_counter() - t_start:.1f} s, builds included")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

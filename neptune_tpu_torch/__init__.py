@@ -11,6 +11,7 @@ PyTorch on any device, with hand-written Hopper kernels for the hot paths:
   neptune_tpu_torch.kernels   — nvcc build of the generated kernel sources
   neptune_tpu_torch.frontend  — user DSL: Expr tracing, decorators, jit_class
   neptune_tpu_torch.entry     — the flagship implicit heat step
+  neptune_tpu_torch.parallel  — sharded execution over a mesh of processes
 
 `import neptune_tpu_torch as ntt` reads like `import neptune_tpu as ntp`,
 less the names whose modules are not ported yet: `simulate`,
@@ -20,6 +21,7 @@ needs no switch for f64).
 Importing the package imports neither JAX nor the JAX package.
 """
 
+from . import parallel
 from .config import config
 from .frontend import (
     CompiledLibrary,

@@ -61,7 +61,9 @@ __device__ __forceinline__ void nt_tile_for(F&& f) {
   }
 }
 
-// the tile's first output cell: blocks tile the grid in C order
+// the tile's first output cell: blocks tile the grid in C order. The grid
+// is the whole grid or one local block of a sharded grid; its logical
+// coordinates start at g.lb, given at run time (nt_box_at).
 template <class Tl>
 __device__ __forceinline__ void nt_tile_origin(int (&org)[3]) {
   org[0] = (int)blockIdx.z * Tl::T0;
@@ -143,6 +145,20 @@ struct NtBox {
   int lo[3];
   int hi[3];
 };
+
+// An apply's bounds given in logical coordinates, as a box of the grid's
+// cells: shifted by the grid's logical origin g.lb, which is the run-time
+// coordinate origin (the whole grid's lower bound, or a local block's global
+// start), and clipped to the grid, so that no cell beyond a block computes.
+__device__ __forceinline__ NtBox nt_box_at(const NtGrid& g, const NtBox& logical) {
+  NtBox b;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    b.lo[d] = nt_min(nt_max(logical.lo[d] - g.lb[d], 0), g.n[d]);
+    b.hi[d] = nt_min(nt_max(logical.hi[d] - g.lb[d], 0), g.n[d]);
+  }
+  return b;
+}
 
 __device__ __forceinline__ bool nt_in_box(const NtBox& b, int w0, int w1, int w2) {
   return w0 >= b.lo[0] && w0 < b.hi[0] && w1 >= b.lo[1] && w1 < b.hi[1] && w2 >= b.lo[2] &&

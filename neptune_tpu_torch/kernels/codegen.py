@@ -170,6 +170,23 @@ def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
 """
 
 
+def body_ops(op: Operation) -> int:
+    """Arithmetic operations per cell of one apply's generated body, as
+    folded and emitted (neighbour loads and index reads not counted): the
+    operation count of a kernel's bound."""
+    out_type: TempType = op.results[0].type
+    rank = out_type.bounds.rank
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    n_sc = len(op.region(0).args) - rank - n_in
+    ops = COps()
+    eval_scalar_dag(
+        op.region(0), rank, n_in,
+        lambda k, o: ops.emit("a.ld()", "float32"), lambda d: ops.emit("a.c()", "index"),
+        [f"s.s{k}" for k in range(n_sc)], ops,
+    )
+    return sum(1 for line in ops.lines if "a.ld(" not in line and "a.c(" not in line)
+
+
 def scalars_struct(types) -> str:
     """`struct Scalars` with one field per scalar type name, and `load`
     from the launch's f64 values (a bool travels as an int)."""
@@ -275,11 +292,21 @@ def chain_source(plan) -> str:
             f"s.s{b[1]}" if b[0] == "arg" else c_literal(b[1], b[2].name) for b in st.scalars
         ]
         structs.append(body_struct(st.op, f"NtStage{i}", scalar_exprs=exprs))
-        sl = st.op.attrs["bounds"].rel_slices(plan.outer)
-        box = (
-            f"NtBox{{{{{_ints([0] * pad + [x.start for x in sl])}}}, "
-            f"{{{_ints([1] * pad + [x.stop for x in sl])}}}}}"
-        )
+        # a block's plan: the stage's bounds in logical coordinates, mapped
+        # onto the block at run time, so one build serves every block; the
+        # whole grid's: a constant box of the grid's cells
+        bnd = st.op.attrs["bounds"]
+        if plan.origin:
+            box = (
+                f"nt_box_at(g, NtBox{{{{{_ints([0] * pad + list(bnd.lb))}}}, "
+                f"{{{_ints([1] * pad + list(bnd.ub))}}}}})"
+            )
+        else:
+            sl = bnd.rel_slices(plan.outer)
+            box = (
+                f"NtBox{{{{{_ints([0] * pad + [x.start for x in sl])}}}, "
+                f"{{{_ints([1] * pad + [x.stop for x in sl])}}}}}"
+            )
         ins = ", ".join(f"buf[{plan.buffer[s]}]" for s in st.in_slots)
         head = f"Tile, NtStage{i}, kWrap, {len(st.in_slots)}"
         if i == last:

@@ -17,6 +17,16 @@ Here:
   * `run_chain`: the kernel on CUDA tensors, the plain version on CPU ones;
   * `chain_plain`: the plain version, the stages one eager apply at a time,
     as `CompiledModule` runs the opdef stage by stage.
+
+The origin form runs the chain over one local block of a sharded grid
+(`parallel.shardmap_opdef`'s composite route), which replaces
+`pallas_chain.py::execute_chain(global_start=...)`: `chain_plan` takes the
+block's shape, and the launch gives the block's extents and its global
+start as the logical origin. Its stages' bounds are compiled in logical
+coordinates and mapped onto the block at run time (`nt_box_at`), so one
+build serves every block; a whole-grid plan compiles them as constant boxes
+of the grid's cells, which the whole-grid kernel runs faster with. Bounded
+chains only, as in the JAX package. Counted apart as `stencil_chain_origin`.
 """
 
 from __future__ import annotations
@@ -34,10 +44,11 @@ from ..ir.types import Bounds, ScalarType, StencilShape, TempType
 from ..kernels import codegen
 from ..kernels.build import LaunchCounter, builder, check
 from . import torch_backend
-from .cuda_backend import _meta
+from .cuda_backend import window_meta
 from .sweeps import SMEM_MAX, smem_bytes
 
 counter = LaunchCounter("stencil_chain")
+origin_counter = LaunchCounter("stencil_chain_origin")
 
 # output tiles, preferred first: the first whose buffers fit twice on an
 # SM is taken, else the first that fits at all
@@ -46,7 +57,7 @@ TILES = {2: ((64, 64), (32, 64), (32, 32), (16, 32)), 3: ((8, 16, 32), (8, 8, 32
 # field arguments one launch takes (csrc/nt_chain.cuh, kNtChainMaxFields)
 MAX_FIELDS = 8
 
-# (id(plan), config.fold_affine) -> (plan, C entry)
+# (id(plan), config.fold_affine) -> (plan, C entry, whole-grid launch data)
 _kernels: dict[tuple, tuple] = {}
 
 
@@ -143,6 +154,8 @@ class ChainPlan:
     n_buffers: int
     tile: tuple
     smem_bytes: int
+    shape: tuple  # the grid or block the plan runs over
+    origin: bool  # a block's plan: stage boxes mapped at run time
 
     @property
     def rank(self) -> int:
@@ -178,17 +191,17 @@ def _buffers(stages: list, n_fields: int, last_use: dict) -> tuple[dict, int]:
     return buffer, n
 
 
-def chain_plan(module: Module, name: str) -> Optional[ChainPlan]:
-    """Plan one kernel-D launch of composite opdef @name, or None (the
-    opdef runs stage at a time).
+def chain_plan(module: Module, name: str, shape: Optional[Sequence[int]] = None) -> Optional[ChainPlan]:
+    """Plan one kernel-D launch of composite opdef @name over a grid of
+    `shape` (default: the opdef's own; a local block's for the origin
+    form), or None (the opdef runs stage at a time).
 
     The JAX package's semantic gates: >= 2 applies after inlining the
     opdef's calls, field args on the result's bounds and before the scalar
     args, float32, rank 2 or 3, single-result applies, one opdef result;
-    periodic stages on the whole grid, which is the only grid here. Beside
-    them: at most MAX_FIELDS fields, the composed reach under the grid's
-    extent, the last stage computing the result, and buffers that fit in
-    shared memory.
+    periodic stages on the whole grid only. Beside them: at most
+    MAX_FIELDS fields, the composed reach under the grid's extent, the last
+    stage computing the result, and buffers that fit in shared memory.
     """
     fn = module.lookup(name)
     if not getattr(fn, "is_opdef", False):
@@ -201,6 +214,10 @@ def chain_plan(module: Module, name: str) -> Optional[ChainPlan]:
     outer: Bounds = out_t.bounds
     rank = outer.rank
     if rank not in (2, 3):
+        return None
+    whole_grid = shape is None
+    shape = tuple(outer.shape) if shape is None else tuple(shape)
+    if len(shape) != rank:
         return None
 
     n_fields = 0
@@ -241,13 +258,18 @@ def chain_plan(module: Module, name: str) -> Optional[ChainPlan]:
             return None
         if any(v.type.bounds != outer for v in op.operands[:n_in]):
             return None
-        periodic = periodic or bool(op.attrs.get("periodic"))
+        if op.attrs.get("periodic"):
+            # the torus is the whole grid: a block's wrap comes from its
+            # exchanged strips, so the origin form takes bounded chains only
+            if not whole_grid:
+                return None
+            periodic = True
         h = _halo(op, rank)
         creep[st.out_slot] = tuple(
             max(creep[s][d] for s in st.in_slots) + h[d] for d in range(rank)
         )
     reach = creep[final_slot]
-    if any(r >= n for r, n in zip(reach, outer.shape)):
+    if any(r >= n for r, n in zip(reach, shape)):
         return None
 
     last_use = {final_slot: len(stages)}
@@ -274,7 +296,7 @@ def chain_plan(module: Module, name: str) -> Optional[ChainPlan]:
         name=name, stages=stages, final_slot=final_slot, n_fields=n_fields,
         scalar_types=scalar_types, outer=outer, creep=creep, reach=reach,
         last_use=last_use, peak=peak, periodic=periodic, buffer=buffer,
-        n_buffers=n_buffers, tile=tile, smem_bytes=smem,
+        n_buffers=n_buffers, tile=tile, smem_bytes=smem, shape=shape, origin=not whole_grid,
     )
 
 
@@ -290,26 +312,32 @@ def _stage_scalars(st: ChainStage, args: Sequence) -> list:
     return out
 
 
-def chain_plain(plan: ChainPlan, fields: Sequence, scalars: Sequence) -> torch.Tensor:
+def chain_plain(plan: ChainPlan, fields: Sequence, scalars: Sequence, global_start=None) -> torch.Tensor:
     """The plain version: the stages one eager apply at a time. fields are
-    f32 tensors; scalars 0-dim tensors of the opdef's scalar types."""
+    f32 tensors; scalars 0-dim tensors of the opdef's scalar types. With
+    global_start, the fields are one local block and each stage is an
+    eager window apply over it (reads beyond the block read 0)."""
     env = dict(enumerate(fields))
     for st in plan.stages:
-        env[st.out_slot] = torch_backend.execute_apply(
-            st.op, [env[s] for s in st.in_slots] + _stage_scalars(st, scalars)
-        )
+        ins = [env[s] for s in st.in_slots]
+        sv = _stage_scalars(st, scalars)
+        if global_start is None:
+            env[st.out_slot] = torch_backend.execute_apply(st.op, ins + sv)
+        else:
+            env[st.out_slot] = torch_backend.execute_apply_window(st.op, ins, sv, global_start)
     return env[plan.final_slot]
 
 
-def run_chain(plan: ChainPlan, fields: Sequence, scalars: Sequence) -> torch.Tensor:
+def run_chain(plan: ChainPlan, fields: Sequence, scalars: Sequence, global_start=None) -> torch.Tensor:
     """The opdef's result: the plain version for CPU tensors, one launch
-    of kernel D for CUDA tensors."""
+    of kernel D for CUDA tensors. global_start: the origin form, over one
+    local block whose cell 0 has these global logical coordinates."""
     device = fields[0].device
     if device.type == "cpu":
-        return chain_plain(plan, fields, scalars)
+        return chain_plain(plan, fields, scalars, global_start)
     if device.type != "cuda":
         raise ValueError(f"stencil_chain: no kernel for device {device}")
-    return stencil_chain(plan, fields, scalars)
+    return stencil_chain(plan, fields, scalars, global_start)
 
 
 def _entry(plan: ChainPlan):
@@ -319,20 +347,29 @@ def _entry(plan: ChainPlan):
         fn = builder.load(codegen.chain_source(plan), "stencil_chain").nt_chain
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
-        hit = _kernels[key] = (plan, fn, _meta(plan.outer, plan.outer))
+        meta = window_meta(plan.outer.shape, plan.outer, plan.outer.lb)
+        hit = _kernels[key] = (plan, fn, meta)
     return hit[1], hit[2]
 
 
-def stencil_chain(plan: ChainPlan, fields: Sequence, scalars: Sequence) -> torch.Tensor:
-    """Launch kernel D once on CUDA tensors: the opdef's result."""
+def stencil_chain(plan: ChainPlan, fields: Sequence, scalars: Sequence, global_start=None) -> torch.Tensor:
+    """Launch kernel D once on CUDA tensors: the opdef's result. With
+    global_start, the origin form over one local block, which needs a
+    block's plan (`chain_plan(module, name, shape)`; counted as
+    `stencil_chain_origin`)."""
+    what = "stencil_chain" if global_start is None else "stencil_chain_origin"
+    if global_start is not None and not plan.origin:
+        raise ValueError(f"{what}: @{plan.name}'s plan is the whole grid's, not a block's")
     fn, meta = _entry(plan)
-    shape = plan.outer.shape
+    if global_start is not None:
+        meta = window_meta(plan.shape, plan.outer, global_start)
+    shape = plan.shape
     device = fields[0].device
     ins = []
     for a in fields:
         if a.device != device or a.device.type != "cuda" or tuple(a.shape) != shape:
             raise ValueError(
-                f"stencil_chain: field {tuple(a.shape)} on {a.device}, expected {shape} on cuda"
+                f"{what}: field {tuple(a.shape)} on {a.device}, expected {shape} on cuda"
             )
         ins.append(a.to(torch.float32).contiguous())
     out = torch.empty(shape, dtype=torch.float32, device=device)
@@ -342,7 +379,7 @@ def stencil_chain(plan: ChainPlan, fields: Sequence, scalars: Sequence) -> torch
     check(
         fn(device.index or 0, ctypes.addressof(in_ptrs), out.data_ptr(), sv.ctypes.data,
            meta.ctypes.data, stream),
-        "stencil_chain launch",
+        f"{what} launch",
     )
-    counter.count += 1
+    (counter if global_start is None else origin_counter).count += 1
     return out

@@ -14,7 +14,15 @@ Here:
     (`depth`) and shared memory -- as pure Python;
   * `run_sweeps`: `depth` sweeps, through the kernel on a CUDA tensor and
     through the plain version on a CPU tensor;
-  * `sweeps_plain`: the plain version, `depth` eager applies.
+  * `sweeps_plain`: the plain version, `depth` eager applies;
+  * `local_sweep_plan` / `run_sweeps(global_start=)`: the local form over one block
+    of a sharded grid (`parallel.shardmap_sweeps`), which replaces
+    `pallas_multisweep.py::execute_sweeps_window_local` (kernels #7 and #8
+    with `global_start`). The same kernel with other launch data: the
+    block's extents, its global start as the logical origin and the bounds
+    clipped to the block; cells beyond the block hold 0, so the edge zone
+    that the caller's bands recompute is the only one that differs from
+    the whole grid's sweeps. Counted apart as `stencil_sweeps_local`.
 The TPU-only mechanics (VMEM budgets, slab and panel picking, 8-row and
 128-lane alignment, the unroll guard) have no counterpart here.
 """
@@ -35,9 +43,10 @@ from ..ir.types import StencilShape, TempType
 from ..kernels import codegen
 from ..kernels.build import LaunchCounter, builder, check
 from . import torch_backend
-from .cuda_backend import _meta
+from .cuda_backend import apply_window, supported, window_meta
 
 counter = LaunchCounter("stencil_sweeps")
+local_counter = LaunchCounter("stencil_sweeps_local")
 
 # dynamic shared memory one block may use on the H100 (232,448 bytes)
 SMEM_MAX = 227 * 1024
@@ -86,26 +95,33 @@ def find_sweep_apply(module: Module, name: str) -> Optional[Operation]:
     if apply_op is None:
         return None
     out_type: TempType = apply_op.results[0].type
-    if out_type.element != "float32" or out_type.bounds.rank not in (2, 3):
-        return None
-    n_in = apply_op.attrs.get("num_inputs", len(apply_op.operands))
-    if n_in != 1 or len(apply_op.results) != 1:
+    if not _eligible(apply_op, out_type.bounds.shape):
         return None
     if apply_op.operands[0].uid != fn.body.args[0].uid:
         return None
     if [o.uid for o in apply_op.operands[1:]] != [a.uid for a in fn.body.args[1:]]:
         return None
-    if apply_op.operands[0].type.bounds != out_type.bounds:
-        return None
     if apply_op.attrs.get("periodic") and apply_op.attrs["bounds"] != out_type.bounds:
         return None
-    sshape: StencilShape = apply_op.attrs.get("shape") or StencilShape(())
-    if not sshape.offsets:
-        return None
-    halos = [max(h) for h in sshape.halo()]
-    if halos[0] < 1 or any(h >= s for h, s in zip(halos, out_type.bounds.shape)):
-        return None
     return apply_op
+
+
+def _eligible(op: Operation, shape: Sequence[int]) -> bool:
+    """The checks on the apply itself, over a grid or block of `shape`:
+    float32, rank 2 or 3, one input on the result's domain and one result,
+    a nonzero dim-0 halo and every halo under the extent."""
+    out_type: TempType = op.results[0].type
+    rank = len(shape)
+    if out_type.element != "float32" or rank not in (2, 3) or out_type.bounds.rank != rank:
+        return False
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    if n_in != 1 or len(op.results) != 1 or op.operands[0].type.bounds != out_type.bounds:
+        return False
+    sshape: StencilShape = op.attrs.get("shape") or StencilShape(())
+    if not sshape.offsets:
+        return False
+    halos = [max(h) for h in sshape.halo()]
+    return halos[0] >= 1 and all(h < n for h, n in zip(halos, shape))
 
 
 @dataclass(frozen=True)
@@ -159,6 +175,19 @@ def sweep_plan(module: Module, name: str, k: int, depth: Optional[int] = None) -
     op = find_sweep_apply(module, name)
     if op is None or k < 2:
         return None
+    return _plan(op, k, depth)
+
+
+def local_sweep_plan(op: Operation, shape: Sequence[int], k: int) -> Optional[SweepPlan]:
+    """The kernel-C plan for k sweeps of apply `op` over a local block of
+    `shape`, or None. The eligibility of the JAX package's
+    `local_window_plan`: `_eligible` on the block, not periodic, k >= 2."""
+    if op.attrs.get("periodic") or k < 2 or not _eligible(op, shape):
+        return None
+    return _plan(op, k, None)
+
+
+def _plan(op: Operation, k: int, depth: Optional[int]) -> Optional[SweepPlan]:
     halo = tuple(max(h) for h in op.attrs["shape"].halo())
     if depth is not None:
         return _at_depth(op, halo, depth) if 2 <= depth <= k else None
@@ -170,22 +199,47 @@ def sweep_plan(module: Module, name: str, k: int, depth: Optional[int] = None) -
     return None
 
 
-def sweeps_plain(plan: SweepPlan, x: torch.Tensor, scalars: Sequence) -> torch.Tensor:
-    """The plain version: plan.depth eager applies."""
+def sweeps_plain(plan: SweepPlan, x: torch.Tensor, scalars: Sequence, global_start=None) -> torch.Tensor:
+    """The plain version: plan.depth eager applies, or with global_start
+    plan.depth eager window applies over one local block."""
+    if global_start is not None:
+        for _ in range(plan.depth):
+            x = torch_backend.execute_apply_window(plan.op, [x], scalars, global_start)
+        return x
     sv = [torch_backend.scalar_tensor(s, v.type) for v, s in zip(plan.op.operands[1:], scalars)]
     for _ in range(plan.depth):
         x = torch_backend.execute_apply(plan.op, [x] + sv)
     return x
 
 
-def run_sweeps(plan: SweepPlan, x: torch.Tensor, scalars: Sequence) -> torch.Tensor:
+def run_sweeps(plan: SweepPlan, x: torch.Tensor, scalars: Sequence, global_start=None) -> torch.Tensor:
     """plan.depth sweeps of x: the plain version for a CPU tensor, one
-    launch of kernel C for a CUDA tensor."""
+    launch of kernel C for a CUDA tensor. global_start: the local form,
+    over one block whose cell 0 has these global logical coordinates."""
     if x.device.type == "cpu":
-        return sweeps_plain(plan, x, scalars)
+        return sweeps_plain(plan, x, scalars, global_start)
     if x.device.type != "cuda":
         raise ValueError(f"stencil_sweeps: no kernel for device {x.device}")
-    return stencil_sweeps(plan, x, scalars)
+    return stencil_sweeps(plan, x, scalars, global_start)
+
+
+def sweeps_local(op: Operation, x: torch.Tensor, scalars: Sequence, k: int, global_start):
+    """k zero-ghost sweeps of one local block through the kernels, or None
+    when neither takes the apply: k // depth launches of kernel C's local
+    form, the sweeps left over (or all k, where `local_sweep_plan` refuses
+    the block) through kernel A's window form -- the JAX package's order of
+    preference (`shardmap_sweeps`)."""
+
+    plan = local_sweep_plan(op, tuple(x.shape), k)
+    if plan is None and not supported(op):
+        return None
+    y = x.to(torch_backend.DTYPES[op.results[0].type.element])
+    n_c = 0 if plan is None else k // plan.depth
+    for _ in range(n_c):
+        y = run_sweeps(plan, y, scalars, global_start)
+    for _ in range(k - n_c * (plan.depth if plan else 0)):
+        y = apply_window(op, [y], scalars, global_start)
+    return y
 
 
 def source(plan: SweepPlan) -> str:
@@ -202,25 +256,29 @@ def _entry(plan: SweepPlan):
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
         out = plan.op.results[0].type.bounds
-        hit = _kernels[key] = (plan.op, fn, _meta(out, plan.op.attrs["bounds"]))
+        hit = _kernels[key] = (plan.op, fn, window_meta(out.shape, plan.op.attrs["bounds"], out.lb))
     return hit[1], hit[2]
 
 
-def stencil_sweeps(plan: SweepPlan, x: torch.Tensor, scalars: Sequence) -> torch.Tensor:
-    """Launch kernel C once on a CUDA tensor: plan.depth sweeps."""
+def stencil_sweeps(plan: SweepPlan, x: torch.Tensor, scalars: Sequence, global_start=None) -> torch.Tensor:
+    """Launch kernel C once on a CUDA tensor: plan.depth sweeps. With
+    global_start, the local form over one block (counted as
+    `stencil_sweeps_local`)."""
     fn, meta = _entry(plan)
-    shape = plan.op.results[0].type.bounds.shape
-    if x.device.type != "cuda" or tuple(x.shape) != shape:
-        raise ValueError(
-            f"stencil_sweeps: input {tuple(x.shape)} on {x.device}, expected {shape} on cuda"
-        )
+    if global_start is None:
+        shape, what = plan.op.results[0].type.bounds.shape, "stencil_sweeps"
+    else:
+        shape, what = tuple(x.shape), "stencil_sweeps_local"
+        meta = window_meta(shape, plan.op.attrs["bounds"], global_start)
+    if x.device.type != "cuda" or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what}: input {tuple(x.shape)} on {x.device}, expected {tuple(shape)} on cuda")
     x = x.to(torch.float32).contiguous()
     out = torch.empty_like(x)
     sv = np.array([float(s) for s in scalars] or [0.0], dtype=np.float64)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     check(
         fn(x.device.index or 0, x.data_ptr(), out.data_ptr(), sv.ctypes.data, meta.ctypes.data, stream),
-        "stencil_sweeps launch",
+        f"{what} launch",
     )
-    counter.count += 1
+    (counter if global_start is None else local_counter).count += 1
     return out

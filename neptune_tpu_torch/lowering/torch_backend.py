@@ -501,6 +501,119 @@ def execute_apply(op: Operation, operand_arrays: Sequence, device=None):
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
+def _block_index(shape, d: int, start: int, device) -> torch.Tensor:
+    """Logical coordinates along dim d of a block whose cell 0 sits at
+    `start`, shaped to broadcast over the block (int32, as `index()`)."""
+    view = [1] * len(shape)
+    view[d] = shape[d]
+    return (torch.arange(shape[d], dtype=torch.int32, device=device) + int(start)).view(view)
+
+
+def execute_apply_window(
+    op: Operation,
+    arrays: Sequence[torch.Tensor],
+    scalars: Sequence,
+    global_start: Sequence[int],
+    wrap=None,
+    carve=None,
+):
+    """One apply over a local block of a sharded grid: the plain version of
+    kernel A's window form, and the port of `_eval_apply_local`
+    (`neptune_tpu/parallel/sharded_apply.py`).
+
+    arrays: the apply's tensor inputs, each the block (all of one shape);
+    scalars: its scalar operands. global_start[d]: the global logical
+    coordinate of block cell 0 (a host int). Index values are the block's
+    coordinates plus global_start; the copy-through mask compares them with
+    the op's bounds; output j seeds from input j (zeros when there is none).
+    Reads that leave the block read 0, or wrap around the block in the dims
+    where `wrap` (a bool per dim; default: the op's periodic flag) holds --
+    kernel A's rule. Those cells lie in the edge zone that the sharded
+    caller recomputes or carves off.
+
+    carve: per dim the (lo, hi) ghost widths of the block around a core;
+    the results are then core-shaped, every access a slice of the block.
+    Where an input's shifted slice would leave the block, the ext-shaped
+    form runs instead (callers tell the two apart by shape).
+    """
+    out_type: TempType = op.results[0].type
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    bounds: Bounds = op.attrs["bounds"]
+    outer = out_type.bounds
+    rank = outer.rank
+    input_lbs = [v.type.bounds.lb for v in op.operands[:n_in]]
+    shape = tuple(arrays[0].shape)
+    device = arrays[0].device
+    dtype = DTYPES[out_type.element]
+    if wrap is None:
+        wrap = bool(op.attrs.get("periodic"))
+
+    def adj_of(k, offset):
+        return tuple(o + (lb_o - lb_i) for o, lb_o, lb_i in zip(offset, outer.lb, input_lbs[k]))
+
+    lo = core = None
+    if carve is not None:
+        lo = tuple(h[0] for h in carve)
+        core = tuple(e - h[0] - h[1] for e, h in zip(shape, carve))
+        sshape = op.attrs.get("shape")
+        offs = list(sshape.offsets) if sshape and sshape.offsets else [(0,) * rank]
+        if any(
+            lo[d] + adj_of(k, o)[d] < 0 or lo[d] + adj_of(k, o)[d] + core[d] > shape[d]
+            for k in range(n_in)
+            for o in offs
+            for d in range(rank)
+        ):
+            carve = None
+
+    if carve is not None:
+        res_shape = core
+        starts = [int(g) + l for g, l in zip(global_start, lo)]
+
+        def access_fn(k, offset):
+            adj = adj_of(k, offset)
+            return arrays[k][tuple(slice(l + a, l + a + c) for l, a, c in zip(lo, adj, core))]
+
+        def seed_of(j):
+            return arrays[j][tuple(slice(l, l + c) for l, c in zip(lo, core))]
+
+    else:
+        res_shape = shape
+        starts = [int(g) for g in global_start]
+
+        def access_fn(k, offset):
+            return shift_read(arrays[k], adj_of(k, offset), wrap)
+
+        def seed_of(j):
+            return arrays[j]
+
+    def index_fn(d):
+        return _block_index(res_shape, d, starts[d], device)
+
+    ys = eval_scalar_dag(op.region(0), rank, n_in, access_fn, index_fn, scalars, TorchOps(device))
+    mask = None
+    if bounds != outer:
+        for d in range(rank):
+            iv = index_fn(d)
+            m = (iv >= bounds.lb[d]) & (iv < bounds.ub[d])
+            mask = m if mask is None else mask & m
+    outs = []
+    for j, y in enumerate(ys):
+        if isinstance(y, torch.Tensor):
+            y = y.to(device=device, dtype=dtype).expand(res_shape)
+        else:
+            y = torch.full(res_shape, y, dtype=dtype, device=device)
+        if mask is None:
+            outs.append(y.contiguous())
+            continue
+        seed = (
+            seed_of(j).to(dtype)
+            if j < n_in
+            else torch.zeros(res_shape, dtype=dtype, device=device)
+        )
+        outs.append(torch.where(mask, y, seed))
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
 def execute_reduce(op: Operation, arr: torch.Tensor) -> torch.Tensor:
     """All five reduce kinds."""
     tt: TempType = op.operands[0].type

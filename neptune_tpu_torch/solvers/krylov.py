@@ -11,7 +11,11 @@ All solvers:
   * operate on a grid tensor or a tuple of them (multi-field states);
   * stop at ||r|| <= max(tol * ||b||, atol), PETSc's default rtol test;
   * return (x, SolveInfo) with the iteration count, the residual norm and a
-    convergence flag, as host values.
+    convergence flag, as host values;
+  * take `group=`, the process group of a sharded grid: every process
+    passes its block of b and a matvec over blocks (`parallel.shardmap_opdef`),
+    and each inner product and norm is all-reduced over the group
+    (`utils.tree`). Without a group they reduce locally, as before.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.tree import taxpy, tdot, tnorm, tscale, tsub, tzeros_like
+from ..utils.tree import allreduce, taxpy, tdot, tnorm, tscale, tsub, tzeros_like, vdot, vnorm
 
 
 class SolveInfo(NamedTuple):
@@ -30,8 +34,8 @@ class SolveInfo(NamedTuple):
     converged: bool
 
 
-def _tolerances(b, tol, atol):
-    bnorm = tnorm(b)
+def _tolerances(b, tol, atol, group=None):
+    bnorm = tnorm(b, group)
     # guard ||b|| = 0: converge to x = 0 via the atol floor
     return torch.clamp(tol * bnorm, min=atol), bnorm
 
@@ -74,32 +78,33 @@ def cg(
     maxiter: int = 1000,
     M: Optional[Callable] = None,
     divtol: Optional[float] = None,
+    group=None,
 ):
     """Preconditioned conjugate gradient for SPD operators."""
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
-    target, bnorm = _tolerances(b, tol, atol)
+    target, bnorm = _tolerances(b, tol, atol, group)
     divbound = _divergence_bound(bnorm, divtol)
 
     r = tsub(b, matvec(x))
     z = M(r)
     p = z
-    rz = tdot(r, z)
+    rz = tdot(r, z, group)
     k = 0
-    rnorm = tnorm(r)
+    rnorm = tnorm(r, group)
     while _running(k, maxiter, rnorm, target, divbound):
         Ap = matvec(p)
-        pAp = tdot(p, Ap)
+        pAp = tdot(p, Ap, group)
         alpha = rz / _safe(pAp)
         x = taxpy(alpha, p, x)
         r = taxpy(-alpha, Ap, r)
         z = M(r)
-        rz_new = tdot(r, z)
+        rz_new = tdot(r, z, group)
         beta = rz_new / _safe(rz)
         p = taxpy(beta, p, z)
         rz = rz_new
         k += 1
-        rnorm = tnorm(r)
+        rnorm = tnorm(r, group)
     return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
 
 
@@ -118,11 +123,12 @@ def bicgstab(
     maxiter: int = 1000,
     M: Optional[Callable] = None,
     divtol: Optional[float] = None,
+    group=None,
 ):
     """Preconditioned BiCGStab for general (non-symmetric) operators."""
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
-    target, bnorm = _tolerances(b, tol, atol)
+    target, bnorm = _tolerances(b, tol, atol, group)
     divbound = _divergence_bound(bnorm, divtol)
 
     r = tsub(b, matvec(x))
@@ -132,23 +138,23 @@ def bicgstab(
     one = torch.ones_like(bnorm)
     rho = alpha = omega = one
     k = 0
-    rnorm = tnorm(r)
+    rnorm = tnorm(r, group)
     while _running(k, maxiter, rnorm, target, divbound):
-        rho_new = tdot(rhat, r)
+        rho_new = tdot(rhat, r, group)
         beta = (rho_new / _safe(rho)) * (alpha / _safe(omega))
         p = taxpy(beta, tsub(p, tscale(omega, v)), r)
         phat = M(p)
         v = matvec(phat)
-        alpha = rho_new / _safe(tdot(rhat, v))
+        alpha = rho_new / _safe(tdot(rhat, v, group))
         s = taxpy(-alpha, v, r)
         shat = M(s)
         t = matvec(shat)
-        omega = tdot(t, s) / _safe(tdot(t, t))
+        omega = tdot(t, s, group) / _safe(tdot(t, t, group))
         x = taxpy(alpha, phat, taxpy(omega, shat, x))
         r = taxpy(-omega, t, s)
         rho = rho_new
         k += 1
-        rnorm = tnorm(r)
+        rnorm = tnorm(r, group)
     return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
 
 
@@ -183,21 +189,25 @@ def gmres(
     restart: int = 30,
     M: Optional[Callable] = None,
     divtol: Optional[float] = None,
+    group=None,
 ):
     """Restarted GMRES(m), left-preconditioned with M. PETSc's default KSP.
 
     The Krylov basis and its Gram-Schmidt products stay on the device; the
     (m+1) x m Hessenberg system, its Givens rotations and the
     back-substitution run on the host in the working precision (f64 for f64
-    states, f32 otherwise), one small transfer per Arnoldi step.
+    states, f32 otherwise), one small transfer per Arnoldi step. On a
+    sharded grid the basis holds this process's block of each vector, and
+    the restart length is the global vector length's (all-reduced).
     """
     M = M or _identity
     x0 = tzeros_like(b) if x0 is None else x0
     flat_b, unravel = _ravel(b)
     n = flat_b.numel()
+    n_global = n if group is None else int(allreduce(torch.tensor(n, dtype=torch.int64), group))
     dtype = flat_b.dtype
     hdt = np.float64 if dtype == torch.float64 else np.float32
-    m = int(min(restart, maxiter, n))
+    m = int(min(restart, maxiter, n_global))
 
     def flat_matvec(v):
         return _ravel(matvec(unravel(v)))[0]
@@ -205,18 +215,18 @@ def gmres(
     def flat_M(v):
         return _ravel(M(unravel(v)))[0]
 
-    Mbnorm = torch.linalg.vector_norm(flat_M(flat_b))
+    Mbnorm = vnorm(flat_M(flat_b), group)
     target_t = torch.clamp(tol * Mbnorm, min=atol)
     divbound = float(_divergence_bound(Mbnorm, divtol))
     target = hdt(target_t.item())
 
     x = _ravel(x0)[0]
-    rnorm = hdt(torch.linalg.vector_norm(flat_M(flat_b - flat_matvec(x))).item())
+    rnorm = hdt(vnorm(flat_M(flat_b - flat_matvec(x)), group).item())
     converged = rnorm <= target
     k = 0
     while k < maxiter and not converged and rnorm <= divbound:
         r = flat_M(flat_b - flat_matvec(x))
-        beta_t = torch.linalg.vector_norm(r)
+        beta_t = vnorm(r, group)
         beta = hdt(beta_t.item())
         V = torch.zeros((m + 1, n), dtype=dtype, device=flat_b.device)
         H = np.zeros((m + 1, m), hdt)
@@ -234,10 +244,10 @@ def gmres(
             w = flat_M(flat_matvec(V[j]))
             hs = []
             for i in range(j + 1):  # modified Gram-Schmidt against V[0..j]
-                hij = torch.dot(V[i], w)
+                hij = vdot(V[i], w, group)
                 w = w - hij * V[i]
                 hs.append(hij)
-            hjp1 = torch.linalg.vector_norm(w)
+            hjp1 = vnorm(w, group)
             V[j + 1] = w / _safe(hjp1)
             hcol = np.zeros(m + 1, hdt)
             hcol[: j + 2] = torch.stack(hs + [hjp1]).cpu().numpy()

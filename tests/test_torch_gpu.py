@@ -285,3 +285,100 @@ def test_dsl_sweeps_and_composite_on_gpu(cuda):
         assert torch.equal(y, ref) and y.device.type == "cuda"
     finally:
         ntt.reset_context()
+
+
+# ---------------------------------------------------------------------------
+# the shard-local forms: one block of a larger grid, at a global start that
+# is not 0, against each form's plain version over the whole block
+# ---------------------------------------------------------------------------
+
+# (module, block, global start)
+WINDOWS = {
+    "jacobi5": (lambda: stencils.jacobi5((200, 90)), (50, 90), (100, 0)),
+    "jacobi5_bf16": (lambda: stencils.jacobi5((200, 90), "bfloat16"), (50, 45), (150, 45)),
+    "adv4": (lambda: stencils.advection4((128, 136)), (32, 68), (64, 68)),
+    "heat7": (lambda: stencils.heat7((24, 20, 40)), (12, 10, 40), (12, 10, 0)),
+    "graded_index": (lambda: stencils.graded((100, 70), lb=(3, -5)), (25, 35), (53, 30)),
+    "two_results": (lambda: stencils.gradients((64, 128)), (16, 64), (48, 64)),
+    "periodic_adv4": (lambda: stencils.advection4((64, 80), periodic=True), (32, 40), (32, 40)),
+}
+
+
+def _block(shape, dtype, cuda, seed=7):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(cuda, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WINDOWS)
+def test_window_form_matches_plain(case, cuda):
+    build, block, gstart = WINDOWS[case]
+    op = stencils.the_apply(build())
+    dtype = torch_backend.DTYPES[op.results[0].type.element]
+    x = _block(block, dtype, cuda)
+    before = cuda_backend.window_counter.count
+    got = cuda_backend.apply_window(op, [x], [], gstart)
+    torch.cuda.synchronize()
+    assert cuda_backend.window_counter.count == before + 1
+    ref = torch_backend.execute_apply_window(op, [x], [], gstart)
+    if len(op.results) == 1:
+        got, ref = (got,), (ref,)
+    for g, r in zip(got, ref):
+        if dtype == torch.float32:
+            assert torch.equal(g, r)
+        else:
+            assert bf16_ulps(g, r) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 5])
+def test_local_sweeps_match_plain(k, cuda):
+    op = stencils.the_apply(stencils.advection4((256, 200)))
+    block, gstart = (64, 100), (128, 100)
+    plan = sweeps.local_sweep_plan(op, block, k)
+    x = _block(block, torch.float32, cuda)
+    before = sweeps.local_counter.count, cuda_backend.window_counter.count
+    got = sweeps.sweeps_local(op, x, [], k, gstart)
+    torch.cuda.synchronize()
+    assert sweeps.local_counter.count - before[0] == k // plan.depth
+    assert cuda_backend.window_counter.count - before[1] == k % plan.depth
+    ref = x
+    for _ in range(k):
+        ref = torch_backend.execute_apply_window(op, [ref], [], gstart)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["composite", "coupled"])
+def test_origin_form_matches_plain(case, cuda):
+    module, name, n_fields, scalars = {
+        "composite": (stencils.composite((96, 128)), "wrapped", 1, ()),
+        "coupled": (stencils.coupled((96, 100)), "couple", 2, (0.7, -1.3)),
+    }[case]
+    block, gstart = (32, 50), (32, 50)
+    plan = chain.chain_plan(module, name, block)
+    fields = [_block(block, torch.float32, cuda, seed) for seed in range(n_fields)]
+    sv = [torch.tensor(s, dtype=torch.float32) for s in scalars]
+    before = chain.origin_counter.count
+    got = chain.run_chain(plan, fields, sv, global_start=gstart)
+    torch.cuda.synchronize()
+    assert chain.origin_counter.count == before + 1
+    assert torch.equal(got, chain.chain_plain(plan, fields, sv, global_start=gstart))
+
+
+@pytest.mark.gpu
+def test_sharded_routes_on_one_position(cuda):
+    from neptune_tpu_torch.parallel import GridMesh, shardmap_opdef, shardmap_sweeps
+
+    gm = GridMesh((1, 1), ("x", "y"))
+    x = _block((96, 128), torch.float32, cuda)
+    for module, name in ((stencils.jacobi5((96, 128)), "jacobi"), (stencils.composite((96, 128)), "wrapped")):
+        cm = CompiledModule(module)
+        got = shardmap_opdef(cm, name, gm)(x)
+        assert torch.equal(got, shardmap_opdef(cm, name, gm, backend="torch")(x))
+        assert torch.equal(got, cm.opdef(name)(x))
+    cm = CompiledModule(stencils.jacobi5((96, 128)))
+    before = sweeps.local_counter.count
+    got = shardmap_sweeps(cm, "jacobi", gm, 8)(x)
+    assert sweeps.local_counter.count > before
+    assert torch.equal(got, cm.sweeps("jacobi", 8)(x))
