@@ -19,7 +19,8 @@ line, the card's nvidia-smi line, and the result line):
   2. kernel A (stencil_apply) against its plain version: f32 bitwise, bf16
      within one bf16 ulp;
   3. kernel B (fused_cg) against its plain version: iterations within 1,
-     true residual, solution within 1e-4;
+     true residual, solution within 1e-4; per solve its time, time per
+     iteration, tiling, and the barrier floor at its grid size;
   4. the first main path end to end, with launch counts, against plain runs;
   5. kernel C (stencil_sweeps) against its plain version and against the
      same sweeps as kernel-A launches, bitwise, with launch counts and
@@ -66,6 +67,27 @@ SEED = 0
 # and f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+# kernel B's systems, (label, system, opdef, tol, maxiter, Jacobi): the entry
+# step's and bench.py's cg_poisson_256 and cg_poisson_512 rows; phase 3 and
+# scripts/torch_fused_cg_times.py solve these
+B_SYSTEMS = [
+    ("heat_A 256^2 tol 1e-6", "heat_A 256", "heat_A", 1e-6, 200, False),
+    ("poisson 256^2 jacobi tol 1e-4", "poisson 256", "poisson", 1e-4, 3500, True),
+    ("poisson 512^2 jacobi tol 1e-4", "poisson 512", "poisson", 1e-4, 5500, True),
+]
+
+
+def b_system(system: str):
+    """The module of a B_SYSTEMS system, built by the neptune_tpu_torch
+    package that comes first on sys.path."""
+    from neptune_tpu_torch import entry, stencils
+
+    kind, n = system.split()
+    if kind == "heat_A":
+        return entry.build_step(int(n), "float32").module
+    return stencils.poisson5(int(n))
 
 
 def say(*parts) -> None:
@@ -127,11 +149,11 @@ def device_us(fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(
-        e.device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key
-    )
-    return total / reps if total > 0 else None
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    total = sum(e.device_time_total for e in rows)
+    # per launch the trace recorded: a long run's last record can be missing
+    return total / sum(e.count for e in rows) if total > 0 else None
 
 
 def busy_share(fn, reps: int) -> tuple[float, float]:
@@ -789,11 +811,7 @@ def main() -> int:
         ("adv4 4096^2 f32 unfolded", stencils.advection4((4096, 4096)), False),
     ]
     heat_cm = entry.build_step(256, "float32", device=dev)
-    poisson = stencils.poisson5(512)
-    B_CASES = [
-        ("heat_A 256^2 tol 1e-6", heat_cm.module, "heat_A", 1e-6, 200, False),
-        ("poisson 512^2 jacobi tol 1e-4", poisson, "poisson", 1e-4, 5500, True),
-    ]
+    B_CASES = [(label, b_system(system), *rest) for label, system, *rest in B_SYSTEMS]
     step3d_cm = entry.build_step_3d(256, "float32", device=dev)
     # kernel C: (label, module, opdef, k, scalars, other depths per launch to time)
     C_CASES = [
@@ -851,7 +869,7 @@ def main() -> int:
     config.fold_affine = fold_default
     sources.append(codegen.apply_source(stencils.the_apply(step3d_cm.module)))
     sources.append(codegen.apply_source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
-    cg_sources = [codegen.fused_cg_source(fused.matvec_plan(m, n)) for _, m, n, *_ in B_CASES]
+    cg_sources = [codegen.fused_cg_source(fused.cg_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
         jobs = [pool.submit(builder.load, s, "stencil_apply") for s in sources]
@@ -919,7 +937,7 @@ def main() -> int:
     config.fold_affine = fold_default
 
     # ---- phase 3: kernel B against its plain version -------------------
-    b_err, b_ms, b_plain_ms, b_bound = 0.0, None, None, None
+    b_err, b_ms, b_plain_ms, b_bound, b_extra = 0.0, None, None, None, {}
     for label, module, name, tol, maxiter, jacobi in B_CASES:
         n = module.lookup(name).ftype.inputs[0].bounds.shape
         stages = fused.matvec_plan(module, name)
@@ -950,7 +968,8 @@ def main() -> int:
         require(rel_x <= 1e-4, f"{label}: ||x_k - x_p|| / ||x_p|| = {rel_x!r}")
         err = (x_k - x_p).abs().max().item()
         b_err = max(b_err, err)
-        k_ms = cuda_ms(lambda: solve(b), reps=3)
+        iters = int(it_k)
+        k_ms = cuda_ms(lambda: solve(b), reps=3 if iters > 1000 else 20)
         k_dev = device_us(lambda: solve(b), 3, "nt_fused_cg_kernel")
         p_ms = cuda_ms(
             lambda: fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv), reps=1
@@ -958,17 +977,29 @@ def main() -> int:
         cells = float(np.prod(n))
         # per iteration: the matvec's stages, then 13 vector operations per
         # cell (two dot products, three axpys, the Jacobi scaling, the norm)
-        ops = int(it_k) * cells * (sum(codegen.body_ops(st.op) for st in stages) + 13)
+        ops = iters * cells * (sum(codegen.body_ops(st.op) for st in stages) + 13)
         b_ms_cg, b_by_cg = bound((3 if jacobi else 2) * 4 * cells, ops)
+        # the barrier floor at the kernel's grid size: the two barriers and
+        # the three-value reduction of an iteration and nothing else
+        site = solve.site(dev)
+        plan = site.plan
+        floor = site.barrier_floor_us(2000)
+        us_it = k_ms * 1e3 / max(iters, 1)
         say(f"phase 3 fused_cg {label}: bound {b_ms_cg:.4f} ms ({b_by_cg}), library none; "
-            f"iters kernel {int(it_k)} plain {int(it_p)}; "
+            f"barrier floor {floor:.3f} us/iter; "
+            f"{plan.blocks} blocks of tile {plan.tile} + halo {plan.halo}, "
+            f"{plan.smem_bytes} B smem; iters kernel {iters} plain {int(it_p)}; "
             f"recurrence resnorm {rn_k.item()!r}; true residual kernel {res_k!r} plain {res_p!r} "
             f"(tol*||b|| {tol * bnorm!r}); rel x diff {rel_x!r}; max_abs_err={err!r}; "
-            f"launches+{launched}; kernel {k_ms:.3f} ms/solve ({int(it_k) / k_ms * 1e3:.0f} iters/s; "
-            f"device time {'not measured' if k_dev is None else f'{k_dev / 1e3:.3f} ms'}) "
+            f"launches+{launched}; kernel {k_ms:.4f} ms/solve, {us_it:.3f} us/iter "
+            f"({iters / k_ms * 1e3:.0f} iters/s; "
+            f"device time {'not measured' if k_dev is None else f'{k_dev / 1e3:.4f} ms'}) "
             f"plain {p_ms:.3f} ms/solve")
-        if name == "poisson":
+        if label.startswith("poisson 512^2"):
             b_ms, b_plain_ms, b_bound = k_ms, p_ms, (b_ms_cg, b_by_cg)
+            b_extra = {"iters": iters, "us_per_iter": us_it, "barrier_floor_us_per_iter": floor,
+                       "blocks": plan.blocks, "tile": list(plan.tile),
+                       "smem_bytes": plan.smem_bytes}
 
     # ---- phase 4: the main path end to end ------------------------------
     step, (u0,) = entry.entry(dev)
@@ -1263,7 +1294,7 @@ def main() -> int:
                   "neptune_tpu/lowering/pallas_backend.py:1094"]),
         entry_of("fused_cg", "neptune_tpu_torch/csrc/nt_fused_cg.cuh",
                  "neptune_tpu/solvers/fused.py:201", launches["fused_cg"], b_err, b_ms,
-                 b_plain_ms, b_bound, None, "poisson 512^2 jacobi tol 1e-4"),
+                 b_plain_ms, b_bound, None, "poisson 512^2 jacobi tol 1e-4") | b_extra,
         entry_of("stencil_sweeps", "neptune_tpu_torch/csrc/nt_sweeps.cuh",
                  "neptune_tpu/lowering/pallas_multisweep.py:406", dsl_launches["stencil_sweeps"],
                  c_err, c_ms, c_plain_ms, c_bound, None, "jacobi5 4096^2 f32, 16 sweeps",

@@ -51,10 +51,6 @@ __device__ __forceinline__ long long nt_index(const NtGrid& g, int i0, int i1, i
 
 // a[i + offset]: outside the grid it reads 0, or wraps modulo the extent on
 // a periodic apply -- never outside the allocation.
-// Deliberately no __restrict__: kernel B reads through this load the p and
-// scratch grids that other blocks wrote before the last grid sync. A const
-// __restrict__ pointer lets nvcc use the read-only (non-coherent) cache,
-// which a grid sync does not make coherent, so a read could be stale.
 template <bool PERIODIC, class T>
 __device__ __forceinline__ float nt_ld(const T* a, const NtGrid& g,
                                        int i0, int i1, int i2) {
@@ -79,11 +75,11 @@ __device__ __forceinline__ bool nt_in_grid(const int* n, int i0, int i1, int i2)
          (unsigned)i2 < (unsigned)n[2];
 }
 
-// What a generated body sees of its inputs (kernels A and B): input k at an
+// What a generated body sees of its inputs (kernel A): input k at an
 // offset from the cell (i0, i1, i2), read from global memory under nt_ld's
 // rule; c0..c2 are the cell's logical coordinates, for index() bodies.
 // The generated body calls a.ld(k, o0, o1, o2) and reads a.c0..a.c2; the
-// shared-memory tiles of kernels C and D provide the same interface.
+// shared-memory tiles of kernels B, C and D provide the same interface.
 template <bool PERIODIC, class T>
 struct NtGlobalAcc {
   const NtGrid* g;

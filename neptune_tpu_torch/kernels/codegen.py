@@ -6,7 +6,7 @@ is folded, rounded and ordered exactly as the eager PyTorch path evaluates
 it. Constants are emitted as hex-float literals of the value the eager path
 rounds them to. A body reads its inputs through an accessor argument
 (`a.ld(k, o0, o1, o2)`, and `a.c0 .. a.c2` for index() values), so one body
-serves global memory (kernels A and B) and shared-memory tiles (kernels C
+serves global memory (kernel A) and shared-memory tiles (kernels B, C
 and D). Everything else -- indexing, neighbour reads, copy-through, tiles,
 reductions, grid syncs, the CG loop -- is fixed code in `csrc/*.cuh`.
 """
@@ -217,41 +217,61 @@ def grid_literal(shape, lb, blo, bhi) -> str:
     )
 
 
-def fused_cg_source(stages) -> str:
-    """The complete source of kernel B for a matvec plan
-    (`solvers.fused.matvec_plan`): one generated body per stage and the
-    matvec that runs them with a grid sync between stages."""
+def fused_cg_source(plan) -> str:
+    """The complete source of kernel B for a `solvers.fused.CgPlan`: one
+    generated body per stage, the tiling as constants, and the matvec that
+    runs the stages over the tile's shrinking regions in shared memory, the
+    last one over the tile itself into `put`. Along a dim that stores no
+    halo every stage runs over the tile."""
     structs, calls = [], []
-    last = len(stages) - 1
-    for i, st in enumerate(stages):
+    last = len(plan.stages) - 1
+    for i, st in enumerate(plan.stages):
         scalars = [c_literal(v, "float32") for v in st.scalars]
         structs.append(body_struct(st.op, f"NtStage{i}", scalar_exprs=scalars))
-        outer = st.op.results[0].type.bounds
-        sl = st.op.attrs["bounds"].rel_slices(outer)
-        g = grid_literal(outer.shape, outer.lb, [s.start for s in sl], [s.stop for s in sl])
-        ins = ", ".join("x" if r == "x" else f"scratch[{r}]" for r in st.inputs) or "nullptr"
-        out, dot = ("y", "x") if i == last else (f"scratch[{i}]", "nullptr")
-        ret = "return " if i == last else ""
-        calls.append(
-            f"    {{\n      const NtGrid g = {g};\n      const float* in[] = {{{ins}}};\n"
-            f"      {ret}nt_stage<NtStage{i}>(g, in, {out}, {dot});\n    }}"
+        sl = st.op.attrs["bounds"].rel_slices(st.op.results[0].type.bounds)
+        box = (
+            f"NtBox{{{{{_ints([0] + [s.start for s in sl])}}}, "
+            f"{{{_ints([1] + [s.stop for s in sl])}}}}}"
         )
-    matvec = "\n    grid.sync();\n".join(calls)
+        ins = ", ".join("p" if r == "x" else f"buf[{plan.buffer[r]}]" for r in st.inputs)
+        head = f"Tile, NtStage{i}, kWrap, {len(st.inputs)}"
+        if i == last:
+            call = f"nt_cg_apply<{head}, Tile::H1, Tile::H2>(g, org, tab, {box}, in, put);"
+        else:
+            c = [cr if h else 0 for cr, h in zip(plan.creep[i], plan.halo)]
+            call = (
+                f"nt_cg_stage<{head}, {c[0]}, {c[1]}>(g, org, tab, {box}, in, "
+                f"buf[{plan.buffer[i]}]);"
+            )
+        calls.append(
+            f"    {{\n      const float* const in[] = {{{ins or 'nullptr'}}};\n      {call}\n    }}"
+        )
+    stages = "\n".join(calls)
+    (t0, t1), (h0, h1), (e0, e1) = plan.tile, plan.halo, plan.edge
+    grid = grid_literal(plan.shape, plan.lb, (0, 0), (1, 1))
     return (
         '#include "nt_fused_cg.cuh"\n\n'
         + "\n".join(structs)
         + f"""
-struct NtMatvec {{
-  static constexpr int kScratch = {last};
-  static __device__ __forceinline__ double apply(const float* x, float* y,
-                                                 float* const* scratch,
-                                                 cg::grid_group& grid) {{
-    (void)scratch; (void)grid;
-{matvec}
+struct NtCgPlan {{
+  using Tile = NtTile<1, {t0}, {t1}, 0, {h0}, {h1}>;
+  static constexpr bool kWrap = {'true' if plan.periodic else 'false'};
+  static constexpr int kN1 = {plan.shape[0]}, kN2 = {plan.shape[1]};
+  static constexpr int kTiles2 = {plan.tiles[1]}, kBlocks = {plan.blocks};
+  static constexpr int kEdge1 = {e0}, kEdge2 = {e1};
+  static constexpr int kBuffers = {plan.n_buffers};
+  static constexpr int kSmem = {plan.smem_bytes};
+  static __device__ __forceinline__ NtGrid grid() {{ return NtGrid{grid}; }}
+  template <class Put>
+  static __device__ __forceinline__ void matvec(const NtGrid& g, const int (&org)[3],
+                                                const int* tab, const float* p,
+                                                float* const* buf, Put&& put) {{
+    (void)buf;
+{stages}
   }}
 }};
 
-NT_DEFINE_FUSED_CG(NtMatvec)
+NT_DEFINE_FUSED_CG(NtCgPlan)
 """
     )
 

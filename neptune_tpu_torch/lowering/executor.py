@@ -68,6 +68,8 @@ class CompiledModule:
         self._opdef_cache: dict[str, Callable] = {}
         self._structure_cache: dict[int, Callable] = {}
         self._fn_cache: dict[str, Callable] = {}
+        # (id(solve_linear op), matrix symbol) -> fused solve site or None
+        self._fused_sites: dict = {}
 
     # ------------------------------------------------------------------
     # public entry points
@@ -358,21 +360,13 @@ class CompiledModule:
         pc_opts = split_precond_options(opts, precond)
         if op.attrs.get("precision", "full") == "mixed":
             raise _roadmap("solve_linear(precision='mixed')", "queue 1, item 7")
-        # the whole-CG kernel under the JAX package's own conditions: per-solve
-        # options (atol/divtol/restart) are honored only by the generic path
-        if (
-            solver == "cg"
-            and not opts
-            and precond in (None, "none", "jacobi")
-            and self.backend in ("auto", "cuda")
-            and fused.supported(self.module, handle.symbol, handle.temp_type)
-        ):
-            inv_diag = None
-            if precond == "jacobi":
-                inv_diag = safe_inv_diag(handle.diagonal(b.device))
-            solve_k = fused.fused_cg(
-                self.module, handle.symbol, tol=tol, maxiter=max_iters, inv_diag=inv_diag
+        key = (id(op), handle.symbol)
+        if key not in self._fused_sites:
+            self._fused_sites[key] = self._fused_site(
+                handle, solver, opts, precond, tol, max_iters, b
             )
+        solve_k = self._fused_sites[key]
+        if solve_k is not None:
             x, iters, rn = solve_k(b)
             if _verbose(op):
                 print(
@@ -408,6 +402,28 @@ class CompiledModule:
                 f"resnorm={info.resnorm:.3e} converged={info.converged}"
             )
         return x
+
+    def _fused_site(self, handle, solver, opts, precond, tol, max_iters, b):
+        """The whole-CG kernel's solve site for one solve_linear op, or
+        None: under the JAX package's own conditions (per-solve options such
+        as atol/divtol/restart are honored only by the generic path).
+        Decided, planned and (for Jacobi) given its inverse diagonal once;
+        the site builds and allocates on each device at its first solve
+        there."""
+        if not (
+            solver == "cg"
+            and not opts
+            and precond in (None, "none", "jacobi")
+            and self.backend in ("auto", "cuda")
+            and fused.supported(self.module, handle.symbol, handle.temp_type)
+        ):
+            return None
+        inv_diag = None
+        if precond == "jacobi":
+            inv_diag = safe_inv_diag(handle.diagonal(b.device))
+        return fused.fused_cg(
+            self.module, handle.symbol, tol=tol, maxiter=max_iters, inv_diag=inv_diag
+        )
 
     def _solve_nonlinear(self, op: Operation, env):
         raise _roadmap("solve_nonlinear (Newton-Krylov, Picard)", "queue 1, item 7")

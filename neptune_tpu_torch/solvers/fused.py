@@ -1,27 +1,31 @@
 """Kernel B, fused_cg: the whole CG solve in one persistent cooperative kernel.
 
 The port of `neptune_tpu/solvers/fused.py`, which runs the whole CG loop in
-one TPU kernel with every vector resident in VMEM. On the H100 the vectors
-live in global memory (7 MB at 512^2 f32, held by the 50 MB L2) and one
-cooperative kernel (`csrc/nt_fused_cg.cuh`) separates the phases of each
-iteration with grid syncs; see that header for the design and its bound
-(grid-sync latency at these sizes).
+one TPU kernel with every vector resident in VMEM. On the H100 the state
+stays resident too, in shared memory: one block per SM owns one tile of the
+grid, keeps its tile's CG vectors and p over the tile and the operator's
+halo, and an iteration crosses two grid barriers (`csrc/nt_fused_cg.cuh`
+holds the design and its bound, the barriers' latency).
 
-The operator is evaluated in-kernel from the opdef's IR: `matvec_plan` flattens
-it into stages, one per inner apply (composite `apply_linear` chains inline,
-as `build_inkernel_matvec` does in the JAX package), and each stage is a body
-generated by `kernels/codegen.py` with kernel A's neighbour rule (zero-fill,
-or wrap on periodic applies; the JAX kernel wraps everywhere, which differs
-only in cells the copy-through contract leaves unspecified).
-
-Beside the kernel, `fused_cg_plain` runs the same recurrence in eager
-PyTorch. `fused_cg(...)(b)` takes the plain version for a CPU tensor and
-launches the kernel for a CUDA tensor, or raises.
+Here:
+  * `matvec_plan`: the operator flattened into stages, one per inner apply
+    (composite `apply_linear` chains inline, as `build_inkernel_matvec` does
+    in the JAX package); each stage is a body generated by
+    `kernels/codegen.py` with kernel A's neighbour rule (zero-fill, or wrap
+    on periodic applies; the JAX kernel wraps everywhere, which differs only
+    in cells the copy-through contract leaves unspecified);
+  * `cg_plan`: the tiles, the halo, the published edges and the
+    shared-memory layout, pure Python, decided before any launch;
+  * `fused_cg(...)`: a solve site, whose `solve(b)` takes the plain version
+    for a CPU tensor and launches the kernel for a CUDA tensor, or raises.
+    It plans, builds and allocates its workspace once per device;
+  * `fused_cg_plain`: the same recurrence in eager PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -29,7 +33,7 @@ import torch
 
 from ..config import config
 from ..ir.core import Module, Operation
-from ..ir.types import TempType
+from ..ir.types import StencilShape, TempType
 from ..kernels import codegen
 from ..kernels.build import LaunchCounter, builder, check
 from ..lowering import torch_backend
@@ -38,12 +42,16 @@ from ..lowering import torch_backend
 # that the same solves take the fused route in both packages
 _VMEM_LIMIT = 12 * 1024 * 1024
 
-counter = LaunchCounter("fused_cg")
+# the H100's SMs: the blocks of one launch at most (one per SM), which both
+# `supported` and the solve site plan for. The shared memory that one block's
+# plan may take: the most a block may have, less room for the kernel's static
+# shared memory (its block sums, about 400 B), which the solve site holds
+# each build to before any launch
+SMS = 132
+STATIC_SMEM = 1024
+SMEM_MAX = 227 * 1024 - STATIC_SMEM
 
-# (id(module), name, config.fold_affine) -> (module, C entries); the module
-# is held so that its id stays unique, and the generated bodies depend on the
-# fold setting
-_kernels: dict[tuple[int, str, bool], tuple] = {}
+counter = LaunchCounter("fused_cg")
 
 
 class FusionError(RuntimeError):
@@ -100,7 +108,164 @@ def matvec_plan(module: Module, name: str) -> list[Stage]:
     return stages[: out + 1]  # later stages are dead
 
 
+@dataclass
+class CgPlan:
+    """One build of kernel B: how the grid is cut into one tile per block.
+
+    creep[i]: per dim, how far stage i's valid region has shrunk from p's
+    (kernel D's creep); reach: the last stage's. halo: per dim, the halo a
+    tile stores, the reach along a dim cut into several tiles and none
+    along a dim that is not cut (the tile is the whole dim there, so a read
+    that leaves the tile leaves the grid: it reads 0, or wraps onto the tile
+    itself). buffer[i]: the shared-memory buffer of intermediate stage i (p
+    has its own, and the last stage writes Ap). edge: per dim, how deep into
+    its tile from each side a block publishes z for the other blocks'
+    halos."""
+
+    stages: list
+    shape: tuple
+    lb: tuple
+    creep: list
+    reach: tuple
+    halo: tuple
+    periodic: bool
+    buffer: dict
+    n_buffers: int
+    tile: tuple
+    tiles: tuple
+    edge: tuple
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles[0] * self.tiles[1]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _stage_halo(op: Operation) -> tuple:
+    sshape: StencilShape = op.attrs.get("shape") or StencilShape(())
+    return tuple(max(h) for h in sshape.halo()) if sshape.offsets else (0, 0)
+
+
+def _stage_buffers(stages: list) -> tuple[dict, int]:
+    """Shared-memory buffer per intermediate stage: a stage takes a free
+    buffer and gives it back after its last reader. p has its own buffer
+    for the whole solve and the last stage writes Ap, so neither takes one."""
+    last = {}
+    for idx, st in enumerate(stages):
+        for r in st.inputs:
+            if r != "x":
+                last[r] = idx
+    buffer, free, n = {}, [], 0
+    for idx in range(len(stages) - 1):
+        if free:
+            buffer[idx] = free.pop(0)
+        else:
+            buffer[idx] = n
+            n += 1
+        for s in {r for r in stages[idx].inputs if r != "x"} | {idx}:
+            if last.get(s, -1) <= idx:
+                free.append(buffer[s])
+        free.sort()
+    return buffer, n
+
+
+def tile_grid(shape, reach, fits: Callable, sms: int = SMS) -> Optional[tuple]:
+    """(tile, tiles, halo): cells per tile, tiles per dim and the stored
+    halo (CgPlan.halo), one tile per block, at most `sms` blocks, among the
+    cuts whose state fits(tile, halo) in shared memory; None if none does.
+    The slowest block sets every iteration's pace, and it walks its tile's
+    cells (the matvec, the vector updates) and its tile's and halo's cells
+    (the p update) once each, so the cut is the one with the fewest of both
+    in the largest tile: bands of whole rows (g1 = 1) or 2-D tiles. A dim
+    cut into several tiles gets tiles at least as deep as the reach; the
+    last tile of a dim may be short."""
+    (n0, n1), (h0, h1) = shape, reach
+    best = None
+    for g0 in range(1, min(n0, sms) + 1):
+        t0 = _ceil(n0, g0)
+        if _ceil(n0, t0) != g0 or (g0 > 1 and t0 < h0):
+            continue
+        t1 = _ceil(n1, sms // g0)
+        if t1 < n1:
+            t1 = min(max(t1, h1), n1)
+        tile, tiles = (t0, t1), (g0, _ceil(n1, t1))
+        halo = tuple(h if g > 1 else 0 for h, g in zip(reach, tiles))
+        key = t0 * t1 + (t0 + 2 * halo[0]) * (t1 + 2 * halo[1])
+        if fits(tile, halo) and (best is None or key < best[0]):
+            best = (key, tile, tiles, halo)
+    return None if best is None else best[1:]
+
+
+def edge_depth(shape, halo, tile, tiles, periodic: bool) -> tuple:
+    """Per dim, how deep into its tile from each side a block publishes z:
+    as deep as the stored halo reaches into the neighbouring tiles (nothing
+    along a dim that is not cut). Where a periodic dim does not divide
+    evenly, the last tile's wrapped cells fall anywhere in the first tiles,
+    so every cell is published."""
+    out = []
+    for n, h, t, g in zip(shape, halo, tile, tiles):
+        if h == 0:
+            out.append(0)
+        elif periodic and g * t != n:
+            out.append(t)
+        else:
+            out.append(min(h, t))
+    return tuple(out)
+
+
+def cg_smem_bytes(tile, halo, n_buffers: int, periodic: bool) -> int:
+    """Dynamic shared memory of one block (csrc/nt_fused_cg.cuh): p and the
+    intermediate stage buffers over the tile and its stored halo, then x, r,
+    Ap and 1/diag over the tile, then, for wrapped tiles, the table of
+    wrapped cells (rank-3 padded: W0 = 1)."""
+    w1, w2 = tile[0] + 2 * halo[0], tile[1] + 2 * halo[1]
+    tab = 1 + w1 + w2 if periodic else 0
+    return 4 * ((1 + n_buffers) * w1 * w2 + 4 * tile[0] * tile[1] + tab)
+
+
+def cg_plan(module: Module, name: str, sms: int = SMS) -> Optional[CgPlan]:
+    """Plan kernel B for opdef @name on a card with `sms` SMs, or None when
+    one block's state does not fit in shared memory. FusionError if the
+    operator cannot be fused."""
+    stages = matvec_plan(module, name)
+    bounds = module.lookup(name).ftype.inputs[0].bounds
+    creep: list = []
+    for st in stages:
+        base = [0, 0]
+        for r in st.inputs:
+            if r != "x":
+                base = [max(a, c) for a, c in zip(base, creep[r])]
+        creep.append(tuple(b + h for b, h in zip(base, _stage_halo(st.op))))
+    reach = creep[-1]
+    periodic = any(st.op.attrs.get("periodic") for st in stages)
+    buffer, n_buffers = _stage_buffers(stages)
+
+    def smem(tile, halo):
+        return cg_smem_bytes(tile, halo, n_buffers, periodic)
+
+    cut = tile_grid(bounds.shape, reach, lambda t, h: smem(t, h) <= SMEM_MAX, sms)
+    if cut is None:
+        return None
+    tile, tiles, halo = cut
+    return CgPlan(
+        stages=stages, shape=tuple(bounds.shape), lb=tuple(bounds.lb), creep=creep,
+        reach=reach, halo=halo, periodic=periodic, buffer=buffer, n_buffers=n_buffers,
+        tile=tile, tiles=tiles, edge=edge_depth(bounds.shape, halo, tile, tiles, periodic),
+        smem_bytes=smem(tile, halo),
+    )
+
+
 def supported(module: Module, name: str, tt: TempType) -> bool:
+    """The JAX package's gates (f32, rank 2, the 12 MiB working set, a
+    fusable operator), and a plan whose state fits in shared memory on the
+    H100. Under the cap every grid has one for operators of reach <= 16
+    with up to two intermediate buffers (tests/test_torch_fused_tiles.py
+    sweeps the shapes); an operator that reaches further may have none, and
+    then its solves take generic CG."""
     if tt.element != "float32":
         return False
     if tt.bounds.rank != 2:
@@ -108,10 +273,9 @@ def supported(module: Module, name: str, tt: TempType) -> bool:
     if tt.bounds.size * 4 * 7 > _VMEM_LIMIT:
         return False
     try:
-        matvec_plan(module, name)
+        return cg_plan(module, name) is not None
     except FusionError:
         return False
-    return True
 
 
 def plain_matvec(stages: list[Stage]) -> Callable:
@@ -132,8 +296,7 @@ def _dot(a, b):
 
     A deliberate change of numerics against the JAX kernel, which sums in
     f32: the kernel sums in f64 too, so its summation order almost never
-    shows and kernel and plain version take the same iterations. It costs
-    the kernel about 15% per CG iteration at 512^2."""
+    shows and kernel and plain version take the same iterations."""
     return torch.sum(a * b, dtype=torch.float64).to(torch.float32)
 
 
@@ -168,51 +331,127 @@ def fused_cg_plain(matvec: Callable, b, *, tol: float, maxiter: int, inv_diag=No
     return x, torch.tensor(k, dtype=torch.int32, device=b.device), rn
 
 
-def _entries(module: Module, name: str, stages: list[Stage]):
-    key = (id(module), name, config.fold_affine)
-    hit = _kernels.get(key)
-    if hit is None:
-        lib = builder.load(codegen.fused_cg_source(stages), "fused_cg")
-        blocks_fn = lib.nt_fused_cg_blocks
-        blocks_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        blocks_fn.restype = ctypes.c_int
-        solve_fn = lib.nt_fused_cg
-        solve_fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-            + [ctypes.c_void_p] * 2
-            + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+class _Site:
+    """Kernel B on one device: the plan (`supported`'s own, for SMS blocks),
+    the built library, the inverse diagonal on the device, and the workspace
+    that every solve of the site reuses (the exchange grid and the blocks'
+    partial sums). Solves of one site run one at a time, in stream order.
+    Raises before any launch if the card cannot hold the plan's blocks
+    co-resident."""
+
+    def __init__(self, module: Module, name: str, device: torch.device, inv_diag):
+        self.index = device.index
+        self.plan = cg_plan(module, name)
+        if self.plan is None:
+            raise RuntimeError(f"fused_cg: @{name}'s tile state does not fit in shared memory")
+        lib = builder.load(codegen.fused_cg_source(self.plan), "fused_cg")
+        setup = lib.nt_fused_cg_setup
+        setup.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        setup.restype = ctypes.c_int
+        self.solve_fn = lib.nt_fused_cg
+        self.solve_fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
-        solve_fn.restype = ctypes.c_int
-        hit = _kernels[key] = (module, blocks_fn, solve_fn)
-    return hit[1], hit[2]
+        self.solve_fn.restype = ctypes.c_int
+        self.probe_fn = lib.nt_cg_barrier_probe
+        self.probe_fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        self.probe_fn.restype = ctypes.c_int
+        most, fixed = ctypes.c_int(0), ctypes.c_int(0)
+        check(setup(self.index, ctypes.addressof(most), ctypes.addressof(fixed)), "fused_cg setup")
+        if fixed.value > STATIC_SMEM:
+            raise RuntimeError(
+                f"fused_cg: the kernel's {fixed.value} B of static shared memory exceed the "
+                f"{STATIC_SMEM} B that the plans leave for it"
+            )
+        if self.plan.blocks > most.value:
+            raise RuntimeError(
+                f"fused_cg: {self.plan.blocks} blocks of {self.plan.smem_bytes} B are not "
+                f"co-resident on {device} (at most {most.value})"
+            )
+        self.exch = torch.zeros(math.prod(self.plan.shape), dtype=torch.float32, device=device)
+        self.part = torch.zeros(2 * _SLOTS * self.plan.blocks, dtype=torch.float64, device=device)
+        self.dinv = None if inv_diag is None else inv_diag.to(device, torch.float32).contiguous()
+
+    def solve(self, b: torch.Tensor, tol: float, maxiter: int):
+        x = torch.empty_like(b)
+        iters = torch.empty((), dtype=torch.int32, device=b.device)
+        resnorm = torch.empty((), dtype=torch.float32, device=b.device)
+        check(
+            self.solve_fn(
+                self.index, b.data_ptr(), None if self.dinv is None else self.dinv.data_ptr(),
+                x.data_ptr(), self.exch.data_ptr(), self.part.data_ptr(),
+                iters.data_ptr(), resnorm.data_ptr(), tol, maxiter,
+                torch.cuda.current_stream(b.device).cuda_stream,
+            ),
+            "fused_cg launch",
+        )
+        counter.count += 1
+        return x, iters, resnorm
+
+    def barrier_floor_us(self, iters: int) -> float:
+        """Microseconds per iteration of the barrier probe at this site's
+        grid size: the kernel's two grid barriers and its reduction of three
+        values per iteration, nothing else. CUDA events around one launch,
+        after a warm-up launch."""
+        dev = torch.device("cuda", self.index)
+        part = torch.zeros(2 * _SLOTS * self.plan.blocks, dtype=torch.float64, device=dev)
+        out = torch.zeros((), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev)
+
+        def launch(k):
+            check(self.probe_fn(self.index, k, part.data_ptr(), out.data_ptr(),
+                                stream.cuda_stream), "barrier probe launch")
+
+        launch(10)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        launch(iters)
+        stop.record(stream)
+        stop.synchronize()
+        return start.elapsed_time(stop) * 1e3 / iters
 
 
-def _launch(module, name, stages, b, dinv, tol, maxiter):
-    device = b.device
-    dev = device.index or 0
-    blocks_fn, solve_fn = _entries(module, name, stages)
-    blocks = ctypes.c_int(0)
-    check(
-        blocks_fn(dev, int(dinv is not None), ctypes.addressof(blocks)),
-        "fused_cg occupancy query",
-    )
-    n = b.numel()
-    x = torch.empty_like(b)
-    work = torch.empty((4 + len(stages) - 1) * n, dtype=torch.float32, device=device)
-    part = torch.empty(4 * blocks.value, dtype=torch.float64, device=device)
-    iters = torch.empty((), dtype=torch.int32, device=device)
-    resnorm = torch.empty((), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    check(
-        solve_fn(
-            dev, b.data_ptr(), None if dinv is None else dinv.data_ptr(),
-            x.data_ptr(), work.data_ptr(), part.data_ptr(), blocks.value,
-            iters.data_ptr(), resnorm.data_ptr(), n, tol, maxiter, stream,
-        ),
-        "fused_cg launch",
-    )
-    counter.count += 1
-    return x, iters, resnorm
+# csrc/nt_fused_cg.cuh's kNtCgSlots: sums per block and reduction
+_SLOTS = 2
+
+
+class FusedCG:
+    """solve(b) -> (x, iters, resnorm): the whole (optionally
+    Jacobi-preconditioned) CG solve of opdef @name in one kernel launch on a
+    CUDA tensor, the plain version on a CPU tensor."""
+
+    def __init__(self, module: Module, name: str, tol: float, maxiter: int, inv_diag):
+        self.module, self.name, self.tol, self.maxiter = module, name, tol, maxiter
+        self.shape = module.lookup(name).ftype.inputs[0].bounds.shape
+        self.stages = matvec_plan(module, name)
+        self.inv_diag = inv_diag
+        self._sites: dict = {}
+
+    def site(self, device) -> _Site:
+        """The kernel's site on a CUDA device: planned, built and allocated
+        at its first solve there (and again if the affine folding, which the
+        generated bodies follow, has changed)."""
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (device, config.fold_affine)
+        hit = self._sites.get(key)
+        if hit is None:
+            hit = self._sites[key] = _Site(self.module, self.name, device, self.inv_diag)
+        return hit
+
+    def __call__(self, b):
+        if tuple(b.shape) != self.shape:
+            raise ValueError(f"fused_cg: rhs {tuple(b.shape)} != operator grid {self.shape}")
+        b = b.to(torch.float32).contiguous()
+        if b.device.type == "cpu":
+            dinv = None if self.inv_diag is None else self.inv_diag.to(b.device, torch.float32)
+            return fused_cg_plain(
+                plain_matvec(self.stages), b, tol=self.tol, maxiter=self.maxiter, inv_diag=dinv
+            )
+        if b.device.type != "cuda":
+            raise ValueError(f"fused_cg: no kernel for device {b.device}")
+        return self.site(b.device).solve(b, self.tol, self.maxiter)
 
 
 def fused_cg(
@@ -222,22 +461,6 @@ def fused_cg(
     tol: float = 1e-6,
     maxiter: int = 1000,
     inv_diag: Optional[torch.Tensor] = None,
-) -> Callable:
-    """Returns solve(b) -> (x, iters, resnorm): the whole (optionally
-    Jacobi-preconditioned) CG solve of opdef @name in one kernel launch."""
-    fn = module.lookup(name)
-    shape = fn.ftype.inputs[0].bounds.shape
-    stages = matvec_plan(module, name)
-
-    def solve(b):
-        if tuple(b.shape) != shape:
-            raise ValueError(f"fused_cg: rhs {tuple(b.shape)} != operator grid {shape}")
-        b = b.to(torch.float32).contiguous()
-        dinv = None if inv_diag is None else inv_diag.to(b.device, torch.float32).contiguous()
-        if b.device.type == "cpu":
-            return fused_cg_plain(plain_matvec(stages), b, tol=tol, maxiter=maxiter, inv_diag=dinv)
-        if b.device.type != "cuda":
-            raise ValueError(f"fused_cg: no kernel for device {b.device}")
-        return _launch(module, name, stages, b, dinv, tol, maxiter)
-
-    return solve
+) -> FusedCG:
+    """A solve site of opdef @name (see FusedCG)."""
+    return FusedCG(module, name, tol, maxiter, inv_diag)

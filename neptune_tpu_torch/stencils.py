@@ -94,6 +94,22 @@ def poisson5(n: int, dtype="float32") -> Module:
     return _one_apply_opdef("poisson", (n, n), 1, dtype, body)
 
 
+def shifted_laplacian(shape, periodic=False, reach=1) -> Module:
+    """@shifted: u + 0.1 * (4 u - u[-h,0] - u[h,0] - u[0,-h] - u[0,h]) with
+    h = reach, an SPD rank-2 f32 system, on the interior of any rectangle (a
+    copy-through ring h cells deep) or on the whole torus: what the fused CG
+    kernel solves on uneven, narrow, periodic and wide-halo grids."""
+
+    def body(b, S, u, s):
+        c = b.access(u[0], [0, 0])
+        acc = b.mul(b.constant(4.0, S), c)
+        for o in ([-reach, 0], [reach, 0], [0, -reach], [0, reach]):
+            acc = b.sub(acc, b.access(u[0], o))
+        return b.add(c, b.mul(b.constant(0.1, S), acc))
+
+    return _one_apply_opdef("shifted", tuple(shape), reach, "float32", body, periodic=periodic)
+
+
 def heat7(shape, dtype="float32", periodic=False) -> Module:
     """@heat: u + 0.1 * (sum of the 6 neighbours - 6 u) on the interior, or
     on the whole torus."""
@@ -220,16 +236,18 @@ def _finish_wrapped(b: NeptuneBuilder, x, lap, bounds: Bounds) -> Module:
     return verify_and_annotate(b.module)
 
 
-def composite(shape, mixed: bool = False) -> Module:
+def composite(shape, mixed: bool = False, periodic: bool = False) -> Module:
     """@wrapped(u) = u + 0.01 lap(lap(u)): bench.py's `make_composite_2d`
     (the composite_chain rows), rank 2 or 3, three stages with a composed
     reach of 2. mixed: the outer lap periodic over the whole torus and the
-    combination on the interior, so periodic and bounded stages mix."""
+    combination on the interior, so periodic and bounded stages mix.
+    periodic: every stage over the whole torus (an SPD system on any grid,
+    one cell wide too)."""
     rank = len(shape)
     b = NeptuneBuilder()
     outer = Bounds.of([0] * rank, list(shape))
     tt = TempType("float32", outer)
-    _lap_opdef(b, "lap", tt)
+    _lap_opdef(b, "lap", tt, periodic=periodic)
     if mixed:
         _lap_opdef(b, "lap_p", tt, periodic=True)
     fn = b.make_opdef("wrapped", "linear_opdef", [tt], [tt])

@@ -86,9 +86,15 @@ def test_composite_plan_inlines_apply_linear():
     module, name = composite()
     stages = fused.matvec_plan(module, name)
     assert [st.inputs for st in stages] == [["x"], ["x", 0]]
-    src = codegen.fused_cg_source(stages)
-    assert "kScratch = 1" in src and src.count("grid.sync()") == 1
-    assert "NT_DEFINE_FUSED_CG(NtMatvec)" in src
+    plan = fused.cg_plan(module, name)
+    assert plan.n_buffers == 1 and plan.reach == (1, 1)
+    src = codegen.fused_cg_source(plan)
+    # both stages run from shared memory with no grid barrier between them:
+    # the two barriers of an iteration are the fixed kernel's, whatever the
+    # stages
+    assert "kBuffers = 1" in src and "barrier" not in src and "grid.sync" not in src
+    assert src.count("nt_cg_stage<") == 1 and src.count("nt_cg_apply<") == 1
+    assert "NT_DEFINE_FUSED_CG(NtCgPlan)" in src
 
 
 def test_supported_gates():

@@ -128,25 +128,68 @@ def test_division_is_the_ieee_quotient(cuda):
     np.testing.assert_array_equal(by_cpu_scalar.cpu().numpy(), x / c)
 
 
+# (module, opdef, Jacobi, tol, maxiter): kernel B cases, from bands of whole
+# rows to 2-D tiles, with ragged last tiles, a composite halo and a torus
+FUSED = {
+    "poisson": (lambda: stencils.poisson5(64), "poisson", False, 1e-4, 2000),
+    "poisson_jacobi": (lambda: stencils.poisson5(64), "poisson", True, 1e-4, 2000),
+    "composite": (lambda: composite(64), "shifted", False, 1e-4, 2000),
+    "poisson512_jacobi": (lambda: stencils.poisson5(512), "poisson", True, 1e-4, 5500),
+    "heat_A256": (lambda: entry.build_step(256, "float32").module, "heat_A", False, 1e-6, 200),
+    "lap_lap_256": (lambda: stencils.composite((256, 256)), "wrapped", False, 1e-5, 2000),
+    "periodic": (lambda: stencils.shifted_laplacian((300, 256), periodic=True), "shifted", True,
+                 1e-6, 2000),
+    "uneven_509x300": (lambda: stencils.shifted_laplacian((509, 300)), "shifted", True, 1e-6, 2000),
+    "narrow_16x28000": (lambda: stencils.shifted_laplacian((16, 28000)), "shifted", False, 1e-6,
+                        2000),
+    # not symmetric: a fixed 30 iterations, through the wrapped tiles'
+    # bounded-stage reads
+    "mixed_periodic_bounded": (lambda: stencils.composite((100, 70), mixed=True), "wrapped", False,
+                               1e-12, 30),
+    # dims that are not cut store no halo: reads off them read 0, or wrap
+    # onto the tile itself; the first three are at the working-set cap
+    "periodic_composite_column": (lambda: stencils.composite((449389, 1), periodic=True),
+                                  "wrapped", False, 1e-6, 2000),
+    "reach8_periodic_3_wide": (lambda: stencils.shifted_laplacian((149796, 3), True, reach=8),
+                               "shifted", False, 1e-6, 2000),
+    "reach8_17_wide": (lambda: stencils.shifted_laplacian((26434, 17), reach=8), "shifted", True,
+                       1e-6, 2000),
+    "mixed_rows_not_cut": (lambda: stencils.composite((4, 30000), mixed=True), "wrapped", False,
+                           1e-12, 30),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", ["poisson", "poisson_jacobi", "composite"])
+@pytest.mark.parametrize("which", FUSED)
 def test_fused_cg_matches_plain(which, cuda):
-    n = 64
-    module = composite(n) if which == "composite" else stencils.poisson5(n)
-    name = "shifted" if which == "composite" else "poisson"
+    build, name, jacobi, tol, maxiter = FUSED[which]
+    module = build()
+    shape = module.lookup(name).ftype.inputs[0].bounds.shape
     matvec = fused.plain_matvec(fused.matvec_plan(module, name))
-    b = torch.from_numpy(np.random.default_rng(1).standard_normal((n, n)).astype(np.float32))
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32))
     inv = None
-    if which == "poisson_jacobi":
-        inv = safe_inv_diag(extract_diagonal(matvec, torch.zeros(n, n), ((1, 1), (1, 1))))
-    solve = fused.fused_cg(module, name, tol=1e-4, maxiter=2000, inv_diag=inv)
-    x_p, it_p, _ = solve(b)
+    if jacobi:
+        inv = safe_inv_diag(extract_diagonal(matvec, torch.zeros(shape), ((1, 1), (1, 1))))
+    solve = fused.fused_cg(module, name, tol=tol, maxiter=maxiter, inv_diag=inv)
+    bc = b.to(cuda)
+    x_p, it_p, _ = fused.fused_cg_plain(matvec, bc, tol=tol, maxiter=maxiter,
+                                        inv_diag=None if inv is None else inv.to(cuda))
     before = fused.counter.count
-    x_k, it_k, rn_k = solve(b.to(cuda))
+    x_k, it_k, rn_k = solve(bc)
     torch.cuda.synchronize()
     assert fused.counter.count == before + 1
+    plan = solve.site(cuda).plan
+    if which == "narrow_16x28000":
+        assert plan.tiles[1] > 1  # the rows are cut too
+    if which in ("periodic_composite_column", "reach8_periodic_3_wide", "reach8_17_wide",
+                 "mixed_rows_not_cut"):
+        assert 0 in plan.halo and plan.halo != plan.reach
     assert abs(int(it_k) - int(it_p)) <= 1
-    assert float(torch.linalg.norm(x_k.cpu() - x_p) / torch.linalg.norm(x_p)) <= 1e-4
+    bnorm = float(torch.linalg.norm(bc))
+    res_k = float(torch.linalg.norm(bc - matvec(x_k)))
+    res_p = float(torch.linalg.norm(bc - matvec(x_p)))
+    assert res_k <= max(1.01 * tol * bnorm, 2 * res_p)
+    assert float(torch.linalg.norm(x_k - x_p) / torch.linalg.norm(x_p)) <= 1e-4
 
 
 @pytest.mark.gpu
