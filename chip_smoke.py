@@ -90,6 +90,58 @@ def b_system(system: str):
     return stencils.poisson5(int(n))
 
 
+def a_cases():
+    """Kernel A's phase-2 cases, built by the neptune_tpu_torch package that
+    comes first on sys.path: (label, module, affine folding); the last runs
+    every body op by op."""
+    from neptune_tpu_torch import stencils
+
+    return [
+        ("jacobi5 1024^2 f32", stencils.jacobi5((1024, 1024)), True),
+        ("jacobi5 4096^2 f32", stencils.jacobi5((4096, 4096)), True),
+        ("jacobi5 4096^2 bf16", stencils.jacobi5((4096, 4096), "bfloat16"), True),
+        ("heat7 256^3 f32", stencils.heat7((256, 256, 256)), True),
+        ("heat7 256^3 bf16", stencils.heat7((256, 256, 256), "bfloat16"), True),
+        ("heat7 periodic 256^3 f32", stencils.heat7((256, 256, 256), periodic=True), True),
+        ("adv4 4096^2 f32 (h0=2)", stencils.advection4((4096, 4096)), True),
+        ("adv4 4096^2 bf16 (h0=2)", stencils.advection4((4096, 4096), "bfloat16"), True),
+        ("adv4 periodic 4096^2 f32", stencils.advection4((4096, 4096), periodic=True), True),
+        ("u+dt*k 4096^2 f32", stencils.combination((4096, 4096)), True),
+        ("two-result gradients 4096^2 f32", stencils.gradients((4096, 4096)), True),
+        ("adv4 4096^2 f32 unfolded", stencils.advection4((4096, 4096)), False),
+    ]
+
+
+def c_cases():
+    """Kernel C's phase-5 cases: (label, module, opdef, k, scalars, other
+    depths per launch to time)."""
+    from neptune_tpu_torch import stencils
+
+    return [
+        ("jacobi5 1024^2 K=16", stencils.jacobi5((1024, 1024)), "jacobi", 16, (), ()),
+        ("jacobi5 4096^2 K=16", stencils.jacobi5((4096, 4096)), "jacobi", 16, (), (8,)),
+        ("heat7 256^3 K=8", stencils.heat7((256, 256, 256)), "heat", 8, (), (4,)),
+        ("adv4 8192^2 K=16 (h0=2)", stencils.advection4((8192, 8192)), "adv4", 16, (), (4,)),
+        ("adv4 periodic 4096^2 K=16", stencils.advection4((4096, 4096), periodic=True),
+         "adv4", 16, (), ()),
+        ("relax w=0.8 4096^2 K=16", stencils.damped_jacobi((4096, 4096)), "relax", 16, (0.8,), ()),
+    ]
+
+
+def d_cases():
+    """Kernel D's phase-6 cases: (label, module, opdef, fields, scalars)."""
+    from neptune_tpu_torch import stencils
+
+    return [
+        ("composite 1024^2", stencils.composite((1024, 1024)), "wrapped", 1, ()),
+        ("composite 4096^2", stencils.composite((4096, 4096)), "wrapped", 1, ()),
+        ("mixed periodic/bounded 4096^2", stencils.composite((4096, 4096), mixed=True),
+         "wrapped", 1, ()),
+        ("two fields + scalars 4096^2", stencils.coupled((4096, 4096)), "couple", 2, (0.7, -1.3)),
+        ("composite 256^3", stencils.composite((256, 256, 256)), "wrapped", 1, ()),
+    ]
+
+
 def say(*parts) -> None:
     print(*parts, flush=True)
 
@@ -304,6 +356,23 @@ def library_for_chain(plan, fields, got):
     if w is None:
         return None, "none"
     return _library(w, fields[0], got, reach)
+
+
+def a_plan_text(op) -> str:
+    """Kernel A's plan for an apply: tile, cells per thread, shared memory."""
+    from neptune_tpu_torch.lowering import cuda_backend
+
+    p = cuda_backend.apply_plan(op)
+    if p is None:
+        return "first design (one cell per thread)"
+    return (f"tile {p.tile} x {p.planes} planes, {p.strip} cells per thread, "
+            f"{p.threads} threads, {p.smem_bytes} B smem")
+
+
+def c_plan_text(plan) -> str:
+    """Kernel C's plan: depth, tile, cells per thread, shared memory."""
+    return (f"depth {plan.depth}, tile {plan.tile}, {plan.strip} x {plan.cols} cells per thread, "
+            f"{plan.warps} warps, {plan.smem_bytes} B smem, recompute {plan.recompute:.2f}")
 
 
 def rand(rng, shape, dev):
@@ -669,12 +738,17 @@ def phase8_forms(dev, rng):
     lib_ms, lib_txt = library_for_apply(op, [x], cuda_backend.apply_window(op, [x], [], g0))
     out["stencil_apply_window"] = (k_ms, p_ms, bound(8 * cells, codegen.body_ops(op) * cells),
                                    lib_ms, "jacobi5 4096^2 f32, one block")
+    extra = {"stencil_apply_window": (
+        device_us(lambda: cuda_backend.apply_window(op, [x], [], g0), 20, "nt_apply"),
+        a_plan_text(op))}
     plan = sweeps.local_sweep_plan(op, (4096, 4096), 8)
     k_ms, p_ms = abba(lambda: sweeps.run_sweeps(plan, x, [], g0),
                       lambda: sweeps.sweeps_plain(plan, x, [], g0), 3)
     out["stencil_sweeps_local"] = (
         k_ms, p_ms, bound(8 * cells, plan.depth * cells * codegen.body_ops(op)), None,
         f"jacobi5 4096^2 f32, {plan.depth} sweeps, one block")
+    extra["stencil_sweeps_local"] = (
+        device_us(lambda: sweeps.run_sweeps(plan, x, [], g0), 3, "nt_sweeps"), c_plan_text(plan))
     comp = stencils.composite((4096, 4096))
     cplan = chain.chain_plan(comp, "wrapped", (4096, 4096))
     k_ms, p_ms = abba(lambda: chain.run_chain(cplan, [x], [], global_start=g0),
@@ -684,10 +758,17 @@ def phase8_forms(dev, rng):
     out["stencil_chain_origin"] = (
         k_ms, p_ms, bound(8 * cells, cells * sum(codegen.body_ops(st.op) for st in cplan.stages)),
         lib_ms_d, "u + 0.01 lap(lap u) 4096^2 f32, one block")
+    extra["stencil_chain_origin"] = (
+        device_us(lambda: chain.run_chain(cplan, [x], [], global_start=g0), 10, "nt_chain"),
+        f"tile {cplan.tile}, {cplan.smem_bytes} B smem")
+    copy = copy_gbs(int(8 * cells))
     for name, (k_ms, p_ms, (b_ms, b_by), lib, shape) in out.items():
         out[name] = (k_ms, p_ms, (b_ms, b_by), lib, shape, errs[name])
-        say(f"phase 8 {name} at {shape}: max_abs_err={errs[name]!r}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), library "
+        dev, plan_txt = extra[name]
+        say(f"phase 8 {name} at {shape}: max_abs_err={errs[name]!r}; kernel {k_ms:.4f} ms per "
+            f"call, device {'not measured' if dev is None else f'{dev:.1f} us'}, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), d2d copy {copy:.1f} GB/s, plan "
+            f"{plan_txt}, library "
             + (lib_txt if name == "stencil_apply_window" else
                lib_txt_d if name == "stencil_chain_origin" else "none"))
     return out
@@ -795,43 +876,12 @@ def main() -> int:
     card = nvidia_smi()
 
     # ---- the main path's operators, at the main path's shapes -----------
-    # (label, module, affine folding): the last case runs every body op by op
-    A_CASES = [
-        ("jacobi5 1024^2 f32", stencils.jacobi5((1024, 1024)), True),
-        ("jacobi5 4096^2 f32", stencils.jacobi5((4096, 4096)), True),
-        ("jacobi5 4096^2 bf16", stencils.jacobi5((4096, 4096), "bfloat16"), True),
-        ("heat7 256^3 f32", stencils.heat7((256, 256, 256)), True),
-        ("heat7 256^3 bf16", stencils.heat7((256, 256, 256), "bfloat16"), True),
-        ("heat7 periodic 256^3 f32", stencils.heat7((256, 256, 256), periodic=True), True),
-        ("adv4 4096^2 f32 (h0=2)", stencils.advection4((4096, 4096)), True),
-        ("adv4 4096^2 bf16 (h0=2)", stencils.advection4((4096, 4096), "bfloat16"), True),
-        ("adv4 periodic 4096^2 f32", stencils.advection4((4096, 4096), periodic=True), True),
-        ("u+dt*k 4096^2 f32", stencils.combination((4096, 4096)), True),
-        ("two-result gradients 4096^2 f32", stencils.gradients((4096, 4096)), True),
-        ("adv4 4096^2 f32 unfolded", stencils.advection4((4096, 4096)), False),
-    ]
+    A_CASES = a_cases()
     heat_cm = entry.build_step(256, "float32", device=dev)
     B_CASES = [(label, b_system(system), *rest) for label, system, *rest in B_SYSTEMS]
     step3d_cm = entry.build_step_3d(256, "float32", device=dev)
-    # kernel C: (label, module, opdef, k, scalars, other depths per launch to time)
-    C_CASES = [
-        ("jacobi5 1024^2 K=16", stencils.jacobi5((1024, 1024)), "jacobi", 16, (), ()),
-        ("jacobi5 4096^2 K=16", stencils.jacobi5((4096, 4096)), "jacobi", 16, (), (8,)),
-        ("heat7 256^3 K=8", stencils.heat7((256, 256, 256)), "heat", 8, (), (8, 4)),
-        ("adv4 8192^2 K=16 (h0=2)", stencils.advection4((8192, 8192)), "adv4", 16, (), (16, 4)),
-        ("adv4 periodic 4096^2 K=16", stencils.advection4((4096, 4096), periodic=True),
-         "adv4", 16, (), ()),
-        ("relax w=0.8 4096^2 K=16", stencils.damped_jacobi((4096, 4096)), "relax", 16, (0.8,), ()),
-    ]
-    # kernel D: (label, module, opdef, fields, scalars)
-    D_CASES = [
-        ("composite 1024^2", stencils.composite((1024, 1024)), "wrapped", 1, ()),
-        ("composite 4096^2", stencils.composite((4096, 4096)), "wrapped", 1, ()),
-        ("mixed periodic/bounded 4096^2", stencils.composite((4096, 4096), mixed=True),
-         "wrapped", 1, ()),
-        ("two fields + scalars 4096^2", stencils.coupled((4096, 4096)), "couple", 2, (0.7, -1.3)),
-        ("composite 256^3", stencils.composite((256, 256, 256)), "wrapped", 1, ()),
-    ]
+    C_CASES = c_cases()
+    D_CASES = d_cases()
     rows = dsl_rows(ntt)
     c_plans = []
     for _, module, name, k, _, depths in C_CASES:
@@ -865,10 +915,10 @@ def main() -> int:
     sources, fold_default = [], config.fold_affine
     for _, m, fold in A_CASES:
         config.fold_affine = fold
-        sources.append(codegen.apply_source(stencils.the_apply(m)))
+        sources.append(cuda_backend.source(stencils.the_apply(m)))
     config.fold_affine = fold_default
-    sources.append(codegen.apply_source(stencils.the_apply(step3d_cm.module)))
-    sources.append(codegen.apply_source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
+    sources.append(cuda_backend.source(stencils.the_apply(step3d_cm.module)))
+    sources.append(cuda_backend.source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
     cg_sources = [codegen.fused_cg_source(fused.cg_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -919,7 +969,7 @@ def main() -> int:
             lambda: torch_backend.execute_apply(op, args),
             reps=20,
         )
-        dev_us = device_us(lambda: cuda_backend.try_execute_apply(op, args), 20, "nt_apply_kernel")
+        dev_us = device_us(lambda: cuda_backend.try_execute_apply(op, args), 20, "nt_apply")
         cells = float(np.prod(shape))
         nbytes = (n_in + len(op.results)) * cells * gots[0].element_size()
         b_ms, b_by = bound(nbytes, codegen.body_ops(op) * cells)
@@ -927,11 +977,15 @@ def main() -> int:
         dev_txt = "not measured" if dev_us is None else (
             f"{dev_us:.1f} us ({cells / dev_us / 1e3:.2f} Gcell/s, {nbytes / dev_us / 1e3:.1f} GB/s)"
         )
+        # host time of one launch: calls queued back to back, no sync
+        host_us = 1e3 * host_ms(lambda: cuda_backend.try_execute_apply(op, args), 50,
+                                lambda: None)[0]
+        torch.cuda.synchronize()
         say(f"phase 2 stencil_apply {label}: max_abs_err={err!r} bf16_ulps={ulps} "
             f"launches+{launched}; kernel {k_ms:.4f} ms per call ({cells / k_ms / 1e6:.2f} Gcell/s, "
-            f"{nbytes / k_ms / 1e6:.1f} GB/s), device time {dev_txt}; plain {p_ms:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by}); library {lib_txt}; "
-            f"d2d copy of the same bytes {copy_gbs(int(nbytes)):.1f} GB/s")
+            f"{nbytes / k_ms / 1e6:.1f} GB/s), device time {dev_txt}; host {host_us:.1f} us per "
+            f"launch; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library {lib_txt}; "
+            f"d2d copy of the same bytes {copy_gbs(int(nbytes)):.1f} GB/s; plan {a_plan_text(op)}")
         if label == "jacobi5 4096^2 f32":
             a_ms, a_plain_ms, a_bound, a_lib = k_ms, p_ms, (b_ms, b_by), lib_ms
     config.fold_affine = fold_default
@@ -1126,7 +1180,7 @@ def main() -> int:
         reps = 3 if cells > 3e7 else 10
         k_ms, p_ms = abba(lambda: run(x, *sc), lambda: plain(x, *sc), reps)
         ka_ms = cuda_ms(k_launches, reps)
-        dev_us = device_us(lambda: run(x, *sc), reps, "nt_sweeps_kernel")
+        dev_us = device_us(lambda: run(x, *sc), reps, "nt_sweeps")
         depth_txt = []
         for d in depths:
             pd = sweeps.sweep_plan(module, name, k, depth=d)
@@ -1138,13 +1192,11 @@ def main() -> int:
                 return u
 
             require(torch.equal(at_depth(), ak), f"{label}: depth {d} != kernel A")
-            depth_txt.append(f"depth {d} (tile {pd.tile}, {pd.smem_bytes} B smem, recompute "
-                             f"{pd.recompute:.2f}) {cuda_ms(at_depth, reps):.4f} ms")
+            depth_txt.append(f"{c_plan_text(pd)}: {cuda_ms(at_depth, reps):.4f} ms")
         dev_txt = "not measured" if dev_us is None else f"{dev_us:.1f} us"
         b_ms_c, b_by_c = bound(8 * cells, k * cells * codegen.body_ops(plan.op))
         say(f"phase 5 stencil_sweeps {label}: bound {b_ms_c:.4f} ms ({b_by_c}), library none; "
-            f"depth {plan.depth} x{k // plan.depth} launches "
-            f"(tile {plan.tile}, {plan.smem_bytes} B smem, recompute {plan.recompute:.2f}), "
+            f"{k // plan.depth} launches of {c_plan_text(plan)}, "
             f"bitwise = plain = {k} kernel-A launches; kernel {k_ms:.4f} ms per call "
             f"({k_ms * 1e3 / k:.2f} us per sweep, {8 * cells * k / k_ms / 1e6:.1f} GB/s effective; "
             f"d2d copy {copy_gbs(int(8 * cells)):.1f} GB/s), device {dev_txt}; "

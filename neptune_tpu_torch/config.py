@@ -9,12 +9,16 @@ Environment variables:
   NEPTUNE_TORCH_FOLD_AFFINE "0" to turn off affine folding
   NEPTUNE_TORCH_DTYPE       element dtype of DSL opdefs that name none
                             (default "float64")
+  NEPTUNE_TORCH_DEVICE      where inputs that are not tensors go
+                            (default "cuda"; "cpu" to run on the CPU)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+
+import torch
 
 
 @dataclasses.dataclass
@@ -38,5 +42,22 @@ class Config:
     # every device, so unlike there it never degrades to f32.
     default_dtype: str = os.environ.get("NEPTUNE_TORCH_DTYPE", "float64")
 
+    # Where an input that is not a tensor (a NumPy array, a list) goes when
+    # the call names no device: the card, as the JAX package puts NumPy
+    # inputs on its default device. Tensors stay on their own device.
+    device: str = os.environ.get("NEPTUNE_TORCH_DEVICE", "cuda")
+
 
 config = Config()
+
+
+def default_device(device=None) -> torch.device:
+    """`device`, or `config.device` when the call names none. Asking for
+    CUDA where there is none raises: nothing moves to the CPU on its own."""
+    dev = torch.device(config.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"neptune_tpu_torch: no CUDA device for {str(dev)!r} (torch.cuda.is_available() "
+            "is false); to run on the CPU pass device=\"cpu\" or set NEPTUNE_TORCH_DEVICE=cpu"
+        )
+    return dev

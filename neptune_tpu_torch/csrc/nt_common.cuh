@@ -91,6 +91,20 @@ struct NtGlobalAcc {
   }
 };
 
+// Asynchronous copies from global into shared memory (cp.async): 16 bytes,
+// or 4 bytes that are zeros when !fill (nothing is read then). They land
+// after `cp.async.wait_all` and a barrier.
+__device__ __forceinline__ void nt_cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void nt_cp_async4(void* smem, const void* gmem, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(fill ? 4 : 0)
+               : "memory");
+}
+
 // NaN-propagating min / max, as torch.minimum / torch.maximum
 __device__ __forceinline__ float nt_min(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);

@@ -3,7 +3,7 @@
 The port of `__graft_entry__.py`'s single-device entry: one implicit heat
 time step, entirely in IR (`build_step`), and its 3-D twin with a GMRES solve
 (`build_step_3d`). `entry(device)` returns the compiled step and an example
-state on `device`.
+state on `device`, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import default_device
 from .ir import F32, F64, Bounds, NeptuneBuilder, TempType
 from .lowering.executor import CompiledModule
 from .passes import compile_ir
@@ -105,11 +106,11 @@ def gaussian(n: int, dtype: str = "float32") -> np.ndarray:
     return np.exp(-(x[:, None] ** 2 + x[None, :] ** 2)).astype(dtype)
 
 
-def entry(device) -> tuple:
+def entry(device="cuda") -> tuple:
     """(step_fn, example_args): the 256^2 f32 implicit heat step on `device`."""
     dtype = "float32"
     n = 256
-    device = torch.device(device)
+    device = default_device(device)
     cm = build_step(n, dtype, device=device)
     u0 = torch.from_numpy(gaussian(n, dtype)).to(device)
     return cm.function("step"), (u0,)

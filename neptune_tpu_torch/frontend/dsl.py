@@ -4,7 +4,9 @@ The port of `neptune_tpu/frontend/dsl.py`, with the same names, signatures
 and errors. Every directive is dual-mode (see `frontend.core`): it emits IR
 while a function is being traced, and otherwise runs at once on the port's
 `CompiledModule`. Eager calls take torch tensors, which stay on their device,
-or anything `np.asarray` takes, which goes to the CPU.
+or anything `np.asarray` takes, which goes to `config.device` (the card by
+default; `NEPTUNE_TORCH_DEVICE=cpu` or `config.device = "cpu"` asks for the
+CPU, and asking for CUDA where there is none raises).
 
 Not ported yet, raising `NotImplementedError` that names ROADMAP.md's item:
 `solve_nonlinear` and `time_advance(method="implicit_nonlinear")` (Newton,
@@ -20,7 +22,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, default_device
 from ..ir.types import Bounds, Location, TempType, TimeMethod
 from ..lowering.executor import _roadmap, single_apply_interior
 from ..lowering.torch_backend import DTYPES
@@ -128,10 +130,10 @@ def _concrete_array(x):
 
 
 def _as_tensor(x) -> torch.Tensor:
-    """A tensor stays where it is; anything else becomes a CPU tensor."""
+    """A tensor stays where it is; anything else goes to `config.device`."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(default_device())
 
 
 def _element(dtype: torch.dtype) -> str:

@@ -199,13 +199,46 @@ def scalars_struct(types) -> str:
     )
 
 
-def apply_source(op: Operation) -> str:
-    """The complete source of kernel A for one apply."""
-    return (
-        '#include "nt_apply.cuh"\n\n'
-        + body_struct(op, "NtBody")
-        + "\nNT_DEFINE_APPLY(NtBody)\n"
+def body_reach(op: Operation) -> tuple[int, int, int]:
+    """The largest |offset| per dim of the reads of one apply's generated
+    body, rank-3 padded: the halo its tile needs."""
+    out_type: TempType = op.results[0].type
+    rank = out_type.bounds.rank
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    lb = out_type.bounds.lb
+    input_lbs = [v.type.bounds.lb for v in op.operands[:n_in]]
+    n_sc = len(op.region(0).args) - rank - n_in
+    reach = [0] * rank
+    ops = COps()
+
+    def access_fn(k, offset):
+        for d, (o, lo, li) in enumerate(zip(offset, lb, input_lbs[k])):
+            reach[d] = max(reach[d], abs(o + lo - li))
+        return ops.emit("a.ld()", "float32")
+
+    eval_scalar_dag(
+        op.region(0), rank, n_in, access_fn, lambda d: ops.emit("a.c()", "index"),
+        [f"s.s{k}" for k in range(n_sc)], ops,
     )
+    return tuple([0] * (3 - rank) + reach)
+
+
+def apply_source(op: Operation, plan=None) -> str:
+    """The complete source of kernel A for one apply: the tiled design under
+    `plan` (a `cuda_backend.ApplyPlan`), or the first design when the plan
+    is None."""
+    head = '#include "nt_apply.cuh"\n\n' + body_struct(op, "NtBody")
+    if plan is None:
+        return head + "\nNT_DEFINE_APPLY(NtBody)\n"
+    (t1, t2), (h0, h1, h2) = plan.tile, plan.halo
+    return head + f"""
+struct NtApplyPlan {{
+  static constexpr int kT1 = {t1}, kT2 = {t2}, kR = {plan.strip}, kD = {plan.planes};
+  static constexpr int kH0 = {h0}, kH1 = {h1}, kH2 = {h2};
+}};
+
+NT_DEFINE_APPLY_TILED(NtBody, NtApplyPlan)
+"""
 
 
 def grid_literal(shape, lb, blo, bhi) -> str:
@@ -280,19 +313,25 @@ def _ints(v) -> str:
     return ", ".join(str(x) for x in v)
 
 
-def sweeps_source(op: Operation, depth: int, halo, tile) -> str:
-    """The complete source of kernel C: `depth` sweeps of one apply per
-    launch. halo: the apply's halo per dim; tile: the output tile extents;
-    both rank-3 padded."""
+def sweeps_source(plan) -> str:
+    """The complete source of kernel C for a `lowering.sweeps.SweepPlan`:
+    `plan.depth` sweeps of one apply per launch, the tile and the strips as
+    constants (rank-3 padded)."""
+    pad = 3 - len(plan.tile)
+    t0, t1, t2 = (1,) * pad + tuple(plan.tile)
+    h0, h1, h2 = (0,) * pad + tuple(plan.halo)
     return (
         '#include "nt_sweeps.cuh"\n\n'
-        + body_struct(op, "NtBody")
+        + body_struct(plan.op, "NtBody")
         + f"""
 struct NtSweepPlan {{
   using Body = NtBody;
-  using Tile = NtTile<{_ints(tile)}, {_ints(depth * h for h in halo)}>;
-  static constexpr int kDepth = {depth};
-  static constexpr int kH0 = {halo[0]}, kH1 = {halo[1]}, kH2 = {halo[2]};
+  static constexpr int kDepth = {plan.depth};
+  static constexpr int kH0 = {h0}, kH1 = {h1}, kH2 = {h2};
+  static constexpr int kT0 = {t0}, kT1 = {t1}, kT2 = {t2}, kP2 = {plan.pad};
+  static constexpr int kC = {plan.cols}, kR = {plan.strip}, kL = {plan.run};
+  static constexpr int kWarps = {plan.warps};
+  static constexpr int kRows = {plan.rows};
 }};
 
 NT_DEFINE_SWEEPS(NtSweepPlan)

@@ -9,10 +9,14 @@ One CUDA kernel (`csrc/nt_apply.cuh` plus a body generated from the IR by
   pallas_backend.py::_execute_dma_rank2  (rolling window, 2 <= h0 <= 8)
 
 Their VMEM slab budgets, sublane halo padding and ring DMA choreography have
-no counterpart here: one thread computes one cell and reads its neighbours
-from global memory. Bound on the H100: bytes (a 5-pt f32 apply moves at
-least 8 B per cell). This first version does no shared-memory tiling and no
-TMA; that is later work.
+no counterpart here. Bound on the H100: bytes (a 5-pt f32 apply moves at
+least 8 B per cell). A block stages a tile of a few input planes and their
+halo in shared memory with 16-byte `cp.async` copies, and each thread
+computes a strip of cells; tiles
+inside the grid and the bounds run without per-cell tests (`apply_plan`
+plans it, `csrc/nt_apply.cuh` has the design). An apply whose halo makes
+every tile too large for shared memory keeps the first design, one thread
+per cell reading global memory.
 
 `try_execute_apply` decides by `supported` before any launch, as the JAX
 package's does: f64, rank 1 and inputs off the output's domain take the
@@ -34,12 +38,13 @@ recomputes or carves off, as the JAX contract has it.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, default_device
 from ..ir.core import Operation
 from ..ir.types import Bounds, TempType
 from ..kernels import codegen
@@ -51,9 +56,67 @@ _SUPPORTED_DTYPES = ("float32", "bfloat16")
 counter = LaunchCounter("stencil_apply")
 window_counter = LaunchCounter("stencil_apply_window")
 
-# (id(op), config.fold_affine) -> its launch data (which holds the op); the
-# generated body depends on the fold setting
-_kernels: dict[tuple[int, bool], "_Launch"] = {}
+# (id(op), config.fold_affine, plan) -> its launch data (which holds the op);
+# the generated body depends on the fold setting
+_kernels: dict[tuple, "_Launch"] = {}
+
+# Tiles of the tiled design, preferred first: (rows kT1, columns kT2, cells
+# per thread kR, planes per block kD). The first whose shared memory stays
+# under APPLY_SMEM is taken. Rank 2 is one plane. Timed on the H100
+# (scripts/torch_tile_times.py, PERF.md).
+APPLY_TILES = {
+    2: ((32, 64, 8, 1), (16, 64, 4, 1), (8, 32, 4, 1)),
+    3: ((16, 64, 4, 4), (8, 64, 4, 2), (4, 32, 4, 1)),
+}
+# shared memory one block of kernel A may take, so that several blocks
+# share an SM and one block's loads overlap another's compute
+APPLY_SMEM = 96 * 1024
+
+
+@dataclass(frozen=True)
+class ApplyPlan:
+    """The tiled design of kernel A for one apply (csrc/nt_apply.cuh): an
+    output tile of `tile` = (rows, columns) of each of `planes` planes
+    along dim 0, `strip` cells per thread down the rows, the body's `halo`
+    per dim (rank-3 padded), `threads` per block and `smem_bytes` of shared
+    memory."""
+
+    tile: tuple
+    strip: int
+    planes: int
+    halo: tuple
+    threads: int
+    smem_bytes: int
+
+
+def apply_smem(n_in: int, itemsize: int, tile, halo, planes: int) -> int:
+    """Shared memory of a tile (NtApplyGeom): the tile's planes and halo
+    planes of every input, each the tile with its halo, the column halo
+    widened to whole 16-byte vectors."""
+    vec = 16 // itemsize
+    h2p = -(-halo[2] // vec) * vec
+    staged = planes + 2 * halo[0]
+    return n_in * staged * (tile[0] + 2 * halo[1]) * (tile[1] + 2 * h2p) * itemsize
+
+
+def apply_plan(op: Operation, tiles=None) -> Optional[ApplyPlan]:
+    """The tiled plan of kernel A for a supported apply: the first of
+    `tiles` (default APPLY_TILES of its rank) whose shared memory fits
+    APPLY_SMEM, or None (the first design)."""
+    rank = op.results[0].type.bounds.rank
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    itemsize = 2 if op.results[0].type.element == "bfloat16" else 4
+    halo = codegen.body_reach(op)
+    for t1, t2, r, d in tiles or APPLY_TILES[rank]:
+        smem = apply_smem(n_in, itemsize, (t1, t2), halo, d)
+        if smem <= APPLY_SMEM:
+            return ApplyPlan((t1, t2), r, d, halo, t2 * (t1 // r), smem)
+    return None
+
+
+def source(op: Operation, plan="auto") -> str:
+    """Kernel A's generated source for one apply, under its plan."""
+    return codegen.apply_source(op, apply_plan(op) if plan == "auto" else plan)
 
 
 def supported(op: Operation) -> bool:
@@ -75,13 +138,12 @@ def supported(op: Operation) -> bool:
 
 def try_execute_apply(op: Operation, operand_arrays: Sequence, device=None) -> Optional[object]:
     """Run one apply through kernel A, or return None when `supported`
-    refuses it. `device` places an apply that has no tensor inputs."""
+    refuses it. `device` places an apply that has no tensor inputs
+    (default `config.device`)."""
     if not supported(op):
         return None
     n_in = op.attrs.get("num_inputs", len(op.operands))
-    if n_in:
-        device = operand_arrays[0].device
-    device = torch.device(device or "cpu")
+    device = operand_arrays[0].device if n_in else default_device(device)
     if device.type == "cpu":
         return torch_backend.execute_apply(op, operand_arrays, device=device)
     if device.type != "cuda":
@@ -91,26 +153,46 @@ def try_execute_apply(op: Operation, operand_arrays: Sequence, device=None) -> O
 
 class _Launch:
     """What every launch of one apply's kernel shares: its C entry, the grid
-    metadata and the output shape and dtype."""
+    metadata, the output shape and dtype, and the argument buffers, built
+    once and refilled per launch."""
 
-    def __init__(self, op: Operation):
+    def __init__(self, op: Operation, plan):
         self.op = op  # held so that id(op) stays unique while cached
         out_type: TempType = op.results[0].type
         self.shape = out_type.bounds.shape
         self.dtype = torch_backend.DTYPES[out_type.element]
+        self.n_in = op.attrs.get("num_inputs", len(op.operands))
         self.n_out = len(op.results)
-        lib = builder.load(codegen.apply_source(op), "stencil_apply")
+        self.plan = apply_plan(op) if plan == "auto" else plan
+        lib = builder.load(codegen.apply_source(op, self.plan), "stencil_apply")
         self.fn = lib.nt_apply
         self.fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
         self.fn.restype = ctypes.c_int
+        self.in_ptrs = (ctypes.c_void_p * max(self.n_in, 1))()
+        self.out_ptrs = (ctypes.c_void_p * self.n_out)()
+        self.scalars = np.zeros(max(len(op.operands) - self.n_in, 1), dtype=np.float64)
+        self.addrs = (ctypes.addressof(self.in_ptrs), ctypes.addressof(self.out_ptrs),
+                      self.scalars.ctypes.data)
         self.meta = window_meta(self.shape, op.attrs["bounds"], out_type.bounds.lb)
+        self.meta_addr = self.meta.ctypes.data
+        # (block shape, global start) -> the window form's launch data and
+        # its address
+        self.metas: dict[tuple, tuple] = {}
+
+    def window(self, shape: tuple, global_start) -> int:
+        key = (shape, tuple(int(x) for x in global_start))
+        hit = self.metas.get(key)
+        if hit is None:
+            meta = window_meta(shape, self.op.attrs["bounds"], key[1])
+            hit = self.metas[key] = (meta, meta.ctypes.data)
+        return hit[1]
 
 
-def _launcher(op: Operation) -> _Launch:
-    key = (id(op), config.fold_affine)
+def _launcher(op: Operation, plan="auto") -> _Launch:
+    key = (id(op), config.fold_affine, plan)
     hit = _kernels.get(key)
     if hit is None:
-        hit = _kernels[key] = _Launch(op)
+        hit = _kernels[key] = _Launch(op, plan)
     return hit
 
 
@@ -128,41 +210,43 @@ def window_meta(shape: Sequence[int], bounds: Bounds, global_start: Sequence[int
     )
 
 
-def _launch(k: _Launch, inputs: Sequence, scalars: Sequence, device, shape, meta, what: str):
-    ins = []
-    for a in inputs:
-        if a.device != device or tuple(a.shape) != tuple(shape):
+def _launch(k: _Launch, inputs: Sequence, scalars: Sequence, device, shape, meta_addr: int,
+            what: str):
+    shape = tuple(shape)
+    ins = []  # held until the launch is queued
+    for j, a in enumerate(inputs):
+        if a.device != device or tuple(a.shape) != shape:
             raise ValueError(
-                f"{what}: input {tuple(a.shape)} on {a.device}, expected {tuple(shape)} on {device}"
+                f"{what}: input {tuple(a.shape)} on {a.device}, expected {shape} on {device}"
             )
         ins.append(a.to(k.dtype).contiguous())
-    outs = [torch.empty(tuple(shape), dtype=k.dtype, device=device) for _ in range(k.n_out)]
-    in_ptrs = (ctypes.c_void_p * max(len(ins), 1))(*[a.data_ptr() for a in ins])
-    out_ptrs = (ctypes.c_void_p * k.n_out)(*[o.data_ptr() for o in outs])
-    sv = np.array([float(s) for s in scalars] or [0.0], dtype=np.float64)
+        k.in_ptrs[j] = ins[-1].data_ptr()
+    outs = [torch.empty(shape, dtype=k.dtype, device=device) for _ in range(k.n_out)]
+    for j, o in enumerate(outs):
+        k.out_ptrs[j] = o.data_ptr()
+    for j, v in enumerate(scalars):
+        k.scalars[j] = float(v)
     stream = torch.cuda.current_stream(device).cuda_stream
-    check(
-        k.fn(device.index or 0, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-             sv.ctypes.data, meta.ctypes.data, stream),
-        f"{what} launch",
-    )
+    check(k.fn(device.index or 0, *k.addrs, meta_addr, stream), f"{what} launch")
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, global_start=None):
+def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, global_start=None,
+                  plan="auto"):
     """Launch kernel A on CUDA tensors: returns the result tensor(s). With
     global_start, the window form over one local block whose cell 0 has
-    these global logical coordinates (counted as `stencil_apply_window`)."""
-    k = _launcher(op)
+    these global logical coordinates (counted as `stencil_apply_window`).
+    plan: the tiled plan to build, default `apply_plan(op)`."""
+    k = _launcher(op, plan)
     if global_start is None:
-        out = _launch(k, inputs, scalars, device, k.shape, k.meta, "stencil_apply")
+        out = _launch(k, inputs, scalars, device, k.shape, k.meta_addr, "stencil_apply")
         counter.count += 1
         return out
     shape = tuple(inputs[0].shape)
     if len(shape) != len(k.shape):
         raise ValueError(f"stencil_apply_window: block {shape} has not the rank of {k.shape}")
-    meta = window_meta(shape, op.attrs["bounds"], global_start)
-    out = _launch(k, inputs, scalars, device, shape, meta, "stencil_apply_window")
+    out = _launch(k, inputs, scalars, device, shape, k.window(shape, global_start),
+                  "stencil_apply_window")
     window_counter.count += 1
     return out
 

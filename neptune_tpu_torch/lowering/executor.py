@@ -18,9 +18,11 @@ before any launch and whatever the device, so both packages take the same
 routes; only the kernel wrappers look at the device, and each runs its plain
 version for CPU tensors and launches its kernel, or raises, for CUDA ones.
 
-`device=None` keeps tensors where the caller put them (NumPy inputs go to
-the CPU); a device given here receives every input. Nothing moves work to
-another device on its own.
+`device=None` keeps tensors where the caller put them and puts NumPy
+inputs, and applies that have no tensor input, on `config.device` (the
+card by default; asking for CUDA where there is none raises); a device
+given here receives every input. Nothing moves work to another device on
+its own.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, default_device
 from ..ir.core import Function, Module, Operation
 from ..ir.types import Bounds, FieldType, ScalarType, TempType, TensorType, TimeMethod
 from ..solvers import fused, krylov
@@ -181,8 +183,9 @@ class CompiledModule:
     # ------------------------------------------------------------------
 
     def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
-        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-        return t.to(device=t.device if self.device is None else self.device, dtype=dtype)
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a), device=default_device(self.device))
+        return a.to(device=a.device if self.device is None else self.device, dtype=dtype)
 
     def _make_callable(self, fn: Function) -> Callable:
         def run(*args):
@@ -322,8 +325,11 @@ class CompiledModule:
         return env[field_value.uid]
 
     def _execute_apply(self, op: Operation, operand_arrays: Sequence):
+        # an apply with no tensor input is placed like a NumPy input
+        device = self.device if op.attrs.get("num_inputs", len(op.operands)) else (
+            default_device(self.device))
         if self.backend in ("cuda", "auto"):
-            result = cuda_backend.try_execute_apply(op, operand_arrays, self.device)
+            result = cuda_backend.try_execute_apply(op, operand_arrays, device)
             if result is not None:
                 return result
             if self.backend == "cuda":
@@ -331,7 +337,7 @@ class CompiledModule:
                     f"cuda backend cannot lower apply with bounds "
                     f"{op.attrs['bounds']} (rank/dtype unsupported)"
                 )
-        return torch_backend.execute_apply(op, operand_arrays, self.device)
+        return torch_backend.execute_apply(op, operand_arrays, device)
 
     def _handle_for(self, sym: str) -> MatrixHandle:
         fn = self.module.lookup(sym)

@@ -51,18 +51,42 @@ local_counter = LaunchCounter("stencil_sweeps_local")
 # dynamic shared memory one block may use on the H100 (232,448 bytes)
 SMEM_MAX = 227 * 1024
 
-# output tiles, preferred first: the first whose buffers fit is taken
-TILES = {2: ((64, 64), (32, 64), (32, 32)), 3: ((16, 16, 32), (8, 16, 32), (8, 8, 32), (4, 8, 32))}
 
-# a depth is planned only while the halo cells recomputed per launch keep
-# the cell updates under this multiple of depth x tile cells. Measured on
-# an H100 80GB HBM3 at 700 W (PERF.md): rank-3 sweeps are bound by those updates, and
-# 7-pt 256^3 K=8 ran fastest at depth 2 (1.17x recompute), slower at depth
-# 4 (1.59x) and 8 (5x); rank-2 sweeps gain from depth up to about 2x.
-MAX_RECOMPUTE = {2: 2.0, 3: 1.5}
+def smem_bytes(n_buffers: int, tile: Sequence[int], halo: Sequence[int]) -> int:
+    """Shared memory of a tile of kernel D (csrc/nt_tile.cuh): n_buffers f32
+    buffers of the tile and its halo, then the int table of wrapped cells
+    per dim."""
+    w = [t + 2 * h for t, h in zip(tile, halo)]
+    if len(w) == 2:
+        w = [1] + w
+    return 4 * (n_buffers * math.prod(w) + sum(w))
 
-# (id(op), depth, tile, config.fold_affine) -> (op, C entry)
-_kernels: dict[tuple, tuple] = {}
+
+# Tiles of the register-strip design (csrc/nt_sweeps.cuh), as (columns per
+# lane kC, planes kT0, rows kT1, rows per strip kR, planes per task kL): a
+# tile row is 32 kC cells, halo included. Its left halo is depth h2 widened
+# to whole 16-byte vectors, and the output tile is the columns left, down to
+# a multiple of 4, so that interior tiles load as 16-byte vectors.
+TILES = {
+    2: ((4, 1, 64, 8, 1), (8, 1, 64, 8, 1), (4, 1, 32, 8, 1), (8, 1, 32, 8, 1),
+        (2, 1, 32, 8, 1)),
+    3: ((1, 16, 16, 4, 8), (1, 8, 16, 4, 8), (2, 8, 8, 4, 4), (2, 4, 8, 4, 4), (1, 4, 8, 4, 4)),
+}
+WARPS_MAX = 16
+# tiles under SMEM_PAIR are preferred: two blocks share an SM, so one
+# block's load and store overlap the other's sweeps
+SMEM_PAIR = SMEM_MAX // 2
+
+# a depth is planned only while the cell updates of a launch (the
+# recomputed halo included) stay under this multiple of depth x tile cells.
+# Timed on an H100 80GB HBM3 at 700 W (scripts/torch_tile_times.py,
+# PERF.md): 5-pt 4096^2 ran faster at depth 16 (1.71x) than at 8 (1.32x),
+# adv4 8192^2 at depth 8 (1.67x) than at 16 (3.0x), 7-pt 256^3 at depth 2
+# (1.60x) than at 4 (2.01x).
+MAX_RECOMPUTE = 1.75
+
+# (plan, config.fold_affine) -> its launch data (the plan holds its op)
+_kernels: dict[tuple, "_Launch"] = {}
 
 
 def find_sweep_apply(module: Module, name: str) -> Optional[Operation]:
@@ -128,8 +152,11 @@ def _eligible(op: Operation, shape: Sequence[int]) -> bool:
 class SweepPlan:
     """One launch of kernel C: `depth` sweeps of `op` over output tiles of
     extents `tile`, each held with a halo of depth x `halo` cells per side in
-    two shared-memory buffers, `smem_bytes` in all. `recompute` is the cell
-    updates of a launch over depth x the tile's cells."""
+    two shared-memory buffers of `rows` rows (padded), `smem_bytes` in all,
+    the left halo widened to `pad` columns; each lane of `warps` warps owns
+    `cols` columns of a row, each task a strip of `strip` rows over a run of
+    `run` planes. `recompute` is the cell updates of a launch over depth x
+    the tile's cells."""
 
     op: Operation
     depth: int
@@ -137,45 +164,79 @@ class SweepPlan:
     tile: tuple
     smem_bytes: int
     recompute: float
+    cols: int
+    strip: int
+    run: int
+    pad: int
+    warps: int
+    rows: int
 
 
-def smem_bytes(n_buffers: int, tile: Sequence[int], halo: Sequence[int]) -> int:
-    """Shared memory of a tile (csrc/nt_tile.cuh): n_buffers f32 buffers of
-    the tile and its halo, then the int table of wrapped cells per dim."""
-    w = [t + 2 * h for t, h in zip(tile, halo)]
-    if len(w) == 2:
-        w = [1] + w
-    return 4 * (n_buffers * math.prod(w) + sum(w))
+def strip_geometry(halo: Sequence[int], spec: Sequence[int], depth: int) -> Optional[dict]:
+    """The register-strip tile `spec` = (kC, kT0, kT1, kR, kL) at `depth` for an
+    apply of per-dim `halo` (rank 2 or 3): its output tile, buffer rows,
+    warps, shared memory, cell updates per launch, recompute and bytes per
+    launch; None where the tile row leaves no output column or the column
+    halo needs more than the next lane."""
+    c, t0, t1, r, run = spec
+    h0, h1, h2 = (0,) * (3 - len(halo)) + tuple(halo)
+    w2 = 32 * c
+    pad = -(-depth * h2 // 4) * 4
+    t2 = (w2 - pad - depth * h2) // 4 * 4
+    if t2 < 1 or h2 > c:
+        return None
+    w0, w1 = t0 + 2 * depth * h0, t1 + 2 * depth * h1
+
+    def strips(s):
+        return -(-(w1 - 2 * s * h1) // r)
+
+    sweeps = range(1, depth + 1)
+    rows = max(s * h1 + strips(s) * r + h1 for s in sweeps)
+    updates = sum((w0 - 2 * s * h0) * strips(s) * r * w2 for s in sweeps)
+    cells = t0 * t1 * t2
+    tile = (t1, t2) if len(halo) == 2 else (t0, t1, t2)
+    return {
+        "tile": tile,
+        "pad": pad,
+        "rows": rows,
+        "warps": min(WARPS_MAX, -(-(w0 - 2 * h0) // run) * strips(1)),
+        "smem": 4 * (2 * w0 * rows * w2 + w0 + rows + w2),
+        "updates": updates,
+        "recompute": updates / (depth * cells),
+        "bytes": 4 * (w0 * w1 * w2 + cells),
+        "cells": cells,
+    }
 
 
-def tile_geometry(halo: Sequence[int], tile: Sequence[int], depth: int) -> tuple[int, float]:
-    """(shared-memory bytes, recompute) of `depth` sweeps on one tile."""
-    w = [t + 2 * depth * h for t, h in zip(tile, halo)]
-    updates = sum(
-        math.prod(x - 2 * s * h for x, h in zip(w, halo)) for s in range(1, depth + 1)
-    )
-    smem = smem_bytes(2, tile, [depth * h for h in halo])
-    return smem, updates / (depth * math.prod(tile))
-
-
-def _at_depth(op: Operation, halo: tuple, depth: int) -> Optional[SweepPlan]:
-    """The plan on the largest preferred tile whose buffers fit."""
-    for tile in TILES[len(halo)]:
-        smem, recompute = tile_geometry(halo, tile, depth)
-        if smem <= SMEM_MAX:
-            return SweepPlan(op, depth, halo, tile, smem, recompute)
+def _at_depth(op: Operation, halo: tuple, depth: int, tiles=None) -> Optional[SweepPlan]:
+    """The plan at `depth` on the tile of least recompute among those (of
+    `tiles`, default TILES of the rank) under SMEM_PAIR, or else among
+    those that fit at all."""
+    for cap in (SMEM_PAIR, SMEM_MAX):
+        best = None
+        for spec in tiles or TILES[len(halo)]:
+            geo = strip_geometry(halo, spec, depth)
+            if geo is None or geo["smem"] > cap:
+                continue
+            if best is None or geo["recompute"] < best.recompute:
+                best = SweepPlan(op, depth, halo, geo["tile"], geo["smem"], geo["recompute"],
+                                 spec[0], spec[3], spec[4], geo["pad"], geo["warps"], geo["rows"])
+        if best is not None:
+            return best
     return None
 
 
-def sweep_plan(module: Module, name: str, k: int, depth: Optional[int] = None) -> Optional[SweepPlan]:
+def sweep_plan(module: Module, name: str, k: int, depth: Optional[int] = None,
+               tiles=None) -> Optional[SweepPlan]:
     """The kernel-C plan for k sweeps of opdef @name, or None (k single
     applies). depth=None picks the deepest depth <= k, divisors of k first,
-    whose buffers fit and whose recompute stays under MAX_RECOMPUTE of its
-    rank; a given depth is planned as asked, if its buffers fit."""
+    whose tile keeps the recompute under MAX_RECOMPUTE; a given depth is
+    planned as asked, if a tile fits. tiles: the tiles to choose from
+    (default TILES of the rank)."""
     op = find_sweep_apply(module, name)
     if op is None or k < 2:
         return None
-    return _plan(op, k, depth)
+    return _plan(op, k, depth, tiles)
 
 
 def local_sweep_plan(op: Operation, shape: Sequence[int], k: int) -> Optional[SweepPlan]:
@@ -187,14 +248,14 @@ def local_sweep_plan(op: Operation, shape: Sequence[int], k: int) -> Optional[Sw
     return _plan(op, k, None)
 
 
-def _plan(op: Operation, k: int, depth: Optional[int]) -> Optional[SweepPlan]:
+def _plan(op: Operation, k: int, depth: Optional[int], tiles=None) -> Optional[SweepPlan]:
     halo = tuple(max(h) for h in op.attrs["shape"].halo())
     if depth is not None:
-        return _at_depth(op, halo, depth) if 2 <= depth <= k else None
+        return _at_depth(op, halo, depth, tiles) if 2 <= depth <= k else None
     order = [d for d in range(k, 1, -1) if k % d == 0] + [d for d in range(k, 1, -1) if k % d]
     for d in order:
-        plan = _at_depth(op, halo, d)
-        if plan is not None and plan.recompute <= MAX_RECOMPUTE[len(halo)]:
+        plan = _at_depth(op, halo, d, tiles)
+        if plan is not None and plan.recompute <= MAX_RECOMPUTE:
             return plan
     return None
 
@@ -244,40 +305,66 @@ def sweeps_local(op: Operation, x: torch.Tensor, scalars: Sequence, k: int, glob
 
 def source(plan: SweepPlan) -> str:
     """Kernel C's generated source for a plan."""
-    pad = 3 - len(plan.tile)
-    return codegen.sweeps_source(plan.op, plan.depth, (0,) * pad + plan.halo, (1,) * pad + plan.tile)
+    return codegen.sweeps_source(plan)
 
 
-def _entry(plan: SweepPlan):
-    key = (id(plan.op), plan.depth, plan.tile, config.fold_affine)
+class _Launch:
+    """What every launch of one plan's kernel shares: its C entry, the
+    launch data of the whole grid and of each block it ran on, and the
+    scalar buffer, built once and refilled per launch."""
+
+    def __init__(self, plan: SweepPlan):
+        self.plan = plan
+        self.fn = builder.load(source(plan), "stencil_sweeps").nt_sweeps
+        self.fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+        self.fn.restype = ctypes.c_int
+        out = plan.op.results[0].type.bounds
+        self.shape = out.shape
+        self.meta = window_meta(out.shape, plan.op.attrs["bounds"], out.lb)
+        self.meta_addr = self.meta.ctypes.data
+        # (block shape, global start) -> the local form's launch data and
+        # its address
+        self.metas: dict[tuple, tuple] = {}
+        self.scalars = np.zeros(max(len(plan.op.operands) - 1, 1), dtype=np.float64)
+        self.scalars_addr = self.scalars.ctypes.data
+
+    def window(self, shape: tuple, global_start) -> int:
+        key = (shape, tuple(int(v) for v in global_start))
+        hit = self.metas.get(key)
+        if hit is None:
+            meta = window_meta(shape, self.plan.op.attrs["bounds"], key[1])
+            hit = self.metas[key] = (meta, meta.ctypes.data)
+        return hit[1]
+
+
+def _entry(plan: SweepPlan) -> _Launch:
+    key = (plan, config.fold_affine)
     hit = _kernels.get(key)
     if hit is None:
-        fn = builder.load(source(plan), "stencil_sweeps").nt_sweeps
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        out = plan.op.results[0].type.bounds
-        hit = _kernels[key] = (plan.op, fn, window_meta(out.shape, plan.op.attrs["bounds"], out.lb))
-    return hit[1], hit[2]
+        hit = _kernels[key] = _Launch(plan)
+    return hit
 
 
 def stencil_sweeps(plan: SweepPlan, x: torch.Tensor, scalars: Sequence, global_start=None) -> torch.Tensor:
     """Launch kernel C once on a CUDA tensor: plan.depth sweeps. With
     global_start, the local form over one block (counted as
     `stencil_sweeps_local`)."""
-    fn, meta = _entry(plan)
+    k = _entry(plan)
     if global_start is None:
-        shape, what = plan.op.results[0].type.bounds.shape, "stencil_sweeps"
+        shape, meta_addr, what = k.shape, k.meta_addr, "stencil_sweeps"
     else:
         shape, what = tuple(x.shape), "stencil_sweeps_local"
-        meta = window_meta(shape, plan.op.attrs["bounds"], global_start)
+        meta_addr = k.window(shape, global_start)
     if x.device.type != "cuda" or tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what}: input {tuple(x.shape)} on {x.device}, expected {tuple(shape)} on cuda")
     x = x.to(torch.float32).contiguous()
     out = torch.empty_like(x)
-    sv = np.array([float(s) for s in scalars] or [0.0], dtype=np.float64)
+    for j, v in enumerate(scalars):
+        k.scalars[j] = float(v)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     check(
-        fn(x.device.index or 0, x.data_ptr(), out.data_ptr(), sv.ctypes.data, meta.ctypes.data, stream),
+        k.fn(x.device.index or 0, x.data_ptr(), out.data_ptr(), k.scalars_addr, meta_addr,
+             stream),
         f"{what} launch",
     )
     (counter if global_start is None else local_counter).count += 1

@@ -23,12 +23,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..config import default_device
+
 
 def _default_device(rank: int) -> torch.device:
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "GridMesh: no CUDA device; pass device='cpu' to hold the blocks on the CPU"
-        )
+    dev = default_device()
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
     local = int(os.environ.get("LOCAL_RANK", rank))
     return torch.device(f"cuda:{local % torch.cuda.device_count()}")
 
@@ -40,7 +41,7 @@ class GridMesh:
     `plan_report` without a process group. Otherwise the default process
     group must hold exactly n_devices processes (any number for a mesh of
     one position). device: where this process keeps its blocks; default
-    `cuda:{LOCAL_RANK % device_count()}`, the CPU only when asked.
+    `config.device`, on CUDA `cuda:{LOCAL_RANK % device_count()}`.
     """
 
     def __init__(

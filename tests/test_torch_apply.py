@@ -164,9 +164,9 @@ def test_unfolded_eager_matches_jnp_backend_f64(case, unfolded):
 
 def test_fold_setting_reaches_generated_source(unfolded):
     op, _ = _both(stencils.advection4((64, 128)))
-    unfolded_src = codegen.apply_source(op)
+    unfolded_src = cuda_backend.source(op)
     torch_config.fold_affine = True
-    assert codegen.apply_source(op) != unfolded_src
+    assert cuda_backend.source(op) != unfolded_src
 
 
 def _eager_against_jnp_backend(module):
@@ -185,9 +185,10 @@ def _eager_against_jnp_backend(module):
 @pytest.mark.parametrize("case", CASES)
 def test_generated_source(case):
     op, _ = _both(CASES[case][0]())
-    src = codegen.apply_source(op)
+    src = cuda_backend.source(op)
     assert src.startswith('#include "nt_apply.cuh"')
-    assert src.rstrip().endswith("NT_DEFINE_APPLY(NtBody)")
+    assert src.rstrip().endswith("NT_DEFINE_APPLY_TILED(NtBody, NtApplyPlan)")
+    assert f"kH0 = {'1' if op.results[0].type.bounds.rank == 3 else '0'}" in src
     assert ("__nv_bfloat16" in src) == (op.results[0].type.element == "bfloat16")
     reads = {
         (a.operands[0].uid, tuple(a.attrs["offset"]))

@@ -20,11 +20,20 @@ from neptune_tpu.ir.parser import parse_module as jax_parse  # noqa: E402
 from neptune_tpu.lowering import pallas_chain  # noqa: E402
 from neptune_tpu.lowering.executor import CompiledModule as JaxCompiledModule  # noqa: E402
 from neptune_tpu_torch import stencils  # noqa: E402
+from neptune_tpu_torch.config import config as torch_config  # noqa: E402
 from neptune_tpu_torch.ir import print_module  # noqa: E402
 from neptune_tpu_torch.kernels import codegen  # noqa: E402
 from neptune_tpu_torch.lowering import chain  # noqa: E402
 from neptune_tpu_torch.lowering.executor import CompiledModule  # noqa: E402
 from test_torch_apply import TOL  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu(monkeypatch):
+    """The port puts NumPy inputs on `config.device`, the card by default:
+    these CPU tests ask for the CPU."""
+    monkeypatch.setattr(torch_config, "device", "cpu")
+
 
 # name -> (module, opdef, field count, scalars, composed reach per dim)
 CASES = {

@@ -17,7 +17,16 @@ torch = pytest.importorskip("torch")
 
 import neptune_tpu as ntp  # noqa: E402
 import neptune_tpu_torch as ntt  # noqa: E402
+from neptune_tpu_torch.config import config as torch_config  # noqa: E402
 from test_torch_apply import TOL  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu(monkeypatch):
+    """The port puts NumPy inputs on `config.device`, the card by default:
+    these CPU tests ask for the CPU."""
+    monkeypatch.setattr(torch_config, "device", "cpu")
+
 
 # the JAX package's top-level names whose modules the port does not have yet
 NOT_PORTED = ("differentiable_root", "differentiable_solve", "simulate", "enable_x64")

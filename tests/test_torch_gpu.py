@@ -425,3 +425,168 @@ def test_sharded_routes_on_one_position(cuda):
     got = shardmap_sweeps(cm, "jacobi", gm, 8)(x)
     assert sweeps.local_counter.count > before
     assert torch.equal(got, cm.sweeps("jacobi", 8)(x))
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernel A and kernel C's register strips on grids that hold
+# interior, edge and ragged tiles, under the default plans and under small
+# tiles (so that small grids have interior tiles too)
+# ---------------------------------------------------------------------------
+
+SMALL_A = {2: ((8, 32, 4, 1),), 3: ((4, 32, 2, 3),)}
+
+# (module, tiles or None for the default plan, global start or None)
+TILED = {
+    "jacobi5_interior": (lambda: stencils.jacobi5((200, 600)), None, None),
+    "jacobi5_bf16_ragged": (lambda: stencils.jacobi5((197, 555), "bfloat16"), None, None),
+    "adv4_small_tiles": (lambda: stencils.advection4((50, 130)), SMALL_A, None),
+    "adv4_periodic_torus": (lambda: stencils.advection4((130, 300), periodic=True), None, None),
+    "one_cell_wide_torus": (lambda: stencils.advection4((1, 300), periodic=True), None, None),
+    "one_cell_tall_torus": (lambda: stencils.advection4((300, 1), periodic=True), SMALL_A, None),
+    "heat7_march": (lambda: stencils.heat7((70, 40, 300)), None, None),
+    "heat7_bf16_march": (lambda: stencils.heat7((70, 40, 300), "bfloat16"), None, None),
+    "heat7_periodic_march": (lambda: stencils.heat7((40, 20, 140), periodic=True), None, None),
+    "heat7_dims_under_a_tile": (lambda: stencils.heat7((3, 5, 7)), None, None),
+    "heat7_small_tiles": (lambda: stencils.heat7((11, 14, 70)), SMALL_A, None),
+    "two_inputs_and_a_scalar": (lambda: stencils.combination((100, 300)), SMALL_A, None),
+    "two_results": (lambda: stencils.gradients((100, 300)), None, None),
+    "graded_index": (lambda: stencils.graded((100, 300), lb=(3, -5)), SMALL_A, None),
+    "window_at_a_global_start": (lambda: stencils.jacobi5((400, 1200)), None, (200, 512)),
+    "window_rank3": (lambda: stencils.heat7((80, 40, 300)), None, (40, 0, 0)),
+    # the bounds end inside the block, away from its edges
+    "window_bounds_inside_the_block": (lambda: stencils.jacobi5((80, 200)), SMALL_A, (50, 110)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TILED)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_tiled_stencil_apply_matches_plain(case, aligned, cuda):
+    build, tiles, gstart = TILED[case]
+    op = stencils.the_apply(build())
+    rank = op.results[0].type.bounds.rank
+    plan = cuda_backend.apply_plan(op, tiles and tiles[rank])
+    dtype = torch_backend.DTYPES[op.results[0].type.element]
+    n_in = op.attrs["num_inputs"]
+    shape = op.results[0].type.bounds.shape
+    if gstart is not None:
+        shape = tuple(s // 2 for s in shape)
+    xs = []
+    for seed in range(n_in):
+        x = _block(shape, dtype, cuda, seed)
+        if not aligned:  # contiguous, one element off 16-byte alignment
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(shape)
+        xs.append(x)
+    sv = [torch.tensor(0.1, dtype=dtype)] * (len(op.operands) - n_in)
+    before = cuda_backend.counter.count, cuda_backend.window_counter.count
+    got = cuda_backend.stencil_apply(op, xs, sv, xs[0].device, gstart, plan=plan)
+    torch.cuda.synchronize()
+    assert (cuda_backend.counter.count - before[0], cuda_backend.window_counter.count - before[1]) \
+        == ((1, 0) if gstart is None else (0, 1))
+    if gstart is None:
+        ref = torch_backend.execute_apply(op, xs + sv)
+    else:
+        ref = torch_backend.execute_apply_window(op, xs, sv, gstart)
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    for g, r in zip(got, ref):
+        if dtype == torch.float32:
+            assert torch.equal(g, r)
+        else:
+            assert bf16_ulps(g, r) <= 1
+
+
+# (module, opdef, k, scalars): kernel C on grids with interior tiles
+STRIPS = {
+    "jacobi5_k16": (lambda: stencils.jacobi5((300, 500)), "jacobi", 16, ()),
+    "adv4_k8": (lambda: stencils.advection4((260, 400)), "adv4", 8, ()),
+    "adv4_periodic_k16": (lambda: stencils.advection4((130, 300), periodic=True), "adv4", 16, ()),
+    "heat7_k4": (lambda: stencils.heat7((40, 30, 200)), "heat", 4, ()),
+    "heat7_periodic_k3": (lambda: stencils.heat7((20, 24, 70), periodic=True), "heat", 3, ()),
+    "relax_k16": (lambda: stencils.damped_jacobi((300, 500)), "relax", 16, (0.8,)),
+    "graded_k5": (lambda: stencils.graded((200, 300), lb=(3, -5)), "graded", 5, ()),
+    "narrow_k4": (lambda: stencils.jacobi5((500, 2)), "jacobi", 4, ()),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", STRIPS)
+def test_stencil_sweeps_strips_match_kernel_a(case, cuda):
+    build, name, k, scalars = STRIPS[case]
+    module = build()
+    sv = [torch.tensor(s, dtype=torch.float32) for s in scalars]
+    for depth in sorted({2, k}):
+        plan = sweeps.sweep_plan(module, name, k, depth=depth)
+        x = _block(plan.op.results[0].type.bounds.shape, torch.float32, cuda, 3)
+        before = sweeps.counter.count
+        got = sweeps.run_sweeps(plan, x, scalars)
+        torch.cuda.synchronize()
+        assert sweeps.counter.count == before + 1
+        ref = x
+        for _ in range(plan.depth):
+            ref = cuda_backend.try_execute_apply(plan.op, [ref] + sv)
+        assert torch.equal(got, ref)  # --fmad=false: bitwise depth launches of kernel A
+        assert torch.equal(got, sweeps.sweeps_plain(plan, x, scalars))
+
+
+@pytest.mark.gpu
+def test_local_sweeps_with_interior_tiles(cuda):
+    op = stencils.the_apply(stencils.jacobi5((1024, 1024)))
+    block, gstart = (512, 512), (512, 0)
+    plan = sweeps.local_sweep_plan(op, block, 8)
+    x = _block(block, torch.float32, cuda)
+    got = sweeps.run_sweeps(plan, x, [], gstart)
+    assert torch.equal(got, sweeps.sweeps_plain(plan, x, [], gstart))
+
+
+# ---------------------------------------------------------------------------
+# the default device: NumPy inputs go to the card; without one, the call
+# raises and says how to ask for the CPU
+# ---------------------------------------------------------------------------
+
+
+def _numpy_entry_points(device=None):
+    """(compiled opdef, eager DSL directive, interop) results of NumPy input."""
+    import neptune_tpu_torch as ntt
+    from neptune_tpu_torch.interop import arrays_from_numpy
+
+    x = np.random.default_rng(8).standard_normal((16, 24)).astype(np.float32)
+    y = CompiledModule(stencils.jacobi5((16, 24)), device=device).opdef("jacobi")(x)
+    ntt.reset_context()
+    try:
+        total = ntt.reduce(ntt.temp(x), "sum") if device is None else None
+    finally:
+        ntt.reset_context()
+    (z,) = arrays_from_numpy([x], device)
+    return y, total, z
+
+
+@pytest.mark.gpu
+def test_numpy_inputs_land_on_the_card(cuda, monkeypatch):
+    monkeypatch.setattr(config, "device", "cuda")
+    y, total, z = _numpy_entry_points()
+    assert y.device.type == total.device.type == z.device.type == "cuda"
+
+
+def test_no_cuda_raises_and_names_the_cpu(monkeypatch):
+    monkeypatch.setattr(config, "device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu".*NEPTUNE_TORCH_DEVICE=cpu'):
+        _numpy_entry_points()
+    with pytest.raises(RuntimeError, match="NEPTUNE_TORCH_DEVICE=cpu"):
+        entry.entry()
+    y, _, z = _numpy_entry_points("cpu")
+    assert y.device.type == z.device.type == "cpu"
+    monkeypatch.setattr(config, "device", "cpu")
+    y, total, z = _numpy_entry_points()
+    assert y.device.type == total.device.type == z.device.type == "cpu"
+    fn, (u0,) = entry.entry("cpu")
+    assert u0.device.type == "cpu"
+
+
+def test_tensors_stay_on_their_device(monkeypatch):
+    monkeypatch.setattr(config, "device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.zeros((16, 24))
+    assert CompiledModule(stencils.jacobi5((16, 24))).opdef("jacobi")(x).device.type == "cpu"

@@ -32,9 +32,18 @@ from neptune_tpu.parallel import GridMesh as JaxGridMesh  # noqa: E402
 from neptune_tpu.parallel import shardmap_opdef as jax_shardmap_opdef  # noqa: E402
 from neptune_tpu.parallel import shardmap_sweeps as jax_shardmap_sweeps  # noqa: E402
 from neptune_tpu.solvers import krylov as jax_krylov  # noqa: E402
+from neptune_tpu_torch.config import config as torch_config  # noqa: E402
 from neptune_tpu_torch.ir import print_module  # noqa: E402
 from neptune_tpu_torch.lowering.executor import CompiledModule  # noqa: E402
 from test_torch_apply import TOL  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu(monkeypatch):
+    """The port puts NumPy inputs on `config.device`, the card by default:
+    these CPU tests ask for the CPU."""
+    monkeypatch.setattr(torch_config, "device", "cpu")
+
 
 HERE = Path(__file__).resolve().parent
 WORLD = 4

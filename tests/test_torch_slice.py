@@ -15,9 +15,18 @@ from neptune_tpu.config import config  # noqa: E402
 from neptune_tpu.ir.parser import parse_module as jax_parse  # noqa: E402
 from neptune_tpu.passes import compile_ir as jax_compile_ir  # noqa: E402
 from neptune_tpu_torch import entry  # noqa: E402
+from neptune_tpu_torch.config import config as torch_config  # noqa: E402
 from neptune_tpu_torch.interop import arrays_from_numpy, module_from_reference  # noqa: E402
 from neptune_tpu_torch.passes import compile_ir  # noqa: E402
 from neptune_tpu_torch.solvers import fused  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu(monkeypatch):
+    """The port puts NumPy inputs on `config.device`, the card by default:
+    these CPU tests ask for the CPU."""
+    monkeypatch.setattr(torch_config, "device", "cpu")
+
 
 GOLDEN = Path(__file__).parent / "golden"
 

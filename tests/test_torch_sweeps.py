@@ -23,10 +23,19 @@ from neptune_tpu.ir.parser import parse_module as jax_parse  # noqa: E402
 from neptune_tpu.lowering import pallas_multisweep  # noqa: E402
 from neptune_tpu.lowering.executor import CompiledModule as JaxCompiledModule  # noqa: E402
 from neptune_tpu_torch import stencils  # noqa: E402
+from neptune_tpu_torch.config import config as torch_config  # noqa: E402
 from neptune_tpu_torch.ir import print_module  # noqa: E402
 from neptune_tpu_torch.lowering import sweeps  # noqa: E402
 from neptune_tpu_torch.lowering.executor import CompiledModule  # noqa: E402
 from test_torch_apply import TOL  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu(monkeypatch):
+    """The port puts NumPy inputs on `config.device`, the card by default:
+    these CPU tests ask for the CPU."""
+    monkeypatch.setattr(torch_config, "device", "cpu")
+
 
 # name -> (module, opdef, k, scalars, TPU kernel the JAX side reaches)
 CASES = {
@@ -95,27 +104,36 @@ def test_leftover_sweeps_run_as_single_applies():
     assert torch.equal(cm.sweeps("adv4", 17)(x), ref)
 
 
-# (module, opdef, k, forced depth) -> (depth, tile, shared-memory bytes: two f32
-# buffers of the tile and its halo, and the int table of wrapped cells)
+# (module, opdef, k, forced depth) -> (depth, tile, columns per lane, rows per
+# strip, left halo, shared-memory bytes: two f32 buffers of the padded tile
+# rows and its halo, and the int table of wrapped cells)
 PLANS = [
-    (lambda: stencils.jacobi5((4096, 4096)), "jacobi", 16, None, (16, (64, 64), 74500)),
-    (lambda: stencils.advection4((8192, 8192)), "adv4", 16, None, (8, (64, 64), 74500)),
-    (lambda: stencils.heat7((256, 256, 256)), "heat", 8, None, (2, (16, 16, 32), 115504)),
-    (lambda: stencils.heat7((256, 256, 256)), "heat", 8, 8, (8, (8, 8, 32), 221568)),
-    (lambda: stencils.advection4((8192, 8192)), "adv4", 16, 16, (16, (64, 64), 132100)),
+    (lambda: stencils.jacobi5((4096, 4096)), "jacobi", 16, None, (16, (64, 96), 4, 8, 16, 103316)),
+    (lambda: stencils.advection4((8192, 8192)), "adv4", 16, None, (8, (64, 96), 4, 8, 16, 103316)),
+    (lambda: stencils.heat7((256, 256, 256)), "heat", 8, None,
+     (2, (16, 16, 24), 1, 4, 4, 112936)),
+    (lambda: stencils.heat7((256, 256, 256)), "heat", 8, 4, (4, (8, 16, 24), 1, 4, 4, 106792)),
+    (lambda: stencils.advection4((8192, 8192)), "adv4", 16, 4, (4, (64, 112), 4, 8, 8, 86868)),
 ]
 
 
 @pytest.mark.parametrize("i", range(len(PLANS)))
 def test_planner_arithmetic(i):
-    build, name, k, depth, (want_depth, want_tile, want_smem) = PLANS[i]
+    build, name, k, depth, want = PLANS[i]
     plan = sweeps.sweep_plan(build(), name, k, depth=depth)
-    assert (plan.depth, plan.tile, plan.smem_bytes) == (want_depth, want_tile, want_smem)
-    assert plan.smem_bytes <= sweeps.SMEM_MAX
+    assert (plan.depth, plan.tile, plan.cols, plan.strip, plan.pad, plan.smem_bytes) == want
+    assert plan.smem_bytes <= sweeps.SMEM_PAIR
     if depth is None:
-        assert plan.recompute <= sweeps.MAX_RECOMPUTE[len(plan.tile)]
-    smem, recompute = sweeps.tile_geometry(plan.halo, plan.tile, plan.depth)
-    assert (smem, recompute) == (plan.smem_bytes, plan.recompute)
+        assert plan.recompute <= sweeps.MAX_RECOMPUTE
+    spec = (plan.cols, *((1,) * (3 - len(plan.tile)) + plan.tile)[:2], plan.strip, plan.run)
+    geo = sweeps.strip_geometry(plan.halo, spec, plan.depth)
+    assert (geo["smem"], geo["recompute"], geo["rows"]) == (
+        plan.smem_bytes, plan.recompute, plan.rows)
+    # the tile row, halo included, is one warp's columns, the left halo
+    # whole 16-byte vectors, and interior tiles start on a vector
+    t2 = plan.tile[-1]
+    assert plan.pad % 4 == 0 and t2 % 4 == 0
+    assert plan.pad + t2 + plan.depth * plan.halo[-1] <= 32 * plan.cols
 
 
 def test_refused_operators():
@@ -160,5 +178,6 @@ def test_generated_source():
     src = sweeps.source(plan)
     assert src.startswith('#include "nt_sweeps.cuh"')
     assert src.rstrip().endswith("NT_DEFINE_SWEEPS(NtSweepPlan)")
-    assert "using Tile = NtTile<16, 16, 32, 2, 2, 2>;" in src
+    assert "static constexpr int kT0 = 16, kT1 = 16, kT2 = 24, kP2 = 4;" in src
+    assert "static constexpr int kC = 1, kR = 4, kL = 8;" in src
     assert "kDepth = 2;" in src
