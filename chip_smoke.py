@@ -26,7 +26,9 @@ line, the card's nvidia-smi line, and the result line):
      same sweeps as kernel-A launches, bitwise, with launch counts and
      times at other depths per launch;
   6. kernel D (stencil_chain) against the stages run one at a time, by the
-     plain version and by kernel A, bitwise;
+     plain version and by kernel A, bitwise, with each case's plan (tile,
+     strips, loads, interior tiles, blocks per SM), times and host time per
+     launch;
   7. the DSL path end to end: bench.py's K-sweep and composite rows built
      with `neptune_tpu_torch`'s decorators, with launch counts, against the
      per-stage route;
@@ -373,6 +375,26 @@ def c_plan_text(plan) -> str:
     """Kernel C's plan: depth, tile, cells per thread, shared memory."""
     return (f"depth {plan.depth}, tile {plan.tile}, {plan.strip} x {plan.cols} cells per thread, "
             f"{plan.warps} warps, {plan.smem_bytes} B smem, recompute {plan.recompute:.2f}")
+
+
+def d_plan_text(plan, global_start=None, device: int = 0) -> str:
+    """Kernel D's plan: tile, threads, strips, loads, interior share of the
+    tiles, blocks per SM, shared memory."""
+    from neptune_tpu_torch.lowering import chain
+
+    n = (1,) * (3 - plan.rank) + tuple(plan.shape)
+    tiles = [-(-m // t) for m, t in zip(n, plan.tile3)]
+    boxes = chain.stage_boxes(plan, plan.shape, global_start)
+    inner = sum(
+        chain.tile_interior(plan, (a * plan.tile3[0], b * plan.tile3[1], c * plan.tile3[2]), n,
+                            boxes)[0]
+        for a in range(tiles[0]) for b in range(tiles[1]) for c in range(tiles[2]))
+    loads = "16-byte" if n[2] % chain.VEC == 0 else "4-byte"
+    walk = (f"persistent, {plan.ahead} tile(s) ahead in flight" if plan.ahead
+            else "one tile per block")
+    return (f"tile {plan.tile} + halo {plan.halo[3 - plan.rank:]}, {plan.threads} threads, {walk}, "
+            f"strips {plan.strips}, {loads} loads, {inner}/{int(np.prod(tiles))} tiles interior, "
+            f"{chain.blocks_per_sm(plan, device)} blocks per SM, {plan.smem_bytes} B smem")
 
 
 def rand(rng, shape, dev):
@@ -760,7 +782,7 @@ def phase8_forms(dev, rng):
         lib_ms_d, "u + 0.01 lap(lap u) 4096^2 f32, one block")
     extra["stencil_chain_origin"] = (
         device_us(lambda: chain.run_chain(cplan, [x], [], global_start=g0), 10, "nt_chain"),
-        f"tile {cplan.tile}, {cplan.smem_bytes} B smem")
+        d_plan_text(cplan, g0))
     copy = copy_gbs(int(8 * cells))
     for name, (k_ms, p_ms, (b_ms, b_by), lib, shape) in out.items():
         out[name] = (k_ms, p_ms, (b_ms, b_by), lib, shape, errs[name])
@@ -1240,12 +1262,16 @@ def main() -> int:
             f"{dev_us:.1f} us ({nbytes / dev_us / 1e3:.1f} GB/s)")
         b_ms_d, b_by_d = bound(nbytes, cells * sum(codegen.body_ops(st.op) for st in plan.stages))
         lib_ms_d, lib_txt_d = library_for_chain(plan, fields, y) if n_fields == 1 else (None, "none")
+        # host time of one launch: calls queued back to back, no sync
+        host_us = 1e3 * host_ms(lambda: chain.run_chain(plan, fields, sv), 50, lambda: None)[0]
+        torch.cuda.synchronize()
         say(f"phase 6 stencil_chain {label}: bound {b_ms_d:.4f} ms ({b_by_d}), library {lib_txt_d}; "
-            f"{len(plan.stages)} stages in 1 launch (tile "
-            f"{plan.tile}, reach {plan.reach}, {plan.n_buffers} buffers, {plan.smem_bytes} B smem), "
+            f"{len(plan.stages)} stages in 1 launch (reach {plan.reach}, {plan.n_buffers} "
+            f"buffers; plan {d_plan_text(plan)}), "
             f"bitwise = plain = per-stage kernel A; kernel {k_ms:.4f} ms per call, device "
-            f"{dev_txt}; d2d copy of (fields + result) {copy_gbs(int(nbytes)):.1f} GB/s; "
-            f"plain {p_ms:.4f} ms; per-stage kernel A {ka_ms:.4f} ms")
+            f"{dev_txt}; host {host_us:.1f} us per launch; d2d copy of (fields + result) "
+            f"{copy_gbs(int(nbytes)):.1f} GB/s; plain {p_ms:.4f} ms; per-stage kernel A "
+            f"{ka_ms:.4f} ms")
         if label == "composite 4096^2":
             d_ms, d_plain_ms, d_bound, d_lib = k_ms, p_ms, (b_ms_d, b_by_d), lib_ms_d
 

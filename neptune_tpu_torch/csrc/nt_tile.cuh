@@ -1,4 +1,5 @@
-// Shared-memory tiles for kernels C (stencil_sweeps) and D (stencil_chain).
+// Shared-memory tiles for kernels B (fused_cg) and D (stencil_chain), and
+// the bounds boxes that kernel C shares.
 //
 // A block owns one output tile of T0 x T1 x T2 cells (a rank-2 grid is
 // (1, n0, n1), so T0 = 1 and H0 = 0 there) and holds it in shared memory
@@ -16,9 +17,7 @@
 //     a read that leaves the grid from w reads 0 (NtTileAcc<.., CHECK>).
 //     A table of w per position and dim (nt_tile_wraps) follows the tile's
 //     buffers in shared memory.
-// Threads walk a box of positions with neighbouring lanes on neighbouring
-// positions along dim 2 (nt_tile_for). Every box is known at compile time,
-// so the walk divides by constants only.
+// Each kernel walks its tiles itself (nt_fused_cg.cuh, nt_chain.cuh).
 #pragma once
 
 #include "nt_common.cuh"
@@ -38,45 +37,12 @@ struct NtTile {
   }
 };
 
-// calls f(p0, p1, p2) for each position of the box [L, L + E) of a tile,
-// spread over the block's kNtTileThreads threads. Rows along dim 2 that
-// fill warps (E2 >= 64) go a warp per row, a lane per position; shorter
-// rows, as in rank-3 tiles, are walked flat so that lanes do not idle.
-template <int L0, int L1, int L2, int E0, int E1, int E2, class F>
-__device__ __forceinline__ void nt_tile_for(F&& f) {
-  if constexpr (E2 >= 64) {
-    constexpr int kWarps = kNtTileThreads / 32;
-    const int lane = (int)threadIdx.x & 31;
-    for (int r = (int)threadIdx.x >> 5; r < E0 * E1; r += kWarps) {
-      const int p0 = r / E1, p1 = r - p0 * E1;
-      for (int p2 = lane; p2 < E2; p2 += 32) f(L0 + p0, L1 + p1, L2 + p2);
-    }
-  } else {
-    constexpr int kPlane = E1 * E2, kTotal = E0 * kPlane;
-    for (int j = (int)threadIdx.x; j < kTotal; j += kNtTileThreads) {
-      const int p0 = j / kPlane, r = j - p0 * kPlane;
-      const int p1 = r / E2;
-      f(L0 + p0, L1 + p1, L2 + (r - p1 * E2));
-    }
-  }
-}
-
-// the tile's first output cell: blocks tile the grid in C order. The grid
-// is the whole grid or one local block of a sharded grid; its logical
-// coordinates start at g.lb, given at run time (nt_box_at).
-template <class Tl>
-__device__ __forceinline__ void nt_tile_origin(int (&org)[3]) {
-  org[0] = (int)blockIdx.z * Tl::T0;
-  org[1] = (int)blockIdx.y * Tl::T1;
-  org[2] = (int)blockIdx.x * Tl::T2;
-}
-
 // The wrapped cell of each tile position, per dim (dim 0's W0 entries, then
 // dim 1's, then dim 2's), for wrapped tiles: the modulo once per block, not
-// per cell and sweep.
-template <class Tl>
+// per cell and sweep. NT: the block's threads.
+template <class Tl, int NT = kNtTileThreads>
 __device__ __forceinline__ void nt_tile_wraps(const NtGrid& g, const int (&org)[3], int* tab) {
-  for (int j = (int)threadIdx.x; j < Tl::kTab; j += kNtTileThreads) {
+  for (int j = (int)threadIdx.x; j < Tl::kTab; j += NT) {
     const int d = j < Tl::W0 ? 0 : (j < Tl::W0 + Tl::W1 ? 1 : 2);
     const int p = j - (d == 0 ? 0 : (d == 1 ? Tl::W0 : Tl::W0 + Tl::W1));
     const int h = d == 0 ? Tl::H0 : (d == 1 ? Tl::H1 : Tl::H2);
@@ -98,29 +64,6 @@ __device__ __forceinline__ void nt_tile_cell(const int (&org)[3], const int* tab
     w1 = org[1] - Tl::H1 + p1;
     w2 = org[2] - Tl::H2 + p2;
   }
-}
-
-// The whole tile, halo included, from global memory. A wrapped tile needs
-// its table (nt_tile_wraps) filled and synced first.
-template <class Tl, bool WRAP>
-__device__ __forceinline__ void nt_tile_load(const NtGrid& g, const int (&org)[3], const int* tab,
-                                             const float* __restrict__ src, float* dst) {
-  nt_tile_for<0, 0, 0, Tl::W0, Tl::W1, Tl::W2>([&](int p0, int p1, int p2) {
-    int w0, w1, w2;
-    nt_tile_cell<Tl, WRAP>(org, tab, p0, p1, p2, w0, w1, w2);
-    dst[Tl::at(p0, p1, p2)] =
-        WRAP || nt_in_grid(g.n, w0, w1, w2) ? src[nt_index(g, w0, w1, w2)] : 0.0f;
-  });
-}
-
-// the tile's centre, the cells of the grid only, to global memory
-template <class Tl>
-__device__ __forceinline__ void nt_tile_store(const NtGrid& g, const int (&org)[3],
-                                              const float* src, float* __restrict__ dst) {
-  nt_tile_for<Tl::H0, Tl::H1, Tl::H2, Tl::T0, Tl::T1, Tl::T2>([&](int p0, int p1, int p2) {
-    const int q0 = org[0] - Tl::H0 + p0, q1 = org[1] - Tl::H1 + p1, q2 = org[2] - Tl::H2 + p2;
-    if (nt_in_grid(g.n, q0, q1, q2)) dst[nt_index(g, q0, q1, q2)] = src[Tl::at(p0, p1, p2)];
-  });
 }
 
 // What a generated body sees of a tile: input k at an offset from tile
@@ -163,39 +106,4 @@ __device__ __forceinline__ NtBox nt_box_at(const NtGrid& g, const NtBox& logical
 __device__ __forceinline__ bool nt_in_box(const NtBox& b, int w0, int w1, int w2) {
   return w0 >= b.lo[0] && w0 < b.hi[0] && w1 >= b.lo[1] && w1 < b.hi[1] && w2 >= b.lo[2] &&
          w2 < b.hi[2];
-}
-
-// One apply (body B, NIN tile inputs) over the tile positions [L, W - L):
-// the body's value where the cell lies inside the apply's bounds, input 0's
-// value (the copy-through seed) elsewhere, handed to put(p0, p1, p2, i, v).
-template <class Tl, class B, bool WRAP, int NIN, int L0, int L1, int L2, class S, class Put>
-__device__ __forceinline__ void nt_tile_apply(const NtGrid& g, const int (&org)[3],
-                                              const int* tab, const NtBox& box,
-                                              const float* const (&in)[NIN], const S& s,
-                                              Put&& put) {
-  constexpr bool kCheck = WRAP && !B::kPeriodic;
-  nt_tile_for<L0, L1, L2, Tl::W0 - 2 * L0, Tl::W1 - 2 * L1, Tl::W2 - 2 * L2>(
-      [&](int p0, int p1, int p2) {
-        int w0, w1, w2;
-        nt_tile_cell<Tl, WRAP>(org, tab, p0, p1, p2, w0, w1, w2);
-        const int i = Tl::at(p0, p1, p2);
-        float v = in[0][i];
-        if (nt_in_box(box, w0, w1, w2)) {
-          NtTileAcc<Tl, NIN, kCheck> a;
-#pragma unroll
-          for (int k = 0; k < NIN; ++k) a.b[k] = in[k];
-          a.i = i;
-          a.c0 = w0 + g.lb[0];
-          a.c1 = w1 + g.lb[1];
-          a.c2 = w2 + g.lb[2];
-          a.w0 = w0;
-          a.w1 = w1;
-          a.w2 = w2;
-          a.n = g.n;
-          float y[1];
-          B::eval(a, s, y);
-          v = y[0];
-        }
-        put(p0, p1, p2, i, v);
-      });
 }

@@ -341,10 +341,10 @@ NT_DEFINE_SWEEPS(NtSweepPlan)
 
 def chain_source(plan) -> str:
     """The complete source of kernel D for a `lowering.chain.ChainPlan`:
-    one generated body per stage, and the chain that runs them in DAG
-    order over the tile's shrinking regions."""
+    one generated body per stage, each stage's box, and the chain that
+    runs them in DAG order over their regions with their strips."""
     pad = 3 - plan.rank
-    structs, calls = [], []
+    structs, boxes, sides, calls = [], [], [], []
     last = len(plan.stages) - 1
     for i, st in enumerate(plan.stages):
         exprs = [
@@ -366,33 +366,52 @@ def chain_source(plan) -> str:
                 f"NtBox{{{{{_ints([0] * pad + [x.start for x in sl])}}}, "
                 f"{{{_ints([1] * pad + [x.stop for x in sl])}}}}}"
             )
+        boxes.append(
+            f"  static __device__ __forceinline__ NtBox box{i}(const NtGrid& g) {{\n"
+            f"    (void)g;\n    return {box};\n  }}"
+        )
+        sides.append(
+            f"nt_chain_side<Tile, {_ints(plan.regions[i])}>(org, box{i}(g), copy, {1 << i}u)"
+        )
         ins = ", ".join(f"buf[{plan.buffer[s]}]" for s in st.in_slots)
-        head = f"Tile, NtStage{i}, kWrap, {len(st.in_slots)}"
+        head = f"NtChain, NtStage{i}, CHECKED, {len(st.in_slots)}"
+        cp = f"(copy & {1 << i}u) != 0u"
         if i == last:
-            call = f"nt_chain_last<{head}>(g, org, tab, {box}, in, out, s);"
-        else:
-            reg = _ints([0] * pad + list(plan.creep[st.out_slot]))
             call = (
-                f"nt_chain_stage<{head}, {reg}>(g, org, tab, {box}, in, "
-                f"buf[{plan.buffer[st.out_slot]}], s);"
+                f"nt_chain_last<{head}, {plan.strips[i]}>(g, org, tab, box{i}(g), {cp}, in, "
+                f"out, s);"
+            )
+        else:
+            call = (
+                f"nt_chain_stage<{head}, {_ints(plan.regions[i])}, {plan.strips[i]}>(g, org, tab, "
+                f"box{i}(g), {cp}, in, buf[{plan.buffer[st.out_slot]}], s);"
             )
         calls.append(f"    {{\n      const float* const in[] = {{{ins}}};\n      {call}\n    }}")
-    stages = "\n".join(calls)
+    side_expr = " &&\n           ".join(sides)
     return (
         '#include "nt_chain.cuh"\n\n'
         + "\n".join(structs)
         + f"""
 struct NtChain {{
-  using Tile = NtTile<{_ints([1] * pad + list(plan.tile))}, {_ints([0] * pad + list(plan.reach))}>;
+  using Tile = NtTile<{_ints(plan.tile3)}, {_ints(plan.halo)}>;
   static constexpr bool kWrap = {'true' if plan.periodic else 'false'};
   static constexpr int kFields = {plan.n_fields};
   static constexpr int kBuffers = {plan.n_buffers};
+  static constexpr int kStages = {len(plan.stages)};
+  static constexpr int kThreads = {plan.threads}, kMinBlocks = {plan.min_blocks};
+  static constexpr int kAhead = {plan.ahead};
 {scalars_struct(plan.scalar_types)}
+{chr(10).join(boxes)}
+  static __device__ __forceinline__ bool sides(const NtGrid& g, const int (&org)[3],
+                                               unsigned& copy) {{
+    return {side_expr};
+  }}
+  template <bool CHECKED>
   static __device__ __forceinline__ void run(const NtGrid& g, const int (&org)[3],
                                              const int* tab, float* const* buf, float* out,
-                                             const Scalars& s) {{
-    (void)tab; (void)buf;
-{stages}
+                                             const Scalars& s, unsigned copy) {{
+    (void)tab; (void)copy;
+{chr(10).join(calls)}
   }}
 }};
 

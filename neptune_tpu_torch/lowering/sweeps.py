@@ -30,7 +30,6 @@ The TPU-only mechanics (VMEM budgets, slab and panel picking, 8-row and
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -50,16 +49,6 @@ local_counter = LaunchCounter("stencil_sweeps_local")
 
 # dynamic shared memory one block may use on the H100 (232,448 bytes)
 SMEM_MAX = 227 * 1024
-
-
-def smem_bytes(n_buffers: int, tile: Sequence[int], halo: Sequence[int]) -> int:
-    """Shared memory of a tile of kernel D (csrc/nt_tile.cuh): n_buffers f32
-    buffers of the tile and its halo, then the int table of wrapped cells
-    per dim."""
-    w = [t + 2 * h for t, h in zip(tile, halo)]
-    if len(w) == 2:
-        w = [1] + w
-    return 4 * (n_buffers * math.prod(w) + sum(w))
 
 
 # Tiles of the register-strip design (csrc/nt_sweeps.cuh), as (columns per

@@ -18,7 +18,10 @@ events after a warm-up call that builds the kernel:
      plan, the rest kernel-A launches), the host microseconds of one call
      of the 1024^2 K=16 case, and the local form, K=8 on 5-pt 4096^2 as one
      block;
-  D: each phase-6 composite (d_cases) through `CompiledModule.opdef`.
+  D: each phase-6 composite (d_cases) through `CompiledModule.opdef`, the
+     host microseconds of one launch of the 1024^2 composite
+     (`chain.run_chain`, queued without a sync), and the origin form on the
+     4096^2 composite as one block.
 `--abba` runs the two trees in turns, each in a process of its own, on the
 same card, and prints every run's line and one summary line per case.
 Needs a CUDA device and nvcc.
@@ -137,6 +140,8 @@ def times_d(cs, dev, rng, out):
     import numpy as np
     import torch
 
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.lowering import chain
     from neptune_tpu_torch.lowering.executor import CompiledModule
 
     for label, module, name, n_fields, sc in cs.d_cases():
@@ -146,6 +151,15 @@ def times_d(cs, dev, rng, out):
         run = CompiledModule(module).opdef(name)
         reps = 5 if fields[0].numel() > 3e7 else 20  # as phase 6 times them
         out[f"D {label}"] = {"ms": cs.cuda_ms(lambda: run(*fields, *sc), reps)}
+        if label.startswith("composite 1024^2"):
+            plan = chain.chain_plan(module, name)
+            out["D host us per launch, composite 1024^2"] = {
+                "us": host_us(cs, lambda: chain.run_chain(plan, fields, []))}
+    # the origin form over the whole grid as one block (phase 8)
+    plan = chain.chain_plan(stencils.composite((4096, 4096)), "wrapped", (4096, 4096))
+    x = torch.from_numpy(rng.standard_normal((4096, 4096), dtype=np.float32)).to(dev)
+    out["D origin composite 4096^2, one block"] = {
+        "ms": cs.cuda_ms(lambda: chain.run_chain(plan, [x], [], global_start=(0, 0)), 10)}
 
 
 def run(root: Path, kernels: str) -> dict:

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Time kernels A and C of this checkout under candidate tiles, on a GPU.
+"""Time kernels A, C and D of this checkout under candidate tiles, on a GPU.
 
-    python3 scripts/torch_tile_times.py
+    python3 scripts/torch_tile_times.py [--kernels ACD]
 
-For chip_smoke.py's main kernel-A and kernel-C cases, builds each kernel
-under every candidate tile below (`cuda_backend.apply_plan(op, tiles)`,
-`sweeps.sweep_plan(..., depth, tiles)`), checks it bitwise against its
-plain version, and times it with CUDA events, the candidates in turns
-(first, ..., last, last, ..., first). One JSON line per case and candidate:
-the data behind the plans' tile lists (`cuda_backend.APPLY_TILES`,
-`sweeps.TILES`) and kernel C's recompute cap (`sweeps.MAX_RECOMPUTE`). Needs a CUDA device and nvcc.
+For chip_smoke.py's main kernel-A, kernel-C and kernel-D cases, builds
+each kernel under every candidate tile below (`cuda_backend.apply_plan(op,
+tiles)`, `sweeps.sweep_plan(..., depth, tiles)`, `chain.chain_plan(...,
+tiles=)`), checks it bitwise against its plain version, and times it with
+CUDA events, the candidates in turns (first, ..., last, last, ..., first).
+One JSON line per case and candidate: the data behind the plans' tile lists
+(`cuda_backend.APPLY_TILES`, `sweeps.TILES`, `chain.TILES`) and kernel C's
+recompute cap (`sweeps.MAX_RECOMPUTE`). `--kernels AD` times a subset.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
+import subprocess
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -36,6 +41,17 @@ C_TILES = {
         8: [(1, 32, 8, 4, 16), (2, 16, 8, 4, 8)]},
 }
 
+# kernel D: chain.ChainTile fields (tile, threads per block, tiles in flight
+# beyond the current one (0: one tile per block), blocks per SM to leave
+# registers for, longest strip)
+D_TILES = {
+    2: [((32, 64), 128, 1, 5, 8), ((32, 64), 256, 1, 3, 8), ((64, 64), 256, 1, 2, 8),
+        ((32, 64), 128, 1, 5, 6), ((32, 64), 128, 2, 4, 8), ((32, 64), 256, 0, 3, 8),
+        ((64, 64), 512, 1, 1, 12)],
+    3: [((8, 16, 32), 256, 0, 2, 8), ((8, 8, 32), 256, 0, 2, 8), ((4, 16, 32), 256, 1, 2, 8),
+        ((8, 16, 32), 256, 1, 1, 8)],
+}
+
 
 def smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
@@ -53,7 +69,64 @@ def turns(cs, calls, reps):
     return ms
 
 
+def ptxas(source: str) -> dict:
+    """Registers per thread and spill bytes of a generated source's kernel,
+    as `nvcc -Xptxas -v` reports them (the build's own flags)."""
+    from neptune_tpu_torch.kernels.build import CSRC, NVCC_FLAGS, nvcc_path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = Path(tmp, "k.cu")
+        cu.write_text(source)
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+                               "-o", str(Path(tmp, "k.so")), str(cu)],
+                              capture_output=True, text=True, check=True)
+    regs = re.search(r"Used (\d+) registers", proc.stderr)
+    spill = re.search(r"(\d+) bytes spill stores", proc.stderr)
+    return {"regs": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spill.group(1)) if spill else None}
+
+
+def times_d(cs, dev, rng, card):
+    import torch
+
+    from neptune_tpu_torch.kernels import codegen
+    from neptune_tpu_torch.kernels.build import builder
+    from neptune_tpu_torch.lowering import chain
+
+    cases = []
+    for label, module, name, n_fields, sc in cs.d_cases():
+        if label.startswith("composite 1024"):
+            continue
+        rank = module.lookup(name).ftype.inputs[0].bounds.rank
+        plans = [p for p in (chain.chain_plan(module, name, tiles=(chain.ChainTile(*t),))
+                             for t in D_TILES[rank]) if p]
+        cases.append((label, n_fields, sc, plans))
+    sources = {id(p): codegen.chain_source(p) for *_, plans in cases for p in plans}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        builds = [pool.submit(builder.load, s, "stencil_chain") for s in sources.values()]
+        infos = {k: pool.submit(ptxas, s) for k, s in sources.items()}
+        for j in builds:
+            j.result()
+        regs = {k: j.result() for k, j in infos.items()}
+    for label, n_fields, sc, plans in cases:
+        fields = [cs.rand(rng, plans[0].shape, dev) for _ in range(n_fields)]
+        sv = [torch.tensor(v, dtype=torch.float32) for v in sc]
+        ref = chain.chain_plain(plans[0], fields, sv)
+        calls = []
+        for p in plans:
+            assert torch.equal(chain.run_chain(p, fields, sv), ref), (label, p.tile)
+            calls.append(lambda p=p: chain.run_chain(p, fields, sv))
+        for p, ms in zip(plans, turns(cs, calls, 20)):
+            print(json.dumps({"kernel": "D", "case": label, "card": card, "tile": p.tile,
+                              "threads": p.threads, "ahead": p.ahead,
+                              "min_blocks": p.min_blocks, "strips": p.strips,
+                              "blocks_per_sm": chain.blocks_per_sm(p), "smem": p.smem_bytes,
+                              **regs[id(p)], "ms": ms}), flush=True)
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    kernels = args[1].upper() if len(args) > 1 and args[0] == "--kernels" else "ACD"
     cs = smoke()
     sys.path.insert(0, str(HERE))
     import numpy as np
@@ -92,6 +165,10 @@ def main() -> int:
             plans += [p for p in (sweeps.sweep_plan(module, name, k, depth, (t,)) for t in tiles)
                       if p]
         c_plans.append((label, k, plans))
+    if "D" in kernels:
+        times_d(cs, dev, rng, card)
+    a_plans = a_plans if "A" in kernels else []
+    c_plans = c_plans if "C" in kernels else []
     with ThreadPoolExecutor(max_workers=8) as pool:
         jobs = [pool.submit(builder.load, cuda_backend.source(op, p), "stencil_apply")
                 for _, op, plans in a_plans for p in plans]

@@ -114,7 +114,9 @@ def test_buffers_are_reused():
     # u, v, the first stage; the lap reuses v's buffer once v is dead; the
     # last stage writes to device memory
     assert plan.buffer == {0: 0, 1: 1, 2: 2, 3: 1} and plan.n_buffers == 3
-    assert plan.smem_bytes == 3 * 4 * 68 * 68 + 4 * (1 + 68 + 68) <= chain.SMEM_MAX
+    # two sets of the two fields (the next tile's in flight), the first
+    # stage's buffer, the wrapped-cell table; the column halo widened to 4
+    assert plan.smem_bytes == 4 * ((2 * 2 + 1) * 36 * 72 + (1 + 36 + 72)) <= chain.SMEM_MAX
 
 
 def test_refused_opdefs_run_stage_at_a_time():
@@ -149,4 +151,4 @@ def test_generated_source():
     assert src.count("struct NtStage") == len(plan.stages) == 3
     assert src.count("nt_chain_stage<") == 2 and src.count("nt_chain_last<") == 1
     assert "kWrap = true;" in src and "kBuffers = 3;" in src
-    assert "using Tile = NtTile<1, 64, 64, 0, 2, 2>;" in src
+    assert "using Tile = NtTile<1, 32, 64, 0, 2, 4>;" in src

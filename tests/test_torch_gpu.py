@@ -277,6 +277,13 @@ CHAINS = {
     "composite_3d": (lambda: stencils.composite((12, 20, 40)), "wrapped", 1, ()),
     "mixed_3d": (lambda: stencils.composite((10, 12, 36), mixed=True), "wrapped", 1, ()),
     "graded_mixed": (lambda: stencils.graded_chain((40, 72), lb=(3, -5)), "wrapped", 1, ()),
+    # kernel D's instances: interior tiles (unchecked, 16-byte loads), rows
+    # that are not whole vectors (4-byte loads), a torus, ragged tiles
+    "composite_interior_tiles": (lambda: stencils.composite((200, 264)), "wrapped", 1, ()),
+    "composite_unaligned_ragged": (lambda: stencils.composite((130, 201)), "wrapped", 1, ()),
+    "all_periodic_torus": (lambda: stencils.composite((70, 90), periodic=True), "wrapped", 1, ()),
+    "coupled_interior_tiles": (lambda: stencils.coupled((150, 200)), "couple", 2, (0.7, -1.3)),
+    "composite_3d_interior": (lambda: stencils.composite((20, 40, 72)), "wrapped", 1, ()),
 }
 
 
@@ -304,6 +311,71 @@ def test_stencil_chain_matches_per_stage(case, cuda):
     per_stage = cm._make_callable(module.lookup(name))(*fields, *scalars)
     assert cuda_backend.counter.count - before == len(plan.stages)
     assert torch.equal(got, per_stage)
+
+
+# kernel D under candidate schedules (as scripts/torch_tile_times.py times
+# them): one tile per block, and a persistent grid one or two tiles ahead
+SCHEDULES = {
+    "64x64_512_ahead1": ((64, 64), 512, 1, 1, 12),
+    "64x64_512": ((64, 64), 512, 0, 1, 12),
+    "32x64_256_ahead1_min3": ((32, 64), 256, 1, 3, 8),
+    "32x64_128_ahead2": ((32, 64), 128, 2, 1, 8),
+    "32x32_256": ((32, 32), 256, 0, 1, 12),
+    "8x16x32_512_ahead1": ((8, 16, 32), 512, 1, 1, 12),
+    "8x16x32_256_min2": ((8, 16, 32), 256, 0, 2, 8),
+    "4x16x32_256_ahead2": ((4, 16, 32), 256, 2, 1, 8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", SCHEDULES)
+@pytest.mark.parametrize("case", ["composite", "mixed", "coupled", "unaligned"])
+def test_stencil_chain_schedules(case, sched, cuda):
+    tile = SCHEDULES[sched][0]
+    rank = len(tile)
+    build, name, n_fields, scalars = {
+        "composite": (lambda: stencils.composite((150, 200) if rank == 2 else (20, 40, 72)),
+                      "wrapped", 1, ()),
+        "mixed": (lambda: stencils.composite((150, 200) if rank == 2 else (20, 40, 72),
+                                             mixed=True), "wrapped", 1, ()),
+        "coupled": (lambda: stencils.coupled((150, 200)), "couple", 2, (0.7, -1.3)),
+        "unaligned": (lambda: stencils.composite((133, 205) if rank == 2 else (19, 37, 70)),
+                      "wrapped", 1, ()),
+    }[case]
+    module = build()
+    if len(module.lookup(name).ftype.inputs[0].bounds.shape) != rank:
+        pytest.skip("a rank-2 operator")
+    plan = chain.chain_plan(module, name, tiles=(chain.ChainTile(*SCHEDULES[sched]),))
+    rng = np.random.default_rng(7)
+    fields = [torch.from_numpy(rng.standard_normal(plan.shape).astype(np.float32)).to(cuda)
+              for _ in range(n_fields)]
+    sv = [torch.tensor(s, dtype=torch.float32) for s in scalars]
+    before = chain.counter.count
+    got = chain.run_chain(plan, fields, sv)
+    torch.cuda.synchronize()
+    assert chain.counter.count == before + 1
+    assert torch.equal(got, chain.chain_plain(plan, fields, sv))
+    assert chain.blocks_per_sm(plan) >= 1
+
+
+@pytest.mark.gpu
+def test_stencil_chain_launcher_is_built_once(cuda):
+    """The launcher keeps its argument buffers: a second call refills them;
+    a field that is not contiguous f32 is made so."""
+    module = stencils.coupled((64, 100))
+    plan = chain.chain_plan(module, "couple")
+    rng = np.random.default_rng(8)
+    u, v = (torch.from_numpy(rng.standard_normal((64, 100)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    sv = [torch.tensor(0.7), torch.tensor(-1.3)]
+    first = chain.run_chain(plan, [u, v], sv)
+    launcher = chain._launcher(plan)
+    ptrs = launcher.in_ptrs
+    second = chain.run_chain(plan, [u.double(), v.t().contiguous().t()], sv)
+    torch.cuda.synchronize()
+    assert chain._launcher(plan) is launcher and launcher.in_ptrs is ptrs
+    assert torch.equal(first, second)
+    assert torch.equal(first, chain.chain_plain(plan, [u, v], sv))
 
 
 @pytest.mark.gpu
@@ -392,13 +464,19 @@ def test_local_sweeps_match_plain(k, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["composite", "coupled"])
+@pytest.mark.parametrize("case", ["composite", "coupled", "composite_interior", "bounds_inside"])
 def test_origin_form_matches_plain(case, cuda):
-    module, name, n_fields, scalars = {
-        "composite": (stencils.composite((96, 128)), "wrapped", 1, ()),
-        "coupled": (stencils.coupled((96, 100)), "couple", 2, (0.7, -1.3)),
+    module, name, n_fields, scalars, block, gstart = {
+        "composite": (stencils.composite((96, 128)), "wrapped", 1, (), (32, 50), (32, 50)),
+        "coupled": (stencils.coupled((96, 100)), "couple", 2, (0.7, -1.3), (32, 50), (32, 50)),
+        # a block with interior tiles, at a global start that is not 0
+        "composite_interior": (stencils.composite((400, 600)), "wrapped", 1, (), (200, 264),
+                               (136, 200)),
+        # the bounds end inside the block: some tiles straddle them, some
+        # lie beyond them and run as copies
+        "bounds_inside": (stencils.coupled((250, 300)), "couple", 2, (0.7, -1.3), (200, 400),
+                          (120, 100)),
     }[case]
-    block, gstart = (32, 50), (32, 50)
     plan = chain.chain_plan(module, name, block)
     fields = [_block(block, torch.float32, cuda, seed) for seed in range(n_fields)]
     sv = [torch.tensor(s, dtype=torch.float32) for s in scalars]
