@@ -42,7 +42,17 @@ line, the card's nvidia-smi line, and the result line):
   9. four processes on the one card, joined by gloo (NCCL refuses two
      processes on one GPU): the sharded routes on (2,2) and (4,1) meshes
      and a sharded GMRES solve, gathered and held against the one-process
-     whole-grid result.
+     whole-grid result;
+ 10. the solver surface at full size: (a) fully implicit Allen–Cahn at
+     4096^2 f32 (Newton–Krylov through the DSL's time_advance, the residual
+     on kernel A, J v through the opdefs' derivative rule), with and
+     without jacobian=, Newton and Krylov iterations held to the
+     kernels-off route, ms per step and per Newton iteration, the device
+     split of a step; (b) the rule's tangent and cotangent against the
+     eager view, and a differentiable_root gradient against the
+     kernels-off route; (c) bench.py's cg_poisson_512_mixed_1e10 (f32
+     twin on kernel A, true f64 residual <= 1e-10); (d) its
+     cg_512_ssor_vs_jacobi (SSOR fewer iterations than Jacobi).
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
@@ -867,6 +877,328 @@ def phase8_rows(dev, rng, check_launches: bool = True) -> dict:
     return launches
 
 
+# ---- phase 10: the solver surface at full size ---------------------------
+# 10a: fully implicit Allen–Cahn at 4096^2 f32. dt * k = 0.25 (k = eps^2/h^2)
+# keeps the Newton Jacobian I + O(1), so Newton takes a few iterations with
+# unpreconditioned GMRES; tolerances relative 1e-5 with an f32 atol of 1e-3.
+AC_N, AC_GRAD_N, AC_STEPS, JV_REPS = 4096, 1024, 3, 3
+AC_DT, AC_K, AC_TOL, AC_ATOL = 0.05, 5.0, 1e-5, 1e-3
+# 10c and 10d: bench.py's cg_poisson_512_mixed_1e10 and cg_512_ssor_vs_jacobi
+MIXED_N, MIXED_TOL, MIXED_INNER_TOL, MIXED_INNER_ITERS = 512, 1e-10, 1e-4, 6000
+SSOR_N, SSOR_TOL, SSOR_MAXIT = 512, 1e-4, 5500
+
+
+def allen_cahn(ntt, n: int):
+    """The fully implicit Allen–Cahn step at n^2 f32, built with the port's
+    DSL as examples/allen_cahn.py builds its 1-D one: the residual F =
+    u - u_prev - dt (k lap(u) + u - u^3) with F = u - u_prev on the
+    boundary rows, its Jacobian in the full (v, u, u_prev) form, and a
+    @jit_class whose steps call time_advance(method="implicit_nonlinear")
+    without and with jacobian=. Resets the DSL context."""
+    ntt.reset_context()
+    dt, k = AC_DT, AC_K
+
+    def boundary():
+        i, j = ntt.index(0), ntt.index(1)
+        return (i == 0) | (i == n - 1) | (j == 0) | (j == n - 1)
+
+    @ntt.nonlinear_op_def(bounds=([0, 0], [n, n]), dtype="float32", name="ac_res")
+    def ac_res(u, up):
+        lap = u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1] - 4.0 * u[0, 0]
+        interior = u[0, 0] - up[0, 0] - dt * (k * lap + u[0, 0] - u[0, 0] * u[0, 0] * u[0, 0])
+        return ntt.where(boundary(), u[0, 0] - up[0, 0], interior)
+
+    @ntt.nonlinear_op_def(bounds=([0, 0], [n, n]), dtype="float32", name="ac_jac")
+    def ac_jac(v, u, up):
+        lap = v[-1, 0] + v[1, 0] + v[0, -1] + v[0, 1] - 4.0 * v[0, 0]
+        interior = v[0, 0] - dt * (k * lap + v[0, 0] - 3.0 * u[0, 0] * u[0, 0] * v[0, 0])
+        return ntt.where(boundary(), v[0, 0] + 0.0 * up[0, 0], interior)
+
+    opts = {"atol": AC_ATOL}
+
+    @ntt.jit_class
+    class AC:
+        def __init__(self):
+            self.n = n
+
+        def step(self, u):
+            return ntt.time_advance(u, dt, "implicit_nonlinear", residual=ac_res, tol=AC_TOL,
+                                    max_iters=20, options=opts)
+
+        def step_jac(self, u):
+            return ntt.time_advance(u, dt, "implicit_nonlinear", residual=ac_res,
+                                    jacobian=ac_jac, tol=AC_TOL, max_iters=20, options=opts)
+
+    return AC()
+
+
+def poisson(ntt, n: int, dtype: str, name: str):
+    """bench.py's 5-pt Poisson opdef at n^2, in a fresh DSL context."""
+    ntt.reset_context()
+
+    @ntt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]), dtype=dtype,
+                       name=name)
+    def op(u):
+        return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+    return op
+
+
+def phase10_sources(ntt) -> list:
+    """Kernel A's sources for phase 10's applies, for phase 1's parallel
+    build: the Allen–Cahn residual and Jacobian at both sizes, the f32 twin
+    of the f64 Poisson operator, and the f32 Poisson operator."""
+    from neptune_tpu_torch.lowering import cuda_backend
+
+    modules = []
+    for n in (AC_N, AC_GRAD_N):
+        allen_cahn(ntt, n)
+        modules.append(ntt.get_context().compiled().module)
+    poisson(ntt, MIXED_N, "float64", "poisson64")
+    cm = ntt.get_context().compiled()
+    cm.low_precision_opdef("poisson64")
+    modules.append(cm._lo_cm.module)
+    poisson(ntt, SSOR_N, "float32", "poisson")
+    modules.append(ntt.get_context().compiled().module)
+    ntt.reset_context()
+    return [cuda_backend.source(op) for m in modules for op in m.walk()
+            if op.name == "neptune.apply" and cuda_backend.supported(op)]
+
+
+def split_profile(fn):
+    """(host wall ms, device ms in kernel A, kernel-A launches the trace
+    recorded, kernel-A launches counted, device ms in every other kernel,
+    launches of other kernels) of one call of fn(), from a torch.profiler
+    trace. The trace can miss a record, so both launch counts are given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neptune_tpu_torch.lowering import cuda_backend
+
+    torch.cuda.synchronize()
+    before = cuda_backend.counter.count
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    a = [e for e in dev if "nt_apply" in e.key]
+    other = [e for e in dev if "nt_apply" not in e.key]
+    return (wall, sum(e.device_time_total for e in a) / 1e3, sum(e.count for e in a),
+            cuda_backend.counter.count - before,
+            sum(e.device_time_total for e in other) / 1e3, sum(e.count for e in other))
+
+
+def timed(fn):
+    """(fn()'s result, host milliseconds to its end on the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase10(ntt, dev, rng) -> None:
+    import torch
+    from neptune_tpu_torch.lowering import cuda_backend, executor
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.solvers import krylov, precond
+    from neptune_tpu_torch.solvers.diff import differentiable_root
+    from neptune_tpu_torch.solvers.refine import refined_solve
+
+    t10 = time.perf_counter()
+    # ---- 10a: Newton on the kernel route against the kernels-off route
+    infos = []
+    newton = executor.newton_krylov
+
+    def recording(*a, **k):
+        x, info = newton(*a, **k)
+        infos.append(info)
+        return x, info
+
+    executor.newton_krylov = recording
+    try:
+        ac = allen_cahn(ntt, AC_N)
+        n = AC_N
+        xs = torch.linspace(0.0, 1.0, n, device=dev)
+        u0 = (0.9 * torch.sin(8 * np.pi * xs)[:, None] * torch.sin(8 * np.pi * xs)[None, :]
+              + 0.05 * rand(rng, (n, n), dev))
+        ac.step(u0)  # traces, compiles and warms up
+        cm = ntt.get_context().compiled()
+        off_step = CompiledModule(cm.module, "torch", dev).function("AC_step")
+        off_step(u0)
+        runs = {}
+        for label, step in (("kernels", ac.step), ("off", off_step)):
+            for c in counters().values():
+                c.reset()
+            executor.rule_counter.reset()
+            infos.clear()
+            states, u = [], u0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AC_STEPS):
+                u = step(u)
+                states.append(u)
+            torch.cuda.synchronize()
+            runs[label] = (states, list(infos), (time.perf_counter() - t0) * 1e3,
+                           cuda_backend.counter.count, executor.rule_counter.count)
+        (s_on, i_on, ms_on, a_on, rule_on), (s_off, i_off, ms_off, a_off, _) = (
+            runs["kernels"], runs["off"])
+        require(a_on > 0 and a_off == 0, f"10a: kernel A launches {a_on} (off route {a_off})")
+        # each J v through the rule is one forward (one kernel-A launch, whose
+        # primal GMRES drops) and one tangent; the other launches are residuals
+        residuals = a_on - rule_on
+        require(rule_on > 0, "10a: Newton's J v did not go through the derivative rule")
+        require(residuals > 0, f"10a: kernel A {a_on} launches for {rule_on} J v")
+        require(all(i.converged for i in i_on), f"10a: Newton did not converge: {i_on}")
+        require([(i.iters, i.krylov_iters) for i in i_on]
+                == [(i.iters, i.krylov_iters) for i in i_off],
+                f"10a: Newton/Krylov iterations {i_on} against the kernels-off route {i_off}")
+        errs = [float((a - b).abs().max()) for a, b in zip(s_on, s_off)]
+        newton_its = sum(i.iters for i in i_on)
+        prof = split_profile(lambda: ac.step(s_on[0]))
+        say(f"phase 10a Allen-Cahn {n}^2 f32 implicit, dt {AC_DT}, dt*k {AC_DT * AC_K}, "
+            f"Newton tol {AC_TOL} atol {AC_ATOL}: {AC_STEPS} steps, Newton iterations "
+            f"{[i.iters for i in i_on]}, Krylov {[i.krylov_iters for i in i_on]} (= kernels-off "
+            f"route), final |F| {[f'{i.resnorm:.3e}' for i in i_on]} under target; states "
+            f"{'bitwise equal' if max(errs) == 0 else f'max_abs_err {max(errs)!r}'} to the "
+            f"kernels-off route; {ms_on / AC_STEPS:.1f} ms per step, {ms_on / newton_its:.1f} ms "
+            f"per Newton iteration (kernels-off {ms_off / AC_STEPS:.1f} ms per step); kernel A "
+            f"{a_on} launches: {rule_on} primals of J v through the derivative rule (one per "
+            f"tangent, {rule_on / AC_STEPS:.1f} per step, unused by GMRES) and {residuals} "
+            f"residual evaluations ({residuals / AC_STEPS:.1f} per step)")
+        say(f"phase 10a split of one step (torch.profiler): host {prof[0]:.1f} ms, device "
+            f"kernel A {prof[1]:.3f} ms ({prof[2]} of {prof[3]} launches recorded), other "
+            f"kernels (eager tangent, GMRES, norms) {prof[4]:.3f} ms in {prof[5]} launches")
+        # the same step with jacobian= in the full form (v, u, u_prev)
+        ac.step_jac(u0)  # traces it into the module
+        cm = ntt.get_context().compiled()
+        off_jac = CompiledModule(cm.module, "torch", dev).function("AC_step_jac")
+        infos.clear()
+        before = cuda_backend.counter.count
+        x_jac, ms_jac = timed(lambda: ac.step_jac(u0))
+        jac_launches = cuda_backend.counter.count - before
+        x_off = off_jac(u0)
+        (i_jac, i_jac_off) = infos
+        require(i_jac.converged and (i_jac.iters, i_jac.krylov_iters)
+                == (i_jac_off.iters, i_jac_off.krylov_iters),
+                f"10a jacobian=: {i_jac} against the kernels-off route {i_jac_off}")
+        require(jac_launches > i_jac.krylov_iters, f"10a jacobian=: kernel A {jac_launches}")
+        say(f"phase 10a solve_nonlinear with jacobian= (full form): Newton {i_jac.iters}, "
+            f"Krylov {i_jac.krylov_iters} (= kernels-off route), |F| {i_jac.resnorm:.3e}; "
+            f"kernel A {jac_launches} launches (J v on the card); {ms_jac:.1f} ms; max |x - "
+            f"x(jvp)| {float((x_jac - s_on[0]).abs().max())!r}, max |x - kernels-off| "
+            f"{float((x_jac - x_off).abs().max())!r}")
+    finally:
+        executor.newton_krylov = newton
+
+    # ---- 10b: derivatives on the card
+    res = cm.opdef("ac_res")
+    view = cm.opdef("ac_res", differentiable=True)
+    u, up = s_on[-1], s_on[-2]
+    v = rand(rng, (n, n), dev)
+    (_, tan), (_, tan_ref) = (torch.func.jvp(lambda x: f(x, up), (u,), (v,)) for f in (res, view))
+    cots = []
+    for f in (res, view):
+        leaves = (u.clone().requires_grad_(True), up.clone().requires_grad_(True))
+        cots.append(torch.autograd.grad(f(*leaves), leaves, v))
+    jv_rule, jv_view = (lambda f=f: torch.func.jvp(lambda x: f(x, up), (u,), (v,))
+                        for f in (res, view))
+    jv_ms = abba(jv_rule, jv_view, 10)
+    jv_prof = split_profile(lambda: [jv_rule() for _ in range(JV_REPS)])
+    require(jv_prof[3] == JV_REPS, f"10b: {JV_REPS} J v through the rule launched kernel A "
+            f"{jv_prof[3]} times")
+    e_tan = float((tan - tan_ref).abs().max())
+    e_cot = max(float((a - b).abs().max()) for a, b in zip(*cots))
+    scale = float(tan_ref.abs().max())
+    require(e_tan <= 1e-6 * scale and e_cot <= 1e-6 * scale,
+            f"10b: rule against eager view: tangent {e_tan!r}, cotangent {e_cot!r}")
+    allen_cahn(ntt, AC_GRAD_N)
+    cm1 = ntt.get_context().compiled()
+    up0 = (0.9 * torch.tanh(4 * rand(rng, (AC_GRAD_N, AC_GRAD_N), dev)))
+    grads = []
+    for f in (cm1.opdef("ac_res"), CompiledModule(cm1.module, "torch", dev).opdef("ac_res")):
+        before = cuda_backend.counter.count
+        upr = up0.clone().requires_grad_(True)
+        x = differentiable_root(lambda w, f=f, upr=upr: f(w, upr), up0, tol=AC_TOL,
+                                krylov_tol=AC_TOL)
+        (g,) = torch.autograd.grad((x * x).sum(), upr)
+        grads.append((g, cuda_backend.counter.count - before))
+    (g_on, n_on), (g_off, n_off) = grads
+    g_rel = float((g_on - g_off).abs().max() / g_off.abs().max())
+    require(n_on > 0 and n_off == 0 and g_rel <= 1e-5,
+            f"10b: differentiable_root gradient rel err {g_rel!r} (launches {n_on}, {n_off})")
+    say(f"phase 10b derivative rule at {n}^2: tangent max_abs_err {e_tan!r}, cotangent "
+        f"{e_cot!r} against the eager view (|tangent| max {scale:.3e}); "
+        f"one J v through the rule {jv_ms[0]:.3f} ms, through the eager view alone "
+        f"{jv_ms[1]:.3f} ms (CUDA events, 10 calls each, in turns); device time of "
+        f"{JV_REPS} J v (torch.profiler): kernel A {jv_prof[1]:.3f} ms ({jv_prof[2]} of "
+        f"{jv_prof[3]} launches recorded), the eager tangent {jv_prof[4]:.3f} ms in "
+        f"{jv_prof[5]} launches; "
+        f"differentiable_root d(sum u_next^2)/d u_prev at {AC_GRAD_N}^2 f32: relative "
+        f"err {g_rel!r} against the kernels-off route (tolerance 1e-5), kernel A {n_on} launches")
+
+    # ---- 10c: cg_poisson_512_mixed_1e10
+    poisson(ntt, MIXED_N, "float64", "poisson64")
+    cm = ntt.get_context().compiled()
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal((MIXED_N, MIXED_N))).to(dev)
+    rows = []
+    for c in (cm, CompiledModule(cm.module, "torch", dev)):
+        H = ntt.assemble_matrix("poisson64")
+        hi, lo = c.opdef("poisson64"), c.low_precision_opdef("poisson64")
+        inv32 = precond.safe_inv_diag(precond.extract_diagonal(
+            hi, torch.zeros_like(b), H.halo)).float()
+
+        def solve(hi=hi, lo=lo, inv32=inv32):
+            return refined_solve(hi, lo, b, solver="cg", tol=MIXED_TOL,
+                                 inner_tol=MIXED_INNER_TOL, inner_iters=MIXED_INNER_ITERS,
+                                 M_lo=lambda r: r * inv32)
+
+        solve()  # warm-up
+        before = cuda_backend.counter.count
+        (x, info), ms = timed(solve)
+        rel = float(torch.linalg.vector_norm(b - hi(x)) / torch.linalg.vector_norm(b))
+        rows.append((info, ms, rel, cuda_backend.counter.count - before))
+    (i_on, ms_on, rel_on, a_on), (i_off, ms_off, rel_off, a_off) = rows
+    require(i_on.converged and rel_on <= MIXED_TOL, f"10c: true relative residual {rel_on!r}")
+    require(i_on.rounds == i_off.rounds and abs(i_on.inner_iters - i_off.inner_iters) <= 1,
+            f"10c: {i_on} against the kernels-off route {i_off}")
+    require(a_on >= i_on.inner_iters and a_off == 0, f"10c: kernel A launches {a_on}, {a_off}")
+    say(f"phase 10c cg_poisson_512_mixed_1e10 (f64 {MIXED_N}^2 Poisson, f32 Jacobi-CG inner "
+        f"rounds at {MIXED_INNER_TOL}): {i_on.rounds} rounds, {i_on.inner_iters} inner "
+        f"iterations (kernels-off {i_off.rounds}, {i_off.inner_iters}), true relative residual "
+        f"{rel_on!r}; {ms_on:.1f} ms per solve (kernels-off {ms_off:.1f} ms); kernel A "
+        f"{a_on} launches by the f32 twin")
+
+    # ---- 10d: cg_512_ssor_vs_jacobi
+    poisson(ntt, SSOR_N, "float32", "poisson")
+    H = ntt.assemble_matrix("poisson")
+    bb = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (SSOR_N, SSOR_N)).astype(np.float32)).to(dev)
+    like = torch.zeros_like(bb)
+    stats = {}
+    for name in ("jacobi", "ssor"):
+        M = precond.make_preconditioner(name, H.matvec, like, H.halo)
+
+        def solve(M=M):
+            return krylov.cg(H.matvec, bb, tol=SSOR_TOL, maxiter=SSOR_MAXIT, M=M)
+
+        solve()
+        before = cuda_backend.counter.count
+        (x, info), ms = timed(solve)
+        stats[name] = (info, ms, cuda_backend.counter.count - before)
+        require(info.converged and stats[name][2] > 0, f"10d {name}: {info}, {stats[name][2]}")
+    require(stats["ssor"][0].iters < stats["jacobi"][0].iters, f"10d: {stats}")
+    say("phase 10d cg_512_ssor_vs_jacobi (512^2 Poisson f32 CG, tol 1e-4): " + "; ".join(
+        f"{name} {info.iters} iterations, {ms:.1f} ms per solve, {info.iters / ms * 1e3:.0f} "
+        f"iterations/s, kernel A {a} launches" for name, (info, ms, a) in stats.items())
+        + f"; SSOR/Jacobi iterations {stats['ssor'][0].iters / stats['jacobi'][0].iters:.3f}; "
+        f"phase wall {time.perf_counter() - t10:.1f} s")
+    ntt.reset_context()
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
@@ -941,6 +1273,7 @@ def main() -> int:
     config.fold_affine = fold_default
     sources.append(cuda_backend.source(stencils.the_apply(step3d_cm.module)))
     sources.append(cuda_backend.source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
+    sources += phase10_sources(ntt)
     cg_sources = [codegen.fused_cg_source(fused.cg_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -1353,6 +1686,9 @@ def main() -> int:
         f"(one process {g0['whole_iters']}), true relative residual {g0['true_rel_residual']!r}; "
         f"{g0['ms']:.1f} ms (one process {g0['whole_ms']:.1f} ms; single solves); phase wall "
         f"{time.perf_counter() - t9:.1f} s")
+
+    # ---- phase 10: the solver surface at full size ------------------------
+    phase10(ntt, dev, rng)
 
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}

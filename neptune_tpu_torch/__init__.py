@@ -7,16 +7,19 @@ PyTorch on any device, with hand-written Hopper kernels for the hot paths:
   neptune_tpu_torch.passes    — high-level conversion + staged pipeline
   neptune_tpu_torch.lowering  — executor; eager torch backend; the CUDA apply,
                                 K-sweep and fused-chain kernels
-  neptune_tpu_torch.solvers   — CG/BiCGStab/GMRES, Jacobi, the fused-CG kernel
+  neptune_tpu_torch.solvers   — CG/BiCGStab/GMRES and the direct solve, Jacobi
+                                and SSOR, the fused-CG kernel, Newton–Krylov
+                                and Picard, implicit derivatives
+                                (`differentiable_solve`/`_root`), mixed-
+                                precision refinement, `simulate`
   neptune_tpu_torch.kernels   — nvcc build of the generated kernel sources
   neptune_tpu_torch.frontend  — user DSL: Expr tracing, decorators, jit_class
   neptune_tpu_torch.entry     — the flagship implicit heat step
   neptune_tpu_torch.parallel  — sharded execution over a mesh of processes
 
 `import neptune_tpu_torch as ntt` reads like `import neptune_tpu as ntp`,
-less the names whose modules are not ported yet: `simulate`,
-`differentiable_solve`, `differentiable_root` and `enable_x64` (PyTorch
-needs no switch for f64).
+`simulate`, `differentiable_solve` and `differentiable_root` included, less
+`enable_x64` (PyTorch needs no switch for f64).
 
 Importing the package imports neither JAX nor the JAX package.
 """
@@ -53,6 +56,8 @@ from .frontend import (
 )
 from .frontend import abs, cos, erf, exp, log, maximum, minimum, sin, sqrt, tanh
 from .ir.types import Bounds, Location, StencilShape, TempType, TimeMethod
+from .solvers.diff import differentiable_root, differentiable_solve
+from .solvers.time import simulate
 
 __version__ = "0.1.0"
 
@@ -100,4 +105,7 @@ __all__ = [
     "StencilShape",
     "TempType",
     "TimeMethod",
+    "simulate",
+    "differentiable_root",
+    "differentiable_solve",
 ]

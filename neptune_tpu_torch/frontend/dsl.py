@@ -8,10 +8,11 @@ or anything `np.asarray` takes, which goes to `config.device` (the card by
 default; `NEPTUNE_TORCH_DEVICE=cpu` or `config.device = "cpu"` asks for the
 CPU, and asking for CUDA where there is none raises).
 
-Not ported yet, raising `NotImplementedError` that names ROADMAP.md's item:
-`solve_nonlinear` and `time_advance(method="implicit_nonlinear")` (Newton,
-queue 1, item 7), `solve_linear(precision="mixed")`, `precond="mg"` and
-`solver="direct"`.
+`solve_nonlinear` and `time_advance(method="implicit_nonlinear")` run
+Newton–Krylov or Picard (`solvers.newton`); `solve_linear` takes
+`precision="mixed"` (`solvers.refine`), `solver="direct"` and
+`precond="ssor"`/`"ssor_dense"`. Not ported yet, raising
+`NotImplementedError` that names ROADMAP.md's item: `precond="mg"`.
 """
 
 from __future__ import annotations
@@ -24,11 +25,22 @@ import torch
 
 from ..config import config, default_device
 from ..ir.types import Bounds, Location, TempType, TimeMethod
-from ..lowering.executor import _roadmap, single_apply_interior
+from ..lowering.executor import _roadmap, report_solve, single_apply_interior
 from ..lowering.torch_backend import DTYPES
 from ..solvers import krylov
 from ..solvers.assemble import MatrixHandle
+from ..solvers.newton import newton_krylov, picard
 from ..solvers.precond import make_preconditioner
+from ..utils.options import (
+    LINEAR_OPTION_KEYS,
+    NONLINEAR_OPTION_KEYS,
+    linear_option_kwargs,
+    merged_linear_options,
+    merged_nonlinear_options,
+    nonlinear_option_kwargs,
+    parse_options,
+    split_precond_options,
+)
 from . import expr as E
 from .core import get_context
 from .trace import emit_apply_inline, fresh_kernel_name, trace_kernel_into_opdef
@@ -133,7 +145,8 @@ def _as_tensor(x) -> torch.Tensor:
     """A tensor stays where it is; anything else goes to `config.device`."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(default_device())
+    # np.require, not np.ascontiguousarray, which makes a 0-d array 1-d
+    return torch.from_numpy(np.require(np.asarray(x), requirements="C")).to(default_device())
 
 
 def _element(dtype: torch.dtype) -> str:
@@ -446,52 +459,56 @@ def solve_linear(
     if not isinstance(matrix, MatrixHandle):
         raise TypeError("solve_linear: matrix must be a MatrixHandle (eager mode)")
     b_arr = _as_tensor(_concrete_array(rhs)).to(matrix.dtype)
-    from ..utils.options import (
-        LINEAR_OPTION_KEYS,
-        linear_option_kwargs,
-        merged_linear_options,
-        parse_options,
-        split_precond_options,
-    )
-
     opts = merged_linear_options(
         parse_options(options, LINEAR_OPTION_KEYS, where="solve_linear"), solver
     )
     pc_opts = split_precond_options(opts, precond)
-    if precision == "mixed" and options:
-        raise ValueError(
-            "precision='mixed' does not support per-solve options; "
-            "drop options= or use precision='full'"
-        )
     if precision == "mixed":
-        raise _roadmap("solve_linear(precision='mixed')", "queue 1, item 7")
-    if precond == "mg" or pc_opts:
-        raise _roadmap(f"precond={precond!r} with options {sorted(pc_opts)}", "queue 1, items 4 and 7")
+        return get_context().compiled().solve_mixed(
+            matrix, b_arr, solver=solver, tol=tol, max_iters=max_iters, precond=precond,
+            options=options, verbose=verbose,
+        )
+    if precond == "mg":
+        raise _roadmap("precond='mg'", "queue 1, item 7")
     M = None
     if precond not in (None, "none"):
         like = torch.zeros(matrix.grid_shape, dtype=matrix.dtype, device=b_arr.device)
-        M = make_preconditioner(precond, matrix.matvec, like, matrix.halo)
+        dense = matrix.dense(b_arr.device) if precond == "ssor_dense" else None
+        M = make_preconditioner(
+            precond, matrix.matvec, like, matrix.halo, dense_matrix=dense, **pc_opts
+        )
     if solver == "direct":
         if opts:
             raise ValueError(f"solver='direct' takes no runtime options (got {sorted(opts)})")
-        raise _roadmap("solver='direct'", "queue 1, item 4")
-    # Dirichlet lift, CG only (see MatrixHandle.ring_lift): keeps
-    # preconditioned CG in the symmetric interior subspace when b carries
-    # boundary data
-    lift = matrix.ring_lift(b_arr) if solver == "cg" else None
-    b_eff = b_arr if lift is None else b_arr - matrix.matvec(lift)
-    x, info = krylov.solve(
-        matrix.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters,
-        M=M, **linear_option_kwargs(solver, opts),
-    )
-    if lift is not None:
-        x = x + lift
-    if verbose:
-        print(
-            f"[neptune] KSP({solver}) {matrix.symbol}: iters={info.iters} "
-            f"resnorm={info.resnorm:.3e} converged={info.converged}"
+        x, info = krylov.direct(matrix.dense(b_arr.device), b_arr)
+    else:
+        # Dirichlet lift, CG only (see MatrixHandle.ring_lift): keeps
+        # preconditioned CG in the symmetric interior subspace when b
+        # carries boundary data
+        lift = matrix.ring_lift(b_arr) if solver == "cg" else None
+        b_eff = b_arr if lift is None else b_arr - matrix.matvec(lift)
+        x, info = krylov.solve(
+            matrix.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters,
+            M=M, **linear_option_kwargs(solver, opts),
         )
+        if lift is not None:
+            x = x + lift
+    if verbose:
+        report_solve(f"KSP({solver})", matrix.symbol, info)
     return x
+
+
+# ---------------------------------------------------------------------------
+# nonlinear solve
+# ---------------------------------------------------------------------------
+
+
+def _newton_kwargs(method: str, options, where: str) -> dict:
+    kind = "picard" if method == "picard" else "newton"
+    return nonlinear_option_kwargs(
+        kind,
+        merged_nonlinear_options(parse_options(options, NONLINEAR_OPTION_KEYS, where=where), kind),
+    )
 
 
 def solve_nonlinear(
@@ -505,9 +522,99 @@ def solve_nonlinear(
     verbose: bool = False,
     options=None,
 ):
-    """Solve F(U) = 0 for a (possibly multi-field) state: Newton-Krylov or
-    Picard, not ported yet."""
-    raise _roadmap("solve_nonlinear (Newton-Krylov, Picard)", "queue 1, item 7")
+    """Solve F(U) = 0 for a (possibly multi-field) state.
+
+    `residual` is a scalar stencil kernel over the state temps; closures over
+    other temps (e.g. the previous time level) are lifted to captures
+    automatically.
+
+        h_next, q_next = ntt.solve_nonlinear(
+            swe_residual, initial_guess=(h, q), method="newton-krylov")
+    """
+    single = not isinstance(initial_guess, (tuple, list))
+    states = [initial_guess] if single else list(initial_guess)
+    states = [x if isinstance(x, Expr) else temp(x) for x in states]
+    for x in states:
+        if not isinstance(x.node, E.TempLeaf):
+            raise TypeError("solve_nonlinear initial_guess must be temps/arrays")
+
+    ctx = get_context()
+    sym = fresh_kernel_name("_residual")
+    fn, captures, scalar_caps = trace_kernel_into_opdef(
+        ctx.builder,
+        sym,
+        "nonlinear_opdef",
+        residual,
+        [x.node.ttype for x in states],
+        states[0].node.ttype.bounds,
+    )
+    if len(fn.ftype.results) != len(states):
+        del ctx.module.functions[sym]
+        raise TypeError(
+            f"residual returns {len(fn.ftype.results)} fields for {len(states)} states"
+        )
+    sym = _dedupe_opdef(ctx, fn)
+
+    nkw = dict(tol=tol, max_iters=max_iters, krylov_tol=krylov_tol, krylov_iters=krylov_iters)
+    if method not in ("newton", "newton-krylov", "picard"):
+        raise ValueError(f"unknown nonlinear method {method!r}")
+
+    if ctx.tracing and all(s.node.ir_value is not None for s in states):
+        b = ctx.builder
+        cap_vals = []
+        for c in captures:
+            if c.ir_value is None:
+                raise TypeError(
+                    f"residual captured non-traced temp '{c.name or c.uid}' "
+                    "inside a traced function"
+                )
+            cap_vals.append(c.ir_value)
+        for sc in scalar_caps:
+            if sc.ir_value is None:
+                raise TypeError(
+                    "residual captured a non-traced scalar inside a traced function"
+                )
+            cap_vals.append(sc.ir_value)
+        out = b.solve_nonlinear(
+            sym,
+            [s.node.ir_value for s in states],
+            captures=cap_vals,
+            method="newton" if method.startswith("newton") else method,
+            verbose=verbose,
+            options=options,
+            **nkw,
+        )
+        outs = out if isinstance(out, tuple) else (out,)
+        exprs = tuple(Expr(E.TempLeaf(o.type, ir_value=o)) for o in outs)
+        return exprs[0] if single else exprs
+
+    # eager
+    res_fn = ctx.compiled().opdef(sym)
+    state_arrays = tuple(_as_tensor(_concrete_array(s)) for s in states)
+    cap_arrays = []
+    for c in captures:
+        if c.concrete is None:
+            raise TypeError(
+                f"residual captured non-concrete temp '{c.name or c.uid}' in eager mode"
+            )
+        cap_arrays.append(c.concrete)
+    for sc in scalar_caps:
+        if sc.concrete is None:
+            raise TypeError("residual captured a non-concrete scalar")
+        cap_arrays.append(sc.concrete)
+
+    def F(ss):
+        out = res_fn(*ss, *cap_arrays)
+        return out if isinstance(out, tuple) else (out,)
+
+    okw = _newton_kwargs(method, options, "solve_nonlinear")
+    if method == "picard":
+        x, info = picard(F, state_arrays, tol=tol, max_iters=max_iters, **okw)
+    else:
+        x, info = newton_krylov(F, state_arrays, **nkw, **okw)
+    if verbose:
+        report_solve(f"SNES({method})", sym, info)
+    return x[0] if single else tuple(x)
 
 
 # ---------------------------------------------------------------------------
@@ -570,8 +677,6 @@ def time_advance(
             "runtime": TimeMethod.RUNTIME,
         }[method]
     method = TimeMethod(int(method))
-    if method == TimeMethod.IMPLICIT_NONLINEAR:
-        raise _roadmap("time_advance(method=implicit_nonlinear)", "queue 1, item 7")
     ctx = get_context()
 
     if ctx.tracing and isinstance(state, Expr) and state.node.ir_value is not None:
@@ -618,4 +723,13 @@ def time_advance(
             assemble_matrix(system), u, solver=solver, tol=tol,
             max_iters=max_iters, precond=precond, options=options,
         )
+    if method == TimeMethod.IMPLICIT_NONLINEAR:
+        res = ctx.compiled().opdef(_sym_name(residual))
+
+        def F(ss):
+            return (res(ss[0], u),)
+
+        okw = _newton_kwargs("newton", options, "time_advance")
+        x, _ = newton_krylov(F, (u,), tol=tol, max_iters=max_iters, **okw)
+        return x[0]
     raise ValueError("eager time_advance does not support method=runtime")

@@ -33,6 +33,6 @@ def arrays_from_numpy(arrays: Sequence, device=None, dtype=None) -> list[torch.T
         dtype = DTYPES[dtype]
     device = default_device(device)
     return [
-        torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device=device, dtype=dtype)
+        torch.from_numpy(np.require(np.asarray(a), requirements="C")).to(device=device, dtype=dtype)
         for a in arrays
     ]

@@ -18,6 +18,14 @@ before any launch and whatever the device, so both packages take the same
 routes; only the kernel wrappers look at the device, and each runs its plain
 version for CPU tensors and launches its kernel, or raises, for CUDA ones.
 
+Differentiation: the kernels are ctypes launches that autograd cannot see,
+so on the kernel backends every opdef call that may be differentiated goes
+through a `torch.autograd.Function` (`_OpdefRule`) whose forward runs the
+kernel route and whose tangent and cotangent come from `torch.func.jvp` / `torch.func.vjp` of the same opdef on
+an eager view of the module (`_torch_view`), the twin of the JAX package's
+`custom_jvp` over its jnp lowering. Newton's J·v, `differentiable_solve`
+and `differentiable_root` differentiate opdefs through it.
+
 `device=None` keeps tensors where the caller put them and puts NumPy
 inputs, and applies that have no tensor input, on `config.device` (the
 card by default; asking for CUDA where there is none raises); a device
@@ -31,21 +39,30 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch._C._functorch as _functorch
+from torch.autograd import forward_ad
 
 from ..config import config, default_device
 from ..ir.core import Function, Module, Operation
 from ..ir.types import Bounds, FieldType, ScalarType, TempType, TensorType, TimeMethod
+from ..kernels.build import LaunchCounter
 from ..solvers import fused, krylov
 from ..solvers.assemble import MatrixHandle
+from ..solvers.newton import newton_krylov, picard
 from ..solvers.precond import make_preconditioner, safe_inv_diag
 from ..utils.options import (
     linear_option_kwargs,
     merged_linear_options,
+    merged_nonlinear_options,
+    nonlinear_option_kwargs,
     split_precond_options,
 )
 from . import chain, cuda_backend, sweeps, torch_backend
 
 _BACKENDS = ("auto", "torch", "cuda")
+
+# tangents and cotangents taken through `_OpdefRule`
+rule_counter = LaunchCounter("opdef_rule")
 
 
 def _roadmap(what: str, where: str):
@@ -56,6 +73,104 @@ def _roadmap(what: str, where: str):
 
 def _verbose(op: Operation) -> bool:
     return bool(op.attrs.get("verbose"))
+
+
+def report_solve(kind: str, name: str, info) -> None:
+    """One KSP/SNES-style convergence line, as the JAX package prints it."""
+    print(
+        f"[neptune] {kind} {name}: iters={info.iters} resnorm={info.resnorm:.3e} "
+        f"converged={info.converged}"
+    )
+
+
+class _OpdefRule(torch.autograd.Function):
+    """The derivative rule of a kernel-routed opdef: `apply(rule, *args)`.
+
+    The forward runs the kernel route (`rule.route`), which autograd cannot
+    see through. The tangent (`jvp`, taken by `torch.func.jvp` and forward
+    AD) and the cotangent (`backward`, taken by `torch.autograd.grad` and
+    `torch.func.vjp`) are those of the same opdef on the module's eager view
+    (`rule.view()`), with respect to the tensor arguments; scalars and other
+    non-tensor arguments pass through with no tangent. Under
+    `torch.func.vmap` (dense assembly) the kernel route runs once per
+    slice of the batch."""
+
+    @staticmethod
+    def forward(rule, *args):
+        return rule.route(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        rule, *args = inputs
+        ctx.rule = rule
+        ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
+        ctx.others = [None if t else a for a, t in zip(args, ctx.is_tensor)]
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        ctx.save_for_backward(*tensors)
+        ctx.save_for_forward(*tensors)
+
+    @staticmethod
+    def _args(ctx) -> list:
+        saved = iter(ctx.saved_tensors)
+        return [next(saved) if t else o for t, o in zip(ctx.is_tensor, ctx.others)]
+
+    @staticmethod
+    def _partial(view, args, slots):
+        """view as a function of the arguments at `slots` alone."""
+
+        def f(*xs):
+            full = list(args)
+            for i, x in zip(slots, xs):
+                full[i] = x
+            return view(*full)
+
+        return f
+
+    @staticmethod
+    def jvp(ctx, _rule_tangent, *tangents):
+        rule_counter.count += 1
+        args = _OpdefRule._args(ctx)
+        slots = [i for i, t in enumerate(tangents) if t is not None and ctx.is_tensor[i]]
+        f = _OpdefRule._partial(ctx.rule.view(), args, slots)
+        _, out_t = torch.func.jvp(
+            f, tuple(args[i] for i in slots), tuple(tangents[i] for i in slots)
+        )
+        return out_t
+
+    @staticmethod
+    def vmap(info, in_dims, rule, *args):
+        # the kernels take one field at a time: one launch per slice
+        outs = [
+            rule.route(*(a if d is None else a.select(d, i) for a, d in zip(args, in_dims[1:])))
+            for i in range(info.batch_size)
+        ]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.stack(outs), 0
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rule_counter.count += 1
+        args = _OpdefRule._args(ctx)
+        slots = [i for i, t in enumerate(ctx.is_tensor) if t and ctx.needs_input_grad[i + 1]]
+        f = _OpdefRule._partial(ctx.rule.view(), args, slots)
+        _, pull = torch.func.vjp(f, *(args[i] for i in slots))
+        cots = pull(grads[0] if len(grads) == 1 else tuple(grads))
+        out = [None] * (1 + len(args))
+        for i, c in zip(slots, cots):
+            out[i + 1] = c
+        return tuple(out)
+
+
+class _Rule:
+    """What `_OpdefRule` needs of one opdef: its kernel route, and its eager
+    view looked up at each use (the view's callables are cached)."""
+
+    def __init__(self, cm: "CompiledModule", name: str, route: Callable):
+        self.cm, self.name, self.route = cm, name, route
+
+    def view(self) -> Callable:
+        return self.cm._torch_view().opdef(self.name)
 
 
 class CompiledModule:
@@ -72,17 +187,27 @@ class CompiledModule:
         self._fn_cache: dict[str, Callable] = {}
         # (id(solve_linear op), matrix symbol) -> fused solve site or None
         self._fused_sites: dict = {}
+        self._lo_cm: Optional["CompiledModule"] = None
+        self._torch_cm: Optional["CompiledModule"] = None
 
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
 
     def opdef(self, name: str, differentiable: bool = False) -> Callable:
-        """Callable for a linear/nonlinear opdef: (*tensors) -> tensor(s)."""
+        """Callable for a linear/nonlinear opdef: (*tensors) -> tensor(s).
+
+        On the kernel backends ("auto", "cuda") the callable carries
+        `_OpdefRule`, whatever the device and whether or not its applies
+        reach a kernel, as the JAX package attaches its `custom_jvp` to
+        every opdef while its kernels are live: `torch.func.jvp`,
+        `torch.func.vjp` and `torch.autograd.grad` through a plain `opdef()`
+        call (the JFNK residual of `solvers/newton.py`) take the tangent
+        from the eager view. A call that nothing can differentiate runs
+        the kernel route directly. `differentiable=True` returns the eager
+        view's callable outright (no kernel primal at all)."""
         if differentiable:
-            raise _roadmap(
-                "opdef(differentiable=True), the custom-JVP wrapper", "queue 1, item 7"
-            )
+            return self._torch_view().opdef(name)
         if name not in self._opdef_cache:
             fn = self.module.lookup(name)
             if not fn.is_opdef:
@@ -96,10 +221,47 @@ class CompiledModule:
                     cb = self.chain_callable(name)
                 if cb is None:
                     cb = self._make_callable(fn)
+                if self.backend in ("auto", "cuda"):
+                    cb = self._with_rule(name, cb)
                 self._opdef_cache[name] = cb
                 if skey is not None:
                     self._structure_cache[skey] = cb
         return self._opdef_cache[name]
+
+    def _torch_view(self) -> "CompiledModule":
+        """A backend="torch" view of this module on the same device, with
+        its own caches: the eager lowering that differentiates opdefs."""
+        if self.backend == "torch":
+            return self
+        if self._torch_cm is None:
+            self._torch_cm = CompiledModule(self.module, "torch", self.device)
+        return self._torch_cm
+
+    @staticmethod
+    def _differentiating(args) -> bool:
+        """Whether values computed from `args` may be differentiated: a
+        `torch.func` transform (vmap included) or a forward-AD level is
+        active, or grad mode is on and an argument requires grad. Reads
+        torch internals; test_rule_is_what_differentiates and the GPU
+        test_rule_on_the_card fail if a torch release changes them."""
+        if _functorch.maybe_current_level() is not None or forward_ad._current_level >= 0:
+            return True
+        return torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args
+        )
+
+    def _with_rule(self, name: str, cb: Callable) -> Callable:
+        rule = _Rule(self, name, cb)
+
+        def run(*args):
+            if self._differentiating(args):
+                return _OpdefRule.apply(rule, *args)
+            # nothing to differentiate: the kernel route alone, without the
+            # Function's host time (tens of microseconds per call)
+            return cb(*args)
+
+        run.__name__ = getattr(cb, "__name__", f"neptune_{name}")
+        return run
 
     def function(self, name: str) -> Callable:
         """Callable for a plain function."""
@@ -176,7 +338,16 @@ class CompiledModule:
         return run
 
     def low_precision_opdef(self, name: str) -> Callable:
-        raise _roadmap("low_precision_opdef (passes/retype)", "queue 1, item 2")
+        """float32 twin of an opdef (for mixed-precision refinement): a
+        module of its own on the same backend and device, so its applies
+        take kernel A where the f64 original runs eager."""
+        if self._lo_cm is None:
+            from ..passes.retype import retype_module
+
+            self._lo_cm = CompiledModule(
+                retype_module(self.module, "float32"), self.backend, self.device
+            )
+        return self._lo_cm.opdef(name)
 
     # ------------------------------------------------------------------
     # evaluation
@@ -365,7 +536,10 @@ class CompiledModule:
         opts = merged_linear_options(op.attrs.get("options"), solver)
         pc_opts = split_precond_options(opts, precond)
         if op.attrs.get("precision", "full") == "mixed":
-            raise _roadmap("solve_linear(precision='mixed')", "queue 1, item 7")
+            return self.solve_mixed(
+                handle, b, solver=solver, tol=tol, max_iters=max_iters, precond=precond,
+                options=op.attrs.get("options"), verbose=_verbose(op),
+            )
         key = (id(op), handle.symbol)
         if key not in self._fused_sites:
             self._fused_sites[key] = self._fused_site(
@@ -381,31 +555,71 @@ class CompiledModule:
                 )
             return x
 
-        if precond == "mg" or pc_opts:
-            raise _roadmap(
-                f"precond={precond!r} with options {sorted(pc_opts)}", "queue 1, items 4 and 7"
-            )
+        if precond == "mg":
+            raise _roadmap("precond='mg'", "queue 1, item 7")
         M = None
         if precond not in (None, "none"):
             like = torch.zeros(handle.grid_shape, dtype=handle.dtype, device=b.device)
-            M = make_preconditioner(precond, handle.matvec, like, handle.halo)
+            dense = handle.dense(b.device) if precond == "ssor_dense" else None
+            M = make_preconditioner(
+                precond, handle.matvec, like, handle.halo, dense_matrix=dense, **pc_opts
+            )
         if solver == "direct":
-            raise _roadmap("solver='direct'", "queue 1, item 4")
-        kw = linear_option_kwargs(solver, opts)
-        # Dirichlet lift (CG only): nonzero copy-through ring data in b breaks
-        # CG's M-symmetry under non-uniform preconditioners; see
-        # MatrixHandle.ring_lift. GMRES/BiCGStab handle the ring natively.
-        lift = handle.ring_lift(b) if solver == "cg" else None
-        b_eff = b if lift is None else b - handle.matvec(lift)
-        x, info = krylov.solve(
-            handle.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters, M=M, **kw
-        )
-        if lift is not None:
-            x = x + lift
+            if opts:
+                raise ValueError(f"solver='direct' takes no runtime options (got {sorted(opts)})")
+            x, info = krylov.direct(handle.dense(b.device), b)
+        else:
+            kw = linear_option_kwargs(solver, opts)
+            # Dirichlet lift (CG only): nonzero copy-through ring data in b
+            # breaks CG's M-symmetry under non-uniform preconditioners; see
+            # MatrixHandle.ring_lift. GMRES/BiCGStab handle the ring natively.
+            lift = handle.ring_lift(b) if solver == "cg" else None
+            b_eff = b if lift is None else b - handle.matvec(lift)
+            x, info = krylov.solve(
+                handle.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters, M=M, **kw
+            )
+            if lift is not None:
+                x = x + lift
         if _verbose(op):
+            report_solve(f"KSP({solver})", handle.symbol, info)
+        return x
+
+    def solve_mixed(self, handle: MatrixHandle, b, *, solver: str, tol: float,
+                    max_iters: int, precond: str, options=None, verbose: bool = False):
+        """precision="mixed": f32 inner Krylov solves on the operator's f32
+        twin, f64 residuals (`solvers.refine`), with the JAX executor's
+        refusals. The executor's and the eager DSL's solve_linear both come
+        here."""
+        if options:
+            raise ValueError(
+                "precision='mixed' does not support per-solve options; "
+                "drop options= or use precision='full'"
+            )
+        if precond in ("ssor_dense", "mg"):
+            raise ValueError(
+                f"precision='mixed' does not support precond={precond!r}; "
+                "use 'jacobi', 'ssor' (matrix-free) or 'none'"
+            )
+        if solver == "direct":
+            raise ValueError(
+                "precision='mixed' does not support solver='direct' "
+                "(dense LU has no refinement loop); use a Krylov solver"
+            )
+        from ..solvers.refine import refined_solve
+
+        lo = self.low_precision_opdef(handle.symbol)
+        M_lo = None
+        if precond not in (None, "none"):
+            like32 = torch.zeros(handle.grid_shape, dtype=torch.float32, device=b.device)
+            M_lo = make_preconditioner(precond, lo, like32, handle.halo)
+        x, info = refined_solve(
+            handle.matvec, lo, b, solver=solver, tol=tol, inner_iters=max_iters, M_lo=M_lo
+        )
+        if verbose:
             print(
-                f"[neptune] KSP({solver}) {handle.symbol}: iters={info.iters} "
-                f"resnorm={info.resnorm:.3e} converged={info.converged}"
+                f"[neptune] KSP({solver}/mixed) {handle.symbol}: rounds={info.rounds} "
+                f"inner={info.inner_iters} resnorm={info.resnorm:.3e} "
+                f"converged={info.converged}"
             )
         return x
 
@@ -431,8 +645,60 @@ class CompiledModule:
             self.module, handle.symbol, tol=tol, maxiter=max_iters, inv_diag=inv_diag
         )
 
+    def _jac_mv(self, jac_sym: Optional[str], n_state: int, captures: tuple):
+        """The user's linearization `jacobian=` as newton_krylov's
+        `(u, v) -> J(u) v`, or None. The builder verified its signature:
+        either (v...) constant-J or (v..., u..., captures...)."""
+        if jac_sym is None:
+            return None
+        jac_fn = self.opdef(jac_sym)
+        n_jac_in = len(self.module.lookup(jac_sym).ftype.inputs)
+
+        def jac_mv(u, v):
+            args = tuple(v) if n_jac_in == n_state else tuple(v) + tuple(u) + captures
+            out = jac_fn(*args)
+            return out if isinstance(out, tuple) else (out,)
+
+        return jac_mv
+
     def _solve_nonlinear(self, op: Operation, env):
-        raise _roadmap("solve_nonlinear (Newton-Krylov, Picard)", "queue 1, item 7")
+        sym = op.attrs["residual"]
+        n_state = op.attrs["num_states"]
+        residual_fn = self.opdef(sym)
+        states0 = tuple(env[o.uid] for o in op.operands[:n_state])
+        captures = tuple(env[o.uid] for o in op.operands[n_state:])
+
+        def residual(states):
+            out = residual_fn(*states, *captures)
+            return out if isinstance(out, tuple) else (out,)
+
+        jac_mv = self._jac_mv(op.attrs.get("jacobian"), n_state, captures)
+        method = op.attrs["method"]
+        okw = nonlinear_option_kwargs(
+            "picard" if method == "picard" else "newton",
+            merged_nonlinear_options(op.attrs.get("options"), method),
+        )
+        if method in ("newton", "newton-krylov"):
+            x, info = newton_krylov(
+                residual,
+                states0,
+                tol=op.attrs["tol"],
+                max_iters=op.attrs["max_iters"],
+                krylov_tol=op.attrs.get("krylov_tol", 1e-6),
+                krylov_iters=op.attrs.get("krylov_iters", 200),
+                jac_mv=jac_mv,
+                **okw,
+            )
+        elif method == "picard":
+            x, info = picard(
+                residual, states0, tol=op.attrs["tol"], max_iters=op.attrs["max_iters"], **okw
+            )
+        else:
+            raise ValueError(f"unknown nonlinear method {method!r}")
+        if _verbose(op):
+            report_solve(f"SNES({method})", sym, info)
+        for r, v in zip(op.results, x):
+            env[r.uid] = v
 
     def _time_advance(self, op: Operation, env):
         """Direct interpretation of time_advance. Normally the high-level pass
@@ -465,7 +731,26 @@ class CompiledModule:
             )
             return x
         if method == TimeMethod.IMPLICIT_NONLINEAR:
-            raise _roadmap("time_advance(method=implicit_nonlinear)", "queue 1, item 7")
+            res_fn = self.opdef(op.attrs["residual"])
+
+            def residual(states):
+                return (res_fn(states[0], state),)
+
+            # jacobian= and options= as on the lowered solve_nonlinear path:
+            # the interpreter solves with the same Newton as the module after
+            # the high-level pass
+            okw = nonlinear_option_kwargs(
+                "newton", merged_nonlinear_options(op.attrs.get("options"), "newton")
+            )
+            x, _ = newton_krylov(
+                residual,
+                (state,),
+                tol=op.attrs["tol"],
+                max_iters=op.attrs["max_iters"],
+                jac_mv=self._jac_mv(op.attrs.get("jacobian"), 1, (state,)),
+                **okw,
+            )
+            return x[0]
         raise NotImplementedError(
             "time_advance with method=runtime must be lowered by the "
             "high-level pass to time_advance_runtime first"
@@ -521,3 +806,7 @@ def single_apply_interior(fn: Function):
     if not ap.operands or ap.operands[0].uid != fn.body.args[0].uid:
         return None
     return ap.attrs.get("bounds")
+
+
+def compile_module(module: Module, backend: Optional[str] = None, device=None) -> CompiledModule:
+    return CompiledModule(module, backend, device)

@@ -2,16 +2,18 @@
 
 The port of `neptune_tpu/solvers/assemble.py`: the handle holds the operator
 callable plus the structural metadata (structure-key hash, halo, interior)
-the solvers use. Dense assembly (`dense`) is not ported yet.
+the solvers use, and dense assembly (`dense`) for small systems, SSOR and
+the direct solve.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
 
+from ..config import default_device
 from ..ir.types import TempType
 
 
@@ -28,6 +30,7 @@ class MatrixHandle:
     # cells are exact copy-through ((A z)_ring = z_ring): enables the
     # Dirichlet-lift solve below. None for composite/unknown structure.
     interior: Optional[object] = None
+    _dense_cache: Optional[torch.Tensor] = field(default=None, repr=False)
 
     @property
     def n(self) -> int:
@@ -46,10 +49,19 @@ class MatrixHandle:
     def __call__(self, x):
         return self.matvec(x)
 
-    def dense(self):
-        raise NotImplementedError(
-            "dense assembly is not ported yet: ROADMAP.md, queue 1, item 4"
-        )
+    def dense(self, device=None) -> torch.Tensor:
+        """The full n×n matrix on `device` (default `config.device`), the
+        operator applied to the identity basis through `torch.func.vmap`
+        (a kernel-routed opdef launches its kernel once per column):
+        A[:, j] = A e_j, flattened in C order of the grid."""
+        device = torch.empty(0, device=default_device(device)).device  # "cuda" -> "cuda:0"
+        if self._dense_cache is None or self._dense_cache.device != device:
+            eye = torch.eye(self.n, dtype=self.dtype, device=device)
+            cols = torch.func.vmap(lambda e: self.matvec(e.reshape(self.grid_shape)).reshape(-1))(
+                eye
+            )
+            self._dense_cache = cols.T.contiguous()
+        return self._dense_cache
 
     def ring_lift(self, b):
         """Dirichlet lift for the copy-through ring, or None when the

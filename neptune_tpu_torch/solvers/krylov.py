@@ -20,6 +20,7 @@ All solvers:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -283,11 +284,25 @@ def gmres(
     return unravel(x), SolveInfo(k, float(rnorm), bool(converged))
 
 
-def direct(*_args, **_kw):
-    raise NotImplementedError(
-        "solver='direct' needs dense assembly (MatrixHandle.dense), which is "
-        "not ported yet: ROADMAP.md, queue 1, item 4"
-    )
+@contextlib.contextmanager
+def full_precision():
+    """f32 matrix products at full precision, TF32 off, whatever the caller
+    set: the H100's twin of the bf16 matrix-unit fault of the TPU."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def direct(matrix: torch.Tensor, b, **_kw):
+    """LU solve against an assembled dense matrix (`MatrixHandle.dense`)."""
+    flat_b, unravel = _ravel(b)
+    with full_precision():
+        x = torch.linalg.solve(matrix, flat_b)
+        rnorm = torch.linalg.vector_norm(matrix @ x - flat_b)
+    return unravel(x), SolveInfo(1, float(rnorm), True)
 
 
 SOLVERS = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}

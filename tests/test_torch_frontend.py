@@ -28,8 +28,23 @@ def port_on_cpu(monkeypatch):
     monkeypatch.setattr(torch_config, "device", "cpu")
 
 
-# the JAX package's top-level names whose modules the port does not have yet
-NOT_PORTED = ("differentiable_root", "differentiable_solve", "simulate", "enable_x64")
+# the JAX package's top-level names the port has no use for: PyTorch needs
+# no switch for f64
+NOT_PORTED = ("enable_x64",)
+
+
+@pytest.fixture(autouse=True)
+def fresh_kernel_names(monkeypatch):
+    """Traced residuals are named from a process-wide counter in each
+    package; start both at 0 so the printed modules can be compared
+    whatever ran before in the process."""
+    import itertools
+
+    import neptune_tpu.frontend.trace as jax_trace
+    import neptune_tpu_torch.frontend.trace as torch_trace
+
+    for trace in (jax_trace, torch_trace):
+        monkeypatch.setattr(trace, "_kernel_counter", itertools.count())
 
 
 @pytest.fixture(autouse=True)
@@ -127,13 +142,65 @@ def heat_stepper(nt, n=16):
     return Heat().step, [(n, n)], "float64"
 
 
+def nonlinear_stepper(nt, n=16):
+    """A @jit_class whose traced method takes an implicit-nonlinear
+    Allen–Cahn step, then solves a residual closed over its result with
+    Newton (f64)."""
+
+    @nt.nonlinear_op_def(bounds=([0], [n]), name="ac_res")
+    def ac_res(u, u_prev):
+        i = nt.index(0)
+        lap = 100.0 * (u[-1] - 2.0 * u[0] + u[1])
+        interior = u[0] - u_prev[0] - 0.01 * (0.01 * lap + u[0] - u[0] * u[0] * u[0])
+        return nt.where((i == 0) | (i == n - 1), u[0] - u_prev[0], interior)
+
+    @nt.jit_class
+    class AC:
+        def __init__(self):
+            self.n = n
+
+        def step(self, u):
+            v = nt.time_advance(u, 0.01, "implicit_nonlinear", residual=ac_res, tol=1e-12)
+
+            def residual(w):
+                return w[0] * w[0] * w[0] + w[0] - v[0]
+
+            return nt.solve_nonlinear(residual, v, tol=1e-12, max_iters=30)
+
+    return AC().step, [(n,)], "float64"
+
+
+def mixed_solver(nt, n=16):
+    """A @jit_class whose traced method solves Poisson to 1e-12 with f32
+    inner CG rounds preconditioned by matrix-free SSOR."""
+
+    @nt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]))
+    def poisson(u):
+        return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+    @nt.jit_class
+    class P:
+        def __init__(self):
+            self.H = nt.assemble_matrix(poisson)
+
+        def solve(self, b):
+            return nt.solve_linear(self.H, b, tol=1e-12, max_iters=500, precond="ssor",
+                                   precision="mixed")
+
+    return P().solve, [(n, n)], "float64"
+
+
 PROGRAMS = {
     "jacobi5": jacobi5,
     "adv4_interior": adv4,
     "heat7": heat7,
     "composite": composite,
     "time_advance": heat_stepper,
+    "nonlinear": nonlinear_stepper,
+    "mixed": mixed_solver,
 }
+# programs that solve: results within the solves' tolerance
+SOLVES = ("time_advance", "nonlinear", "mixed")
 
 
 def _trace(nt, program, args):
@@ -159,7 +226,7 @@ def test_same_code_traces_the_same_program(name):
     text, keys, got = _trace(ntt, program, args)
     assert text == jax_text
     assert keys == jax_keys and all(k is not None for k in keys.values())
-    tol = TOL[dtype] if name != "time_advance" else 1e-10  # a CG solve to 1e-10
+    tol = TOL[dtype] if name not in SOLVES else 1e-10  # solves to 1e-10 or tighter
     assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
 
 
@@ -205,10 +272,13 @@ def test_jit_compile_library():
 
 
 def test_unported_paths_name_their_roadmap_item():
+    # Newton, Picard and mixed precision are ported (test_torch_nonlinear.py,
+    # test_torch_refine.py, the "nonlinear" and "mixed" programs above);
+    # multigrid and the whole sharded function are not yet
+    from neptune_tpu_torch.parallel import sharded_function
+
     jac, _, _ = jacobi5(ntt)
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ntt.solve_nonlinear(lambda u: u[0] * u[0] - 1.0, np.ones(8))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ntt.time_advance(np.ones((32, 32)), 0.1, "implicit_nonlinear", residual=jac)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ntt.solve_linear(jac, np.ones((32, 32), np.float32), precision="mixed")
+        ntt.solve_linear(jac, np.ones((32, 32), np.float32), precond="mg")
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        sharded_function(None, "jacobi", None)

@@ -668,3 +668,162 @@ def test_tensors_stay_on_their_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = torch.zeros((16, 24))
     assert CompiledModule(stencils.jacobi5((16, 24))).opdef("jacobi")(x).device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the solver surface on the card: the derivative rule of kernel-routed
+# opdefs, Newton, mixed-precision refinement, the direct solve
+# ---------------------------------------------------------------------------
+
+RULES = {
+    "apply": (lambda: stencils.advection4((64, 128)), "adv4", cuda_backend.counter),
+    "chain": (lambda: stencils.composite((64, 128)), "wrapped", chain.counter),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RULES)
+def test_rule_on_the_card(case, cuda):
+    """The tangent and cotangent of a kernel-routed opdef on the card equal
+    those of the eager view, and its primal is the kernel's."""
+    build, name, counter = RULES[case]
+    cm = CompiledModule(build())
+    f, view = cm.opdef(name), cm.opdef(name, differentiable=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, v = (torch.randn(64, 128, device=cuda, generator=gen) for _ in range(2))
+    before = counter.count
+    out, tan = torch.func.jvp(f, (x,), (v,))
+    assert counter.count == before + 1
+    ref_out, ref_tan = torch.func.jvp(view, (x,), (v,))
+    # a nonzero tangent: the rule was taken (a torch release that hides the
+    # transform from `_differentiating` would give none from the kernel)
+    assert torch.equal(out, ref_out) and torch.equal(tan, ref_tan) and bool(tan.abs().max() > 0)
+    xr = x.clone().requires_grad_(True)
+    (cot,) = torch.autograd.grad(f(xr), xr, v)
+    (ref_cot,) = torch.autograd.grad(view(xr), xr, v)
+    assert torch.equal(cot, ref_cot) and bool(cot.abs().max() > 0)
+
+
+def allen_cahn_step(n: int, dt=0.05, k=5.0):
+    """An implicit Allen–Cahn step at n^2 f32 through the DSL: the residual
+    (5-pt Laplacian plus u - u^3; F = u - u_prev on the boundary) and the
+    compiled step. Returns (step, compiled module)."""
+    import neptune_tpu_torch as ntt
+
+    ntt.reset_context()
+
+    @ntt.nonlinear_op_def(bounds=([0, 0], [n, n]), dtype="float32", name="ac_res")
+    def ac_res(u, up):
+        i, j = ntt.index(0), ntt.index(1)
+        boundary = (i == 0) | (i == n - 1) | (j == 0) | (j == n - 1)
+        lap = u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1] - 4.0 * u[0, 0]
+        interior = u[0, 0] - up[0, 0] - dt * (k * lap + u[0, 0] - u[0, 0] * u[0, 0] * u[0, 0])
+        return ntt.where(boundary, u[0, 0] - up[0, 0], interior)
+
+    @ntt.jit_class
+    class AC:
+        def __init__(self):
+            self.n = n
+
+        def step(self, u):
+            return ntt.time_advance(u, dt, "implicit_nonlinear", residual=ac_res, tol=1e-5,
+                                    max_iters=20, options={"atol": 1e-4})
+
+    return AC(), ntt
+
+
+@pytest.mark.gpu
+def test_newton_on_the_kernel_route(cuda, monkeypatch):
+    """Newton with the residual on kernel A takes the iterations of the same
+    solve with the kernels off, and gives the same state."""
+    from neptune_tpu_torch.lowering import executor
+
+    infos = []
+    real = executor.newton_krylov
+
+    def recording(*a, **k):
+        x, info = real(*a, **k)
+        infos.append(info)
+        return x, info
+
+    monkeypatch.setattr(executor, "newton_krylov", recording)
+    ac, ntt = allen_cahn_step(128)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    u = 0.9 * torch.tanh(4 * torch.randn(128, 128, device=cuda, generator=gen))
+    before = cuda_backend.counter.count
+    got = ac.step(u)
+    assert cuda_backend.counter.count > before
+    cm = ntt.get_context().compiled()
+    off = CompiledModule(cm.module, "torch").function("AC_step")(u)
+    (on, off_info) = infos
+    assert on.converged and (on.iters, on.krylov_iters) == (off_info.iters, off_info.krylov_iters)
+    assert torch.equal(got, off)
+
+
+@pytest.mark.gpu
+def test_mixed_refinement_on_the_card(cuda):
+    """precision="mixed": the f32 twin's applies launch kernel A; the rounds
+    equal those with the kernels off, the inner iterations within 1 per
+    round, and the f64 result meets its tolerance."""
+    from neptune_tpu_torch.solvers.refine import refined_solve
+
+    cm = CompiledModule(stencils.poisson5(128, "float64"))
+    off = CompiledModule(cm.module, "torch")
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b = torch.randn(128, 128, device=cuda, dtype=torch.float64, generator=gen)
+    infos = []
+    for c in (cm, off):
+        before = cuda_backend.counter.count
+        hi, lo = c.opdef("poisson"), c.low_precision_opdef("poisson")
+        x, info = refined_solve(hi, lo, b, tol=1e-10, inner_tol=1e-4, inner_iters=3000)
+        launched = cuda_backend.counter.count - before
+        assert info.converged and bool(torch.linalg.vector_norm(b - hi(x))
+                                       <= 1e-10 * torch.linalg.vector_norm(b))
+        infos.append((info, launched))
+    (on, n_on), (plain, n_off) = infos
+    assert n_on >= on.inner_iters and n_off == 0
+    assert on.rounds == plain.rounds and abs(on.inner_iters - plain.inner_iters) <= on.rounds
+
+
+@pytest.mark.gpu
+def test_dense_launches_kernel_a_per_column(cuda, monkeypatch):
+    """dense() with no device assembles on the card (the default device)
+    through kernel A, one launch per column, equal to the eager view's."""
+    from neptune_tpu_torch.solvers.assemble import MatrixHandle
+
+    monkeypatch.setattr(config, "device", "cuda")
+    cm = CompiledModule(stencils.poisson5(24))
+    fn = cm.module.lookup("poisson")
+    H = MatrixHandle("poisson", cm.opdef("poisson"), fn.ftype.inputs[0])
+    before = cuda_backend.counter.count
+    A = H.dense()
+    assert A.device.type == "cuda" and cuda_backend.counter.count == before + 24 * 24
+    assert H.dense(cuda) is A and cuda_backend.counter.count == before + 24 * 24
+    view = cm.opdef("poisson", differentiable=True)
+    eye = torch.eye(24 * 24, device=cuda)
+    assert torch.equal(A, torch.func.vmap(lambda e: view(e.reshape(24, 24)).reshape(-1))(eye).T)
+
+
+@pytest.mark.gpu
+def test_direct_is_full_precision_on_the_card(cuda):
+    """solver="direct" in f32 with TF32 asked for by the caller: the solve
+    still runs at full f32 precision, and leaves the caller's setting."""
+    from neptune_tpu_torch.solvers import krylov
+    from neptune_tpu_torch.solvers.assemble import MatrixHandle
+
+    cm = CompiledModule(stencils.poisson5(24))
+    fn = cm.module.lookup("poisson")
+    H = MatrixHandle("poisson", cm.opdef("poisson"), fn.ftype.inputs[0],
+                     halo=fn.attrs.get("halo", ()))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b = torch.randn(24, 24, device=cuda, generator=gen)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        A = H.dense(cuda)
+        x, _ = krylov.direct(A, b)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    A64, b64 = A.double().cpu(), b.double().cpu().reshape(-1)
+    rel = torch.linalg.vector_norm(A64 @ x.double().cpu().reshape(-1) - b64) / torch.linalg.vector_norm(b64)
+    assert float(rel) <= 1e-5
