@@ -52,13 +52,25 @@ line, the card's nvidia-smi line, and the result line):
      eager view, and a differentiable_root gradient against the
      kernels-off route; (c) bench.py's cg_poisson_512_mixed_1e10 (f32
      twin on kernel A, true f64 residual <= 1e-10); (d) its
-     cg_512_ssor_vs_jacobi (SSOR fewer iterations than Jacobi).
+     cg_512_ssor_vs_jacobi (SSOR fewer iterations than Jacobi);
+ 11. geometric multigrid and Chebyshev at full size, each case on the
+     kernel route and the kernels-off route (equal iterations, bitwise-equal
+     solutions, true residual under tol, kernel A launched on every level,
+     counted per level shape): (a) CG + precond="mg" on phase 3's 512^2
+     Poisson system through the IR executor (Jacobi and Chebyshev
+     smoothing) and the DSL, beside kernel B's Jacobi-CG; (b) the same at
+     4096^2 with its host/device split and launches per iteration by kind;
+     (c) multigrid_solve with red-black smoothing on
+     examples/multigrid_poisson.py's 512..16 hierarchy from a zero start
+     and from fmg_start; (d) 7-pt 256^3 with precond="mg"; (e)
+     solver="chebyshev" with Jacobi, check_every=10 and estimated bounds.
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
 (bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
 over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
-PyTorch call that computes the same function where there is one.
+PyTorch call that computes the same function where there is one. Kernel
+A's launches are phase 4's and phase 11's.
 """
 
 from __future__ import annotations
@@ -1199,6 +1211,346 @@ def phase10(ntt, dev, rng) -> None:
     ntt.reset_context()
 
 
+# ---- phase 11: geometric multigrid and Chebyshev at full size -------------
+# 11a and 11e: phase 3's 5-pt 512^2 f32 Poisson system and rhs; 11b: the same
+# operator at 4096^2 (64 MB per field); 11c: examples/multigrid_poisson.py's
+# 1/h^2-scaled hierarchy 512..16; 11d: the 7-pt operator at 256^3. Every
+# case runs on the kernel route and on the kernels-off route (backend
+# "torch"), which must take the same iterations to a bitwise-equal result.
+MG_N, MG_BIG_N, MG_3D_N, MG_TOL, MG_MAXIT, MG_EXAMPLE_MAXIT = 512, 4096, 256, 1e-4, 500, 60
+MG_EXAMPLE_SIZES = [512, 256, 128, 64, 32, 16]
+# tolerances above f32's floor of the true relative residual: at 4096^2 a
+# white-noise rhs leaves it at 1.8e-4 once CG's recurrence reaches 1e-4 (an
+# H100 80GB HBM3 at 700 W); the example's 1/h^2-scaled operator with
+# b = A u* leaves it at 4.4e-5 (128^2) and 1.7e-4 (256^2), four times more
+# per doubling (on a CPU), so its f32 tol of 1e-4 is out of reach at 512^2
+MG_BIG_TOL, MG_EXAMPLE_TOL = 1e-3, 3e-3
+# Chebyshev's bounds come from estimate_spectrum with Jacobi; power iteration
+# on the reflected operator finds lam_min slowly, hence its long estimate
+CHEB_CHECK, CHEB_EST_ITERS, CHEB_MAXIT = 10, 3000, 20000
+# (label, operator builder, solve_linear options, MG levels by the default
+# rule, tol)
+MG_SYSTEMS = [
+    ("11a cg_poisson_512 precond=mg", lambda s: s.poisson5(MG_N), None, 6, MG_TOL),
+    ("11a cg_poisson_512 precond=mg mg_smoother=cheb", lambda s: s.poisson5(MG_N),
+     {"mg_smoother": "cheb"}, 6, MG_TOL),
+    (f"11b {MG_BIG_N}^2 f32 precond=mg", lambda s: s.poisson5(MG_BIG_N), None, 6, MG_BIG_TOL),
+    (f"11d 7-pt {MG_3D_N}^3 f32 precond=mg", lambda s: s.poisson7(MG_3D_N), None, 5, MG_TOL),
+]
+
+
+def mg_module(build, options, tol):
+    """An MG_SYSTEMS operator with @solve: CG + precond="mg" to tol."""
+    from neptune_tpu_torch import stencils
+
+    return stencils.with_solve(build(stencils), "poisson", solver="cg", tol=tol,
+                               max_iters=MG_MAXIT, precond="mg", options=options)
+
+
+def mg_example(ntt):
+    """examples/multigrid_poisson.py's rediscretized Poisson opdefs at
+    MG_EXAMPLE_SIZES in f32, in a fresh DSL context: its compiled module."""
+    ntt.reset_context()
+
+    def make(n):
+        inv_h2 = float((n - 1) * (n - 1))
+
+        @ntt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]),
+                           dtype="float32", name=f"poisson{n}")
+        def op(u):
+            return (4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]) * inv_h2
+
+    for n in MG_EXAMPLE_SIZES:
+        make(n)
+    return ntt.get_context().compiled()
+
+
+def phase11_sources(ntt) -> list:
+    """Kernel A's sources for every level of phase 11's hierarchies, for
+    phase 1's parallel build: each system's coarsened modules, the
+    example's opdefs and the DSL's 512^2 operator with its coarsenings."""
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.passes.coarsen import coarsen_opdef
+
+    def hierarchy(module, levels):
+        out = [module]
+        for _ in range(levels - 1):
+            out.append(coarsen_opdef(out[-1], "poisson"))
+        return out
+
+    modules = [mg_example(ntt).module]
+    for _, build, options, levels, tol in MG_SYSTEMS:
+        modules += hierarchy(mg_module(build, options, tol), levels)
+    poisson(ntt, MG_N, "float32", "poisson")
+    modules += hierarchy(ntt.get_context().compiled().module, MG_SYSTEMS[0][3])
+    ntt.reset_context()
+    return [cuda_backend.source(op) for m in modules for op in m.walk()
+            if op.name == "neptune.apply" and cuda_backend.supported(op)]
+
+
+class ShapeLaunches:
+    """Kernel-A launches by output shape while in a `with` block: wraps
+    `cuda_backend.stencil_apply`, whose own count stays the kernel's."""
+
+    def __enter__(self):
+        from neptune_tpu_torch.lowering import cuda_backend
+
+        self.by_shape, self.mod, real = {}, cuda_backend, cuda_backend.stencil_apply
+
+        def counting(op, *a, **k):
+            out = real(op, *a, **k)
+            shape = op.results[0].type.bounds.shape
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+            return out
+
+        self.real, cuda_backend.stencil_apply = real, counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.stencil_apply = self.real
+
+    def take(self) -> dict:
+        got, self.by_shape = self.by_shape, {}
+        return got
+
+
+def kinds_profile(fn, iters: int) -> dict:
+    """Device launches and ms per iteration of one call of fn(), by kind,
+    from a torch.profiler trace (records the trace missed are not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        kind = ("kernel A" if "nt_apply" in key else "reduction" if "reduce" in key
+                else "interpolation" if "upsample" in key or "interp" in key
+                else "copy/fill" if "memcpy" in key or "memset" in key or "fill" in key
+                else "elementwise/other")
+        n, ms = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + e.count, ms + e.device_time_total / 1e3)
+    return {k: (n / iters, ms / iters) for k, (n, ms) in kinds.items()}
+
+
+def route_pair(label, runs, levels, true_rel, tol):
+    """Hold a case's kernel route to its kernels-off route: equal
+    iterations, bitwise-equal results, the true residual under tol, kernel
+    A on every level (and on none with the kernels off)."""
+    import torch
+
+    (x_on, it_on, ms_on, shapes_on), (x_off, it_off, ms_off, shapes_off) = runs
+    require(it_on == it_off, f"{label}: iterations {it_on} against the kernels-off route {it_off}")
+    require(torch.equal(x_on, x_off), f"{label}: kernel route != kernels-off route (max err "
+            f"{float((x_on - x_off).abs().max())!r})")
+    require(true_rel <= 1.01 * tol, f"{label}: true relative residual {true_rel!r} (tol {tol})")
+    require(len(shapes_on) == levels and all(v > 0 for v in shapes_on.values())
+            and not shapes_off, f"{label}: kernel-A launches by level {shapes_on} "
+            f"(kernels off {shapes_off}), {levels} levels expected")
+
+
+def shapes_text(shapes: dict) -> str:
+    return ", ".join(f"{'x'.join(map(str, s))}: {n}" for s, n in sorted(shapes.items(),
+                                                                       reverse=True))
+
+
+def phase11(ntt, dev, b_ref: tuple) -> int:
+    """Phase 11; b_ref is phase 3's kernel-B Jacobi-CG on 11a's system
+    (ms per solve, iterations). Returns its kernel-A launches."""
+    import torch
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.solvers import estimate_spectrum, fmg_start, krylov, multigrid_solve
+    from neptune_tpu_torch.solvers import build_levels
+    from neptune_tpu_torch.solvers.precond import safe_inv_diag
+
+    cheb_mod = sys.modules["neptune_tpu_torch.solvers.chebyshev"]
+    t11 = time.perf_counter()
+    infos, reads = [], [0]
+    real_solve, real_test = krylov.solve, cheb_mod._unconverged
+
+    def recording(*a, **k):
+        x, info = real_solve(*a, **k)
+        infos.append(info)
+        return x, info
+
+    def counting_test(*a):
+        reads[0] += 1
+        return real_test(*a)
+
+    def rel_residual(A, x, b):
+        return float(torch.linalg.vector_norm(b - A(x)) / torch.linalg.vector_norm(b))
+
+    def routes(solve_of, b):
+        """Per route, after a first solve (which builds the hierarchy), one
+        timed solve: [(x, iterations, ms per solve, kernel-A launches by
+        shape)] for the kernel route and the kernels-off route, and the
+        kernel route's first solve in ms."""
+        out, first = [], []
+        for route in ("auto", "torch"):
+            solve = solve_of(route)
+            first.append(timed(lambda: solve(b))[1])
+            shapes.take()
+            infos.clear()
+            x, ms = timed(lambda: solve(b))
+            out.append((x, infos[-1].iters, ms, shapes.take()))
+        return out, first[0]
+
+    for c in counters().values():
+        c.reset()
+    krylov.solve, cheb_mod._unconverged = recording, counting_test
+    try:
+        with ShapeLaunches() as shapes:
+            # ---- 11a, 11b, 11d: precond="mg" through the IR executor
+            for label, build, options, levels, tol in MG_SYSTEMS:
+                module = mg_module(build, options, tol)
+                shape = module.lookup("poisson").ftype.inputs[0].bounds.shape
+                b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+                    shape, dtype=np.float32)).to(dev)
+                runs, first_ms = routes(
+                    lambda r, m=module: CompiledModule(m, r, dev).function("solve"), b)
+                A = CompiledModule(module, "torch", dev).opdef("poisson")
+                rel = rel_residual(A, runs[0][0], b)
+                route_pair(label, runs, levels, rel, tol)
+                (x, iters, ms, by_shape), (_, _, ms_off, _) = runs
+                line = (f"phase 11 {label}, tol {tol}: {iters} PCG iterations (= kernels-off "
+                        f"route), solutions bitwise equal, true relative residual {rel!r}; "
+                        f"{ms:.2f} ms per solve, {ms / iters:.3f} ms per iteration (kernels-off "
+                        f"{ms_off:.2f} ms, {ms_off / iters:.3f}); first solve with the hierarchy "
+                        f"build {first_ms:.1f} ms; kernel A per level {shapes_text(by_shape)}")
+                if label == MG_SYSTEMS[0][0]:
+                    line += (f"; kernel B's fused Jacobi-CG on this system (phase 3): "
+                             f"{b_ref[0]:.3f} ms per solve, {b_ref[1]} iterations")
+                say(line)
+                if label.startswith("11b"):
+                    solve = CompiledModule(module, "auto", dev).function("solve")
+                    prof = split_profile(lambda: solve(b))
+                    kinds = kinds_profile(lambda: solve(b), iters)
+                    shapes.take()
+                    dev_ms = prof[1] + prof[4]
+                    say(f"phase 11b split of one solve (torch.profiler): host {prof[0]:.1f} ms "
+                        f"under the profiler, device {dev_ms:.3f} ms ({dev_ms / ms:.3f} of the "
+                        f"{ms:.2f} ms solve without it); kernel A "
+                        f"{prof[1]:.3f} ms ({prof[1] / dev_ms:.3f} of device time; {prof[2]} of "
+                        f"{prof[3]} launches recorded), other kernels {prof[4]:.3f} ms in "
+                        f"{prof[5]} launches; per PCG iteration: " + "; ".join(
+                            f"{k} {n:.1f} launches, {m:.3f} ms" for k, (n, m) in
+                            sorted(kinds.items())))
+
+            # ---- 11a through the DSL, each route in its own context
+            b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+                (MG_N, MG_N), dtype=np.float32)).to(dev)
+            runs, backend = [], ntt.config.backend
+            try:
+                for route in ("auto", "torch"):
+                    ntt.config.backend = route
+                    poisson(ntt, MG_N, "float32", "poisson")
+                    H = ntt.assemble_matrix("poisson")
+
+                    def solve(H=H):
+                        return ntt.solve_linear(H, b, solver="cg", tol=MG_TOL,
+                                                max_iters=MG_MAXIT, precond="mg")
+
+                    solve()
+                    shapes.take()
+                    infos.clear()
+                    x, ms = timed(solve)
+                    runs.append((x, infos[-1].iters, ms, shapes.take()))
+                    A = H.matvec
+            finally:
+                ntt.config.backend = backend
+                ntt.reset_context()
+            rel = rel_residual(A, runs[0][0], b)
+            route_pair("11a DSL", runs, MG_SYSTEMS[0][3], rel, MG_TOL)
+            say(f"phase 11a cg_poisson_512 precond=mg (DSL solve_linear): {runs[0][1]} PCG "
+                f"iterations (= kernels-off route), bitwise equal, true relative residual "
+                f"{rel!r}; {runs[0][2]:.2f} ms per solve (kernels-off {runs[1][2]:.2f} ms); "
+                f"hierarchy cached in the context; kernel A per level {shapes_text(runs[0][3])}")
+
+            # ---- 11c: multigrid_solve with red-black smoothing, two starts
+            cm = mg_example(ntt)
+            names = [f"poisson{n}" for n in MG_EXAMPLE_SIZES]
+            xs = torch.linspace(0.0, 1.0, MG_N, device=dev)
+            X, Y = xs[:, None], xs[None, :]
+            u_star = torch.sin(np.pi * X) * torch.sin(2 * np.pi * Y) * (X * (1 - X))
+            u_star[0, :] = u_star[-1, :] = u_star[:, 0] = u_star[:, -1] = 0.0
+            b = cm.opdef(names[0])(u_star)
+            rows = {}
+            for route, c in (("auto", cm), ("torch", CompiledModule(cm.module, "torch", dev))):
+                ops = [c._handle_for(n) for n in names]
+                levels, build_ms = timed(lambda: build_levels(ops, b))
+                for start in ("zero", "fmg"):
+                    def run(ops=ops, levels=levels, start=start):
+                        x0 = fmg_start(levels, b) if start == "fmg" else None
+                        return multigrid_solve(ops, b, x0=x0, tol=MG_EXAMPLE_TOL,
+                                               maxiter=MG_EXAMPLE_MAXIT, levels=levels)
+
+                    run()
+                    shapes.take()
+                    (x, info), ms = timed(run)
+                    require(info.converged, f"11c {start} start ({route}): {info}")
+                    rows[route, start] = (x, info.iters, ms, shapes.take(), build_ms)
+            for start in ("zero", "fmg"):
+                on, off = rows["auto", start], rows["torch", start]
+                rel = rel_residual(cm.opdef(names[0]), on[0], b)
+                route_pair(f"11c {start} start", (on[:4], off[:4]), len(names), rel,
+                           MG_EXAMPLE_TOL)
+                err = float((on[0] - u_star).abs().max())
+                say(f"phase 11c multigrid_solve rb, examples/multigrid_poisson.py {MG_N}.."
+                    f"{MG_EXAMPLE_SIZES[-1]} f32, "
+                    f"tol {MG_EXAMPLE_TOL}, {start} start: {on[1]} V-cycles (= kernels-off route), "
+                    f"bitwise equal, true relative residual {rel!r}, max |x - u*| {err:.3e}; "
+                    f"{on[2]:.2f} ms per solve{' with fmg_start' if start == 'fmg' else ''}, "
+                    f"{on[2] / max(on[1], 1):.3f} ms per cycle{' (fmg_start included)' if start == 'fmg' else ''} "
+                    f"(kernels-off {off[2]:.2f} ms); "
+                    f"build_levels {on[4]:.1f} ms; kernel A per level {shapes_text(on[3])}")
+            ntt.reset_context()
+
+            # ---- 11e: solver="chebyshev", Jacobi, check_every, estimated bounds
+            from neptune_tpu_torch import stencils
+
+            op = stencils.poisson5(MG_N)
+            b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+                (MG_N, MG_N), dtype=np.float32)).to(dev)
+            H = CompiledModule(op, "auto", dev)._handle_for("poisson")
+            inv = safe_inv_diag(H.diagonal(dev))
+            est, est_ms = timed(lambda: estimate_spectrum(H.matvec, b, iters=CHEB_EST_ITERS,
+                                                          M=lambda v: inv * v))
+            lam = {"lam_min": float(est.lam_min), "lam_max": float(est.lam_max)}
+            module = stencils.with_solve(op, "poisson", solver="chebyshev", tol=MG_TOL,
+                                         max_iters=CHEB_MAXIT, precond="jacobi",
+                                         options={**lam, "check_every": CHEB_CHECK})
+            reads[0] = 0
+            runs, _ = routes(lambda r: CompiledModule(module, r, dev).function("solve"), b)
+            iters = runs[0][1]
+            # four solves ran (a warm-up and a timed one per route): each read
+            # once before its loop and once per check
+            per_solve = reads[0] / 4
+            require(iters < CHEB_MAXIT and per_solve == (iters - 1) // CHEB_CHECK + 1,
+                    f"11e: {iters} iterations, {per_solve} host reads per solve")
+            rel = rel_residual(CompiledModule(module, "torch", dev).opdef("poisson"), runs[0][0], b)
+            route_pair("11e chebyshev", runs, 1, rel, MG_TOL)
+            (_, _, ms, by_shape), (_, _, ms_off, _) = runs
+            say(f"phase 11e solver=chebyshev + Jacobi on cg_poisson_512 (IR executor), tol "
+                f"{MG_TOL}, check_every {CHEB_CHECK}, bounds [{lam['lam_min']:.4e}, "
+                f"{lam['lam_max']:.4e}] from estimate_spectrum ({CHEB_EST_ITERS} iterations, "
+                f"{est_ms:.1f} ms): {iters} iterations (= kernels-off route), bitwise equal, "
+                f"true relative residual {rel!r}; {per_solve:.0f} host reads of the residual "
+                f"per solve (one per {CHEB_CHECK} iterations, and one before the loop); "
+                f"{ms:.1f} ms per solve, {ms / iters * 1e3:.1f} us per iteration (kernels-off "
+                f"{ms_off:.1f} ms); kernel A {shapes_text(by_shape)}")
+    finally:
+        krylov.solve, cheb_mod._unconverged = real_solve, real_test
+    a_launches = cuda_backend.counter.count
+    say(f"phase 11 kernel-A launches {a_launches}; phase wall {time.perf_counter() - t11:.1f} s")
+    return a_launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
@@ -1274,6 +1626,7 @@ def main() -> int:
     sources.append(cuda_backend.source(stencils.the_apply(step3d_cm.module)))
     sources.append(cuda_backend.source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
     sources += phase10_sources(ntt)
+    sources += phase11_sources(ntt)
     cg_sources = [codegen.fused_cg_source(fused.cg_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -1690,6 +2043,9 @@ def main() -> int:
     # ---- phase 10: the solver surface at full size ------------------------
     phase10(ntt, dev, rng)
 
+    # ---- phase 11: multigrid and Chebyshev at full size ---------------------
+    mg_launches = phase11(ntt, dev, (b_ms, b_extra["iters"]))
+
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if also:
@@ -1702,7 +2058,8 @@ def main() -> int:
 
     kernels = [
         entry_of("stencil_apply", "neptune_tpu_torch/csrc/nt_apply.cuh",
-                 "neptune_tpu/lowering/pallas_backend.py:332", launches["stencil_apply"], a_err,
+                 "neptune_tpu/lowering/pallas_backend.py:332",
+                 launches["stencil_apply"] + mg_launches, a_err,
                  a_ms, a_plain_ms, a_bound, a_lib, "jacobi5 4096^2 f32",
                  ["neptune_tpu/lowering/pallas_backend.py:845",
                   "neptune_tpu/lowering/pallas_backend.py:1094"]),

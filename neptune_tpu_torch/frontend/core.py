@@ -19,11 +19,7 @@ from ..ir.printer import print_module
 
 class GlobalContext:
     def __init__(self):
-        self.builder = NeptuneBuilder(Module("main"))
-        self.current_function: Optional[Function] = None
-        self._version = 0
-        self._compiled = None
-        self._compiled_version = -1
+        self.reset()
 
     # reference parity: ctx.compiler is the IR builder
     @property
@@ -57,9 +53,12 @@ class GlobalContext:
 
     def reset(self):
         self.builder = NeptuneBuilder(Module("main"))
-        self.current_function = None
+        self.current_function: Optional[Function] = None
         self._compiled = None
         self._compiled_version = -1
+        # eager precond="mg" hierarchies, kept across recompiles of the
+        # snapshot: (structure key, grid shape, MG options, backend, device)
+        self.mg_sites: dict = {}
         self._version = 0
 
 

@@ -11,8 +11,9 @@ CPU, and asking for CUDA where there is none raises).
 `solve_nonlinear` and `time_advance(method="implicit_nonlinear")` run
 Newton–Krylov or Picard (`solvers.newton`); `solve_linear` takes
 `precision="mixed"` (`solvers.refine`), `solver="direct"` and
-`precond="ssor"`/`"ssor_dense"`. Not ported yet, raising
-`NotImplementedError` that names ROADMAP.md's item: `precond="mg"`.
+`"chebyshev"`, and `precond="ssor"`/`"ssor_dense"`/`"mg"` (the executor's
+`auto_mg_preconditioner`, built once per operator structure, grid and MG
+options in the context).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from ..config import config, default_device
 from ..ir.types import Bounds, Location, TempType, TimeMethod
-from ..lowering.executor import _roadmap, report_solve, single_apply_interior
+from ..lowering.executor import auto_mg_preconditioner, report_solve, single_apply_interior
 from ..lowering.torch_backend import DTYPES
 from ..solvers import krylov
 from ..solvers.assemble import MatrixHandle
@@ -468,10 +469,20 @@ def solve_linear(
             matrix, b_arr, solver=solver, tol=tol, max_iters=max_iters, precond=precond,
             options=options, verbose=verbose,
         )
-    if precond == "mg":
-        raise _roadmap("precond='mg'", "queue 1, item 7")
     M = None
-    if precond not in (None, "none"):
+    if precond == "mg":
+        ctx = get_context()
+        cm = ctx.compiled()
+        key = (
+            matrix.structure_key_hash, matrix.grid_shape, matrix.dtype,
+            tuple(sorted(pc_opts.items())), cm.backend, b_arr.device,
+        )
+        if key not in ctx.mg_sites:
+            ctx.mg_sites[key] = auto_mg_preconditioner(
+                cm.module, matrix, cm.backend, device=b_arr.device, **pc_opts
+            )
+        M = ctx.mg_sites[key]
+    elif precond not in (None, "none"):
         like = torch.zeros(matrix.grid_shape, dtype=matrix.dtype, device=b_arr.device)
         dense = matrix.dense(b_arr.device) if precond == "ssor_dense" else None
         M = make_preconditioner(

@@ -65,12 +65,6 @@ _BACKENDS = ("auto", "torch", "cuda")
 rule_counter = LaunchCounter("opdef_rule")
 
 
-def _roadmap(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to neptune_tpu_torch yet: ROADMAP.md, {where}"
-    )
-
-
 def _verbose(op: Operation) -> bool:
     return bool(op.attrs.get("verbose"))
 
@@ -187,6 +181,8 @@ class CompiledModule:
         self._fn_cache: dict[str, Callable] = {}
         # (id(solve_linear op), matrix symbol) -> fused solve site or None
         self._fused_sites: dict = {}
+        # (id(solve_linear op), matrix symbol, device) -> precond="mg"'s M
+        self._mg_sites: dict = {}
         self._lo_cm: Optional["CompiledModule"] = None
         self._torch_cm: Optional["CompiledModule"] = None
 
@@ -555,10 +551,17 @@ class CompiledModule:
                 )
             return x
 
-        if precond == "mg":
-            raise _roadmap("precond='mg'", "queue 1, item 7")
         M = None
-        if precond not in (None, "none"):
+        if precond == "mg":
+            # the hierarchy (coarsened modules, probes, power iterations) is
+            # built once per solve site and device
+            key = (id(op), handle.symbol, b.device)
+            if key not in self._mg_sites:
+                self._mg_sites[key] = auto_mg_preconditioner(
+                    self.module, handle, self.backend, device=b.device, **pc_opts
+                )
+            M = self._mg_sites[key]
+        elif precond not in (None, "none"):
             like = torch.zeros(handle.grid_shape, dtype=handle.dtype, device=b.device)
             dense = handle.dense(b.device) if precond == "ssor_dense" else None
             M = make_preconditioner(
@@ -806,6 +809,72 @@ def single_apply_interior(fn: Function):
     if not ap.operands or ap.operands[0].uid != fn.body.args[0].uid:
         return None
     return ap.attrs.get("bounds")
+
+
+class _CoarseOp:
+    """What build_levels needs of a coarse level: a scaled matvec and the
+    halo for probing its diagonal."""
+
+    def __init__(self, matvec, halo):
+        self.matvec = matvec
+        self.halo = halo
+
+    def __call__(self, x):
+        return self.matvec(x)
+
+
+def auto_mg_preconditioner(
+    module: Module,
+    handle: MatrixHandle,
+    backend: Optional[str] = None,
+    *,
+    mg_levels: Optional[int] = None,
+    mg_smoother: str = "jacobi",
+    device=None,
+):
+    """Geometric-MG preconditioner for `solve_linear(..., precond="mg")`.
+
+    The coarse hierarchy is built by 2:1 re-instantiation of the user's
+    opdef (`passes.coarsen.coarsen_opdef`), each level a `CompiledModule` of
+    its own on `backend` and `device` (so on the card every level's matvec
+    is a kernel-A launch), damped by 1/4 per level after the launch: the
+    exact rediscretization of a second-order (1/h²-scaled or h²-absorbed)
+    operator. Other operator orders pass an explicit hierarchy to
+    `solvers.multigrid.mg_preconditioner` instead.
+
+    mg_levels: total level count including the finest (default: coarsen
+    while every extent stays even and the smallest stays >= 16, at most 6
+    levels). mg_smoother: "jacobi" or "cheb" (both symmetric, as
+    CG requires). `device` holds the levels' tensors (default
+    `config.device`).
+    """
+    from ..passes.coarsen import coarsen_opdef
+    from ..solvers.multigrid import mg_preconditioner
+
+    shape = handle.grid_shape
+    if mg_levels is None:
+        mg_levels = 1
+        while (
+            mg_levels < 6
+            and all(s % (2**mg_levels) == 0 for s in shape)
+            and min(shape) // (2**mg_levels) >= 16
+        ):
+            mg_levels += 1
+    if mg_levels < 2:
+        raise ValueError(
+            f"precond='mg' needs at least 2 levels (grid {shape} with "
+            f"mg_levels={mg_levels}; extents must be even and >= 32 to "
+            "coarsen, or pass mg_levels explicitly)"
+        )
+    ops: list = [handle]
+    mod = module
+    for lvl in range(1, mg_levels):
+        mod = coarsen_opdef(mod, handle.symbol)
+        mv = CompiledModule(mod, backend, device).opdef(handle.symbol)
+        scale = 0.25**lvl  # rediscretization damping (see the docstring)
+        ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo))
+    like = torch.zeros(shape, dtype=handle.dtype, device=default_device(device))
+    return mg_preconditioner(ops, like, smoother=mg_smoother)
 
 
 def compile_module(module: Module, backend: Optional[str] = None, device=None) -> CompiledModule:

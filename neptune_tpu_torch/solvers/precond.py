@@ -5,7 +5,9 @@ red-black SSOR and the dense SSOR. The operator diagonal comes from
 stencil-period probing: for a stencil whose offsets satisfy |o_d| <= w_d,
 probes that are 1 on the lattice { i : i = c (mod w_d+1) } never interact
 through the stencil, so diag = sum over probes of probe * A(probe), in
-prod_d (w_d + 1) applications. Multigrid is not ported yet.
+prod_d (w_d + 1) applications. Multigrid's preconditioner is
+`solvers.multigrid.mg_preconditioner`, behind `precond="mg"` in the
+executor (`lowering/executor.py::auto_mg_preconditioner`).
 """
 
 from __future__ import annotations
@@ -135,7 +137,8 @@ def make_preconditioner(
 
     "ssor" is matrix-free (red-black sweeps through the operator itself);
     "ssor_dense" is the assembled-triangular-solve variant for small
-    systems and the exactness oracle. "mg" is not ported yet.
+    systems and the exactness oracle. "mg" needs the module to coarsen and
+    is built by the executor (`auto_mg_preconditioner`), not here.
     """
     if name in (None, "none"):
         return None
@@ -147,8 +150,4 @@ def make_preconditioner(
         if dense_matrix is None:
             raise ValueError("ssor_dense preconditioner requires an assembled matrix")
         return ssor_dense(dense_matrix, omega=omega)
-    if name == "mg":
-        raise NotImplementedError(
-            "precond='mg' is not ported yet: ROADMAP.md, queue 1, item 7"
-        )
     raise ValueError(f"unknown preconditioner {name!r}")

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-from .ir import BF16, F32, F64, Bounds, NeptuneBuilder, TempType
+from .ir import BF16, F32, F64, Bounds, FieldType, NeptuneBuilder, TempType, TensorType
 from .ir.core import Module, Operation
 from .ir.verify import verify_and_annotate
 
@@ -92,6 +92,34 @@ def poisson5(n: int, dtype="float32") -> Module:
         return acc
 
     return _one_apply_opdef("poisson", (n, n), 1, dtype, body)
+
+
+def poisson7(n: int, dtype="float32") -> Module:
+    """@poisson: 6 u - (the 6 neighbours) on the interior of an n^3 grid."""
+
+    def body(b, S, u, s):
+        acc = b.mul(b.constant(6.0, S), b.access(u[0], [0, 0, 0]))
+        for o in ([-1, 0, 0], [1, 0, 0], [0, -1, 0], [0, 1, 0], [0, 0, -1], [0, 0, 1]):
+            acc = b.sub(acc, b.access(u[0], o))
+        return acc
+
+    return _one_apply_opdef("poisson", (n, n, n), 1, dtype, body)
+
+
+def with_solve(module: Module, name: str, **solve) -> Module:
+    """`module` with the function @solve(b) = solve_linear(assemble_matrix(
+    @name), b, **solve) added: tests/test_multigrid.py's executor program
+    (`solve` takes solve_linear's keywords: solver, tol, max_iters, precond,
+    options, ...)."""
+    b = NeptuneBuilder(module)
+    tt = module.lookup(name).ftype.inputs[0]
+    tensor = TensorType(tt.element, tt.bounds.shape)
+    fn = b.make_function("solve", "func", [tensor], [tensor])
+    b.push_block(fn.body)
+    rhs = b.load(b.wrap(fn.body.args[0], FieldType(tt.element, tt.bounds)))
+    b.return_([b.solve_linear(b.assemble_matrix(name), rhs, **solve)])
+    b.pop_block()
+    return verify_and_annotate(b.module)
 
 
 def shifted_laplacian(shape, periodic=False, reach=1) -> Module:

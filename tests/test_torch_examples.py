@@ -1,6 +1,8 @@
 """The shipped examples run through the port on the CPU, against the JAX
 package's run of the same examples: `examples/allen_cahn.py`'s three
-integrators (20 steps each) and `examples/swe_implicit.py`'s 10 steps.
+integrators (20 steps each), `examples/swe_implicit.py`'s 10 steps,
+`examples/multigrid_poisson.py` at 128^2 and the precond="mg" row of
+`examples/preconditioned_poisson.py`.
 
 The examples import the JAX package and are not edited, so the port's
 programs are written out in `torch_examples.py` (which imports the port
@@ -8,6 +10,7 @@ only); the examples' own functions give the reference, in f64. Energies,
 heights and states agree to 1e-10.
 """
 
+import re
 import runpy
 from pathlib import Path
 
@@ -15,6 +18,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
 
 import neptune_tpu as ntp  # noqa: E402
 import neptune_tpu_torch as ntt  # noqa: E402
@@ -77,3 +82,39 @@ def test_swe_implicit_ten_steps():
     for (hm_ref, qm_ref), (hm, qm) in zip(ref_rows, rows):
         assert abs(hm - hm_ref) <= TOL and abs(qm - qm_ref) <= TOL * max(qm_ref, 1.0)
     assert _rel(h_got, h) <= TOL and _rel(q_got, q) <= TOL
+
+
+def test_multigrid_poisson_128():
+    """examples/multigrid_poisson.py's main() at 128^2 in f64: V-cycles, plain
+    CG and MG-preconditioned CG iterations within 1 of the JAX package's,
+    the error against u* within 1e-8 of its."""
+    ex = runpy.run_path(str(EXAMPLES / "multigrid_poisson.py"))
+    tol = torch_examples.MG_TOL
+    ops = [ntp.assemble_matrix(ex["poisson"](n, "float64")) for n in torch_examples.MG_SIZES]
+    u_star = torch_examples.mg_manufactured()
+    b = ops[0].matvec(jnp.asarray(u_star))
+    x, info = ex["multigrid_solve"](ops, b, tol=tol, maxiter=60)
+    _, plain = ex["cg"](ops[0].matvec, b, tol=tol, maxiter=20000)
+    _, pre = ex["cg"](ops[0].matvec, b, tol=tol, maxiter=200, M=ex["mg_preconditioner"](ops, b))
+    err_ref = float(np.abs(np.asarray(x) - u_star).max())
+    got = torch_examples.multigrid_poisson_run()
+    assert all(got["converged"])
+    for key, ref in (("cycles", info.iters), ("cg", plain.iters), ("pcg", pre.iters)):
+        assert abs(got[key] - int(ref)) <= 1, (key, got[key], int(ref))
+    assert got["resnorm"] <= tol * float(np.linalg.norm(np.asarray(b)))
+    assert abs(got["err"] - err_ref) <= 1e-8, (got["err"], err_ref)
+
+
+def test_preconditioned_poisson_mg_row(capsys):
+    """examples/preconditioned_poisson.py's ("mg", {"mg_levels": 4}) row: CG
+    iterations (each package's verbose KSP line) within 1, the relative
+    residual under 1e-10, the solution within 1e-8 of the example's."""
+    capsys.readouterr()
+    ex = runpy.run_path(str(EXAMPLES / "preconditioned_poisson.py"))
+    ref_it = int(re.findall(r"KSP\(cg\) poisson: iters=(\d+)", capsys.readouterr().out)[-1])
+    x_ref = ex["x"]  # the last row's solution
+    x, rel = torch_examples.preconditioned_poisson_mg()
+    (it,) = re.findall(r"KSP\(cg\) poisson: iters=(\d+)", capsys.readouterr().out)
+    assert abs(int(it) - ref_it) <= 1, (it, ref_it)
+    assert rel <= torch_examples.PC_TOL and ex["results"]["mg"][1] <= ex["TOL"] * 1.01
+    assert np.abs(x - np.asarray(x_ref)).max() <= 1e-8 * np.abs(np.asarray(x_ref)).max()

@@ -190,6 +190,26 @@ def mixed_solver(nt, n=16):
     return P().solve, [(n, n)], "float64"
 
 
+def mg_solver(nt, n=32):
+    """A @jit_class whose traced method solves Poisson with CG and the
+    automatic geometric-multigrid preconditioner (Chebyshev smoothing)."""
+
+    @nt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]))
+    def poisson(u):
+        return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+    @nt.jit_class
+    class P:
+        def __init__(self):
+            self.H = nt.assemble_matrix(poisson)
+
+        def solve(self, b):
+            return nt.solve_linear(self.H, b, tol=1e-12, max_iters=100, precond="mg",
+                                   options={"mg_smoother": "cheb"})
+
+    return P().solve, [(n, n)], "float64"
+
+
 PROGRAMS = {
     "jacobi5": jacobi5,
     "adv4_interior": adv4,
@@ -198,9 +218,10 @@ PROGRAMS = {
     "time_advance": heat_stepper,
     "nonlinear": nonlinear_stepper,
     "mixed": mixed_solver,
+    "mg": mg_solver,
 }
 # programs that solve: results within the solves' tolerance
-SOLVES = ("time_advance", "nonlinear", "mixed")
+SOLVES = ("time_advance", "nonlinear", "mixed", "mg")
 
 
 def _trace(nt, program, args):
@@ -272,13 +293,11 @@ def test_jit_compile_library():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    # Newton, Picard and mixed precision are ported (test_torch_nonlinear.py,
-    # test_torch_refine.py, the "nonlinear" and "mixed" programs above);
-    # multigrid and the whole sharded function are not yet
+    # Newton, Picard, mixed precision and multigrid are ported
+    # (test_torch_nonlinear.py, test_torch_refine.py, test_torch_multigrid.py,
+    # the "nonlinear", "mixed" and "mg" programs above); the whole sharded
+    # function is not yet
     from neptune_tpu_torch.parallel import sharded_function
 
-    jac, _, _ = jacobi5(ntt)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ntt.solve_linear(jac, np.ones((32, 32), np.float32), precond="mg")
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         sharded_function(None, "jacobi", None)

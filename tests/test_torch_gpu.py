@@ -827,3 +827,106 @@ def test_direct_is_full_precision_on_the_card(cuda):
     A64, b64 = A.double().cpu(), b.double().cpu().reshape(-1)
     rel = torch.linalg.vector_norm(A64 @ x.double().cpu().reshape(-1) - b64) / torch.linalg.vector_norm(b64)
     assert float(rel) <= 1e-5
+
+
+def _launches_by_shape(monkeypatch) -> dict:
+    """Kernel-A launches by output shape, as `stencil_apply` makes them."""
+    shapes: dict = {}
+    real = cuda_backend.stencil_apply
+
+    def counting(op, *a, **k):
+        out = real(op, *a, **k)
+        shape = op.results[0].type.bounds.shape
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return out
+
+    monkeypatch.setattr(cuda_backend, "stencil_apply", counting)
+    return shapes
+
+
+def _recorded_solves(monkeypatch) -> list:
+    """The SolveInfo of every `krylov.solve` the executor makes."""
+    from neptune_tpu_torch.solvers import krylov
+
+    infos = []
+    real = krylov.solve
+
+    def recording(*a, **k):
+        x, info = real(*a, **k)
+        infos.append(info)
+        return x, info
+
+    monkeypatch.setattr(krylov, "solve", recording)
+    return infos
+
+
+MG_SYSTEMS = {
+    "poisson5_256_jacobi": (lambda: stencils.poisson5(256), {}),
+    "poisson5_256_cheb": (lambda: stencils.poisson5(256), {"mg_smoother": "cheb"}),
+    "poisson7_64": (lambda: stencils.poisson7(64), {}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MG_SYSTEMS)
+def test_precond_mg_on_the_kernel_route(case, cuda, monkeypatch):
+    """precond="mg" through the executor in f32: every level's matvec
+    launches kernel A; the iterations equal those with the kernels off and
+    the solutions are bitwise equal; the true residual meets tol."""
+    build, options = MG_SYSTEMS[case]
+    module = stencils.with_solve(build(), "poisson", tol=1e-4, max_iters=200, precond="mg",
+                                 options=options or None)
+    shape = module.lookup("poisson").ftype.inputs[0].bounds.shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b = torch.randn(shape, device=cuda, generator=gen)
+    shapes = _launches_by_shape(monkeypatch)
+    infos = _recorded_solves(monkeypatch)
+    x = CompiledModule(module, "auto", cuda).function("solve")(b)
+    on_shapes = dict(shapes)
+    x_off = CompiledModule(module, "torch", cuda).function("solve")(b)
+    assert shapes == on_shapes  # the kernels-off route launched nothing
+    levels = [tuple(s >> k for s in shape) for k in range(len(on_shapes))]
+    assert sorted(on_shapes) == sorted(levels) and min(levels)[0] >= 16, on_shapes
+    (on, off) = infos
+    assert on.converged and on.iters == off.iters and torch.equal(x, x_off)
+    A = CompiledModule(module, "torch", cuda).opdef("poisson")
+    assert float(torch.linalg.vector_norm(b - A(x))) <= 1e-4 * float(torch.linalg.vector_norm(b))
+
+
+@pytest.mark.gpu
+def test_mg_preconditioner_reads_nothing_on_the_host(cuda):
+    """One cycle of precond="mg"'s M: no host synchronisation (so that a
+    CUDA graph could capture it whole), and kernel A on every level."""
+    from neptune_tpu_torch.lowering import executor
+
+    cm = CompiledModule(stencils.poisson5(256), "auto", cuda)
+    M = executor.auto_mg_preconditioner(cm.module, cm._handle_for("poisson"), "auto",
+                                        mg_smoother="cheb", device=cuda)
+    r = torch.randn(256, 256, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    M(r)
+    torch.cuda.synchronize()
+    before = cuda_backend.counter.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = M(r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_backend.counter.count - before > 0 and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.gpu
+def test_chebyshev_on_the_kernel_route(cuda, monkeypatch):
+    """solver="chebyshev" (Jacobi, check_every=10) through the executor in
+    f32: iterations and solution equal to the kernels-off route's."""
+    module = stencils.with_solve(
+        stencils.poisson5(256), "poisson", solver="chebyshev", tol=1e-4, max_iters=4000,
+        precond="jacobi", options={"lam_min": 1e-4, "lam_max": 2.0, "check_every": 10})
+    b = torch.randn(256, 256, device=cuda, generator=torch.Generator(device=cuda).manual_seed(6))
+    infos = _recorded_solves(monkeypatch)
+    before = cuda_backend.counter.count
+    x = CompiledModule(module, "auto", cuda).function("solve")(b)
+    assert cuda_backend.counter.count - before > infos[0].iters
+    x_off = CompiledModule(module, "torch", cuda).function("solve")(b)
+    (on, off) = infos
+    assert on.converged and on.iters == off.iters and (on.iters - 1) % 10 == 0
+    assert torch.equal(x, x_off)

@@ -1,9 +1,12 @@
-"""`examples/allen_cahn.py` and `examples/swe_implicit.py` written with the
-port (`import neptune_tpu_torch as ntt`): the same programs, line for line,
-as the examples build with the JAX package. This module imports the port
+"""`examples/allen_cahn.py`, `examples/swe_implicit.py`,
+`examples/multigrid_poisson.py` (at 128^2) and the multigrid row of
+`examples/preconditioned_poisson.py` written with the port (`import
+neptune_tpu_torch as ntt`): the same programs, line for line, as the
+examples build with the JAX package. This module imports the port
 only; `test_torch_examples.py` holds its runs against the examples' own."""
 
 import numpy as np
+import torch
 
 import neptune_tpu_torch as ntt
 
@@ -120,3 +123,69 @@ def swe_run(steps: int = 10):
         h, q = h.cpu().numpy(), q.cpu().numpy()
         rows.append((h.mean(), np.abs(q).max()))
     return rows, (h, q)
+
+
+# examples/multigrid_poisson.py, at MG_N^2 in f64
+MG_N = 128
+MG_SIZES = [128, 64, 32, 16]
+MG_TOL = 1e-9
+
+
+def mg_poisson(n, dtype="float64"):
+    """The example's rediscretized Poisson opdef at n^2."""
+    inv_h2 = float((n - 1) * (n - 1))
+
+    @ntt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]), dtype=dtype,
+                       name=f"poisson{n}")
+    def op(u):
+        return (4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]) * inv_h2
+
+    return op
+
+
+def mg_manufactured(n=MG_N) -> np.ndarray:
+    """The example's u*: smooth, zero on the boundary ring."""
+    xs = np.linspace(0, 1, n)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    u_star = np.sin(np.pi * X) * np.sin(2 * np.pi * Y) * (X * (1 - X))
+    u_star[0, :] = u_star[-1, :] = u_star[:, 0] = u_star[:, -1] = 0.0
+    return u_star
+
+
+def multigrid_poisson_run() -> dict:
+    """The example's main(): V-cycles and the error against u*, plain CG's
+    iterations and MG-preconditioned CG's."""
+    from neptune_tpu_torch.solvers import cg, mg_preconditioner, multigrid_solve
+
+    ops = [ntt.assemble_matrix(mg_poisson(n)) for n in MG_SIZES]
+    u_star = mg_manufactured()
+    b = ops[0].matvec(torch.from_numpy(u_star))
+    x, info = multigrid_solve(ops, b, tol=MG_TOL, maxiter=60)
+    _, plain = cg(ops[0].matvec, b, tol=MG_TOL, maxiter=20000)
+    M = mg_preconditioner(ops, b)
+    _, pre = cg(ops[0].matvec, b, tol=MG_TOL, maxiter=200, M=M)
+    return {"cycles": info.iters, "resnorm": info.resnorm,
+            "err": float(np.abs(x.numpy() - u_star).max()), "cg": plain.iters,
+            "pcg": pre.iters, "converged": (info.converged, plain.converged, pre.converged)}
+
+
+# examples/preconditioned_poisson.py's precond="mg" row
+PC_N = 256
+PC_TOL = 1e-10
+
+
+def preconditioned_poisson_mg():
+    """(x, relative residual) of the example's ("mg", {"mg_levels": 4}) row:
+    CG on the 256^2 Poisson system with boundary data, verbose."""
+
+    @ntt.linear_op_def(bounds=([0, 0], [PC_N, PC_N]), interior=([1, 1], [PC_N - 1, PC_N - 1]),
+                       name="poisson")
+    def poisson(u):
+        return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+    H = ntt.assemble_matrix(poisson)
+    b = np.random.default_rng(0).standard_normal((PC_N, PC_N))
+    x = ntt.solve_linear(H, b, solver="cg", tol=PC_TOL, max_iters=20000, precond="mg",
+                         options={"mg_levels": 4}, verbose=True)
+    r = b - H.matvec(x).numpy()
+    return x.numpy(), float(np.linalg.norm(r) / np.linalg.norm(b))
