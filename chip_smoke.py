@@ -64,13 +64,27 @@ line, the card's nvidia-smi line, and the result line):
      examples/multigrid_poisson.py's 512..16 hierarchy from a zero start
      and from fmg_start; (d) 7-pt 256^3 with precond="mg"; (e)
      solver="chebyshev" with Jacobi, check_every=10 and estimated bounds.
+ 12. the communication-avoiding solvers and sharded_function on bench.py's
+     256^2 f32 CA system: (a) cg_sharded (s=8), gmres_sharded (s=8), both
+     with the Chebyshev basis, bicgstab_sharded (s=2) and
+     chebyshev_sharded (k_fuse=8, 1201 iterations) on a one-process mesh, each on the
+     kernel route against the kernels-off route (equal iterations,
+     bitwise-equal x, kernel A's window form launched), with ms per solve
+     and iterations/s beside its per-iteration counterpart on the same
+     mesh, and the host's coefficient space per block against the dense
+     factors on the card; (b) the same four on a (2,2) mesh of phase 9's
+     four processes, gathered and held to (a), with ring shifts, bytes and
+     reductions per outer block; sharded_function of the 3-D GMRES step
+     (256^3, (4,1)) and the 2-D CG heat step (256^2, (2,2)) against the
+     one-process function.
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
 (bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
 over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
 PyTorch call that computes the same function where there is one. Kernel
-A's launches are phase 4's and phase 11's.
+A's launches are phase 4's and phase 11's; its window form's phase 8's and
+phase 12a's.
 """
 
 from __future__ import annotations
@@ -659,6 +673,8 @@ def phase9_rank(argv) -> int:
             torch.linalg.vector_norm(bg - A(xg)) / torch.linalg.vector_norm(bg)
         ).item()
     report["gmres"] = solve
+    # phase 12's four-process part, in the same processes
+    report["phase12"] = phase12_rank(rank, dev, sync)
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
@@ -1329,7 +1345,8 @@ def kinds_profile(fn, iters: int) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = e.key.lower()
-        kind = ("kernel A" if "nt_apply" in key else "reduction" if "reduce" in key
+        kind = ("kernel A" if "nt_apply" in key else "matmul" if "gemm" in key or "gemv" in key
+                else "reduction" if "reduce" in key
                 else "interpolation" if "upsample" in key or "interp" in key
                 else "copy/fill" if "memcpy" in key or "memset" in key or "fill" in key
                 else "elementwise/other")
@@ -1551,6 +1568,343 @@ def phase11(ntt, dev, b_ref: tuple) -> int:
     return a_launches
 
 
+# ---- phase 12: the communication-avoiding solvers and sharded_function -----
+# bench.py's CA system (`_ca_poisson_256`): the 256^2 f32 5-pt Poisson
+# operator with a Dirichlet ring, the rhs from default_rng(0) on the
+# interior, lam_min = 2(2 - 2cos(pi/257)), lam_max = 8, tol 1e-4; each CA
+# row beside its per-iteration counterpart on the same mesh, as bench.py
+# pairs them (CG and GMRES(8) with maxiter 3500, BiCGStab, and Chebyshev
+# with the CA row's iterations). Chebyshev runs 1201 iterations, not the
+# bench row's 3200: its f32 true residual reaches tol at ~790 iterations
+# and f32's floor, ~3.4e-5, by 1000 (3201 iterations end at 3.48e-5 on the
+# card), so the last 2000 iterations only cost time.
+CA_N = 256
+CA_CHEB_ITERS = 1201
+# the case whose solve phase 12a also traces, for where its time goes
+CA_PROFILED = "cg_sharded s=8 chebyshev basis"
+CA_PROFILED_ITERS = 64
+CA_TOL = 1e-4
+# sharded_function on four processes: (label, entry builder, function, mesh,
+# grid size)
+PHASE12_FUNCTIONS = [
+    ("3-D GMRES step 256^3 on (4,1)", "build_step_3d", "step3d", (4, 1), 256),
+    ("2-D CG heat step 256^2 on (2,2)", "build_step", "step", (2, 2), 256),
+]
+# the solves' tol is 1e-6 in both steps: the sharded and the whole-grid
+# results may differ by what two solves to that tol leave (I - c lap has a
+# condition number under 2 here), so the gathered result is held to 10 tol
+# in the relative 2-norm
+PHASE12_FN_TOL = 1e-5
+
+
+def ca_system():
+    """(module, rhs, lam_min, lam_max) of bench.py's `_ca_poisson_256`."""
+    from neptune_tpu_torch import stencils
+
+    b = np.zeros((CA_N, CA_N), np.float32)
+    b[1:-1, 1:-1] = np.random.default_rng(0).standard_normal((CA_N - 2, CA_N - 2))
+    lmin = 2.0 * (2.0 - 2.0 * np.cos(np.pi / (CA_N + 1)))
+    return stencils.poisson5(CA_N), b, lmin, 8.0
+
+
+# In f32 the iteration counts of CA-GMRES(8) and CA-BiCGStab(2) on this
+# system follow roundoff: the JAX package itself, on the CPU, took 600
+# (stalled at 1.9e-4), 928, 760 and 832 GMRES iterations and 578, 406, 525
+# and 516 BiCGStab iterations on its (1,), (2,2), (4,1) and (1,4) meshes;
+# CG took 473 on every mesh. So CG and Chebyshev ("steady") are held to
+# converge and to one outer block between meshes; GMRES and BiCGStab to a
+# true residual under CA_GROSS * tol, their iterations and convergence
+# printed.
+CA_GROSS = 10
+
+
+def ca_cases(lmin: float, lmax: float) -> dict:
+    """label -> (CA solve of (cm, gmesh), per-iteration counterpart of
+    (matvec, b, group), iterations per outer block, steady)."""
+    from neptune_tpu_torch import parallel as par
+    from neptune_tpu_torch.solvers import krylov
+
+    cheb = sys.modules["neptune_tpu_torch.solvers.chebyshev"]
+    lam = dict(lam_min=lmin, lam_max=lmax)
+    return {
+        "cg_sharded s=8 chebyshev basis": (
+            lambda cm, gm, maxiter=2000: par.cg_sharded(cm, "poisson", gm, s=8, basis="chebyshev",
+                                                        maxiter=maxiter, tol=CA_TOL, **lam),
+            lambda mv, b, g: krylov.cg(mv, b, tol=CA_TOL, maxiter=3500, group=g), 8, True),
+        "gmres_sharded s=8 chebyshev basis": (
+            lambda cm, gm: par.gmres_sharded(cm, "poisson", gm, s=8, basis="chebyshev",
+                                             maxiter=2000, tol=CA_TOL, **lam),
+            lambda mv, b, g: krylov.gmres(mv, b, tol=CA_TOL, maxiter=3500, restart=8, group=g),
+            8, False),
+        "bicgstab_sharded s=2": (
+            lambda cm, gm: par.bicgstab_sharded(cm, "poisson", gm, s=2, maxiter=2000,
+                                                tol=CA_TOL),
+            lambda mv, b, g: krylov.bicgstab(mv, b, tol=CA_TOL, maxiter=3500, group=g), 2, False),
+        "chebyshev_sharded k_fuse=8": (
+            lambda cm, gm: par.chebyshev_sharded(cm, "poisson", gm, k_fuse=8,
+                                                 maxiter=CA_CHEB_ITERS, tol=CA_TOL, **lam),
+            # the group-free Chebyshev runs on a mesh of one process only
+            (lambda mv, b, g: cheb.chebyshev(mv, b, tol=CA_TOL, maxiter=CA_CHEB_ITERS, **lam)
+             if g is None else None), 8, True),
+    }
+
+
+def phase12_rank(rank: int, dev, sync) -> dict:
+    """Phase 12 on one of phase 9's four processes: every CA case on a (2,2)
+    mesh, and sharded_function on PHASE12_FUNCTIONS, each gathered."""
+    import torch
+    import torch.distributed as dist
+    from neptune_tpu_torch import entry
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import GridMesh, sharded_function
+
+    module, b, lmin, lmax = ca_system()
+    gm = GridMesh((2, 2), ("x", "y"), device=dev)
+    bl = gm.shard(b)
+    # host milliseconds inside the mesh's communication, each call ending
+    # with its received data on the card
+    comm_ms = {"ring_shift": 0.0, "allreduce": 0.0}
+
+    def timed(name):
+        real = getattr(gm, name)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            sync()
+            comm_ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(gm, name, run)
+
+    timed("ring_shift")
+    timed("allreduce")
+    out = {"ca": [], "functions": []}
+    for label, (make, *_) in ca_cases(lmin, lmax).items():
+        solve = make(CompiledModule(module, "auto", dev), gm)
+        for c in counters().values():
+            c.reset()
+        gm.sent_bytes = gm.staged_bytes = gm.shifts = gm.reductions = 0
+        comm_ms.update(ring_shift=0.0, allreduce=0.0)
+        dist.barrier()
+        t0 = time.perf_counter()
+        x, info = solve(bl)
+        sync()
+        row = {"label": label, "ms": (time.perf_counter() - t0) * 1e3, "iters": info.iters,
+               "converged": info.converged, "shifts": gm.shifts, "reductions": gm.reductions,
+               "sent_bytes": gm.sent_bytes, "staged_bytes": gm.staged_bytes,
+               "launches": {c.name: c.count for c in counters().values() if c.count},
+               "device": str(x.device), "shift_ms": comm_ms["ring_shift"],
+               "reduce_ms": comm_ms["allreduce"]}
+        xg = gm.gather(x)
+        if rank == 0:
+            A = CompiledModule(module, "torch", dev).opdef("poisson")
+            bg = torch.from_numpy(b).to(dev)
+            row["true_rel_residual"] = (
+                torch.linalg.vector_norm(bg - A(xg)) / torch.linalg.vector_norm(bg)).item()
+        out["ca"].append(row)
+        dist.barrier()
+    for label, builder, fname, mesh, n in PHASE12_FUNCTIONS:
+        cm = getattr(entry, builder)(n, "float32", device=dev)
+        gmf = GridMesh(mesh, ("x", "y"), device=dev)
+        shape = cm.module.lookup(fname).ftype.inputs[0].shape
+        u = np.random.default_rng(SEED + 2).standard_normal(shape, dtype=np.float32)
+        f = sharded_function(cm, fname, gmf)
+        ul = gmf.shard(u)
+        dist.barrier()
+        row = {"label": label, "ms": host_ms(lambda: f(ul), 3, sync)}
+        y = f(ul)
+        g = gmf.gather(y)
+        if rank == 0:
+            ug = torch.from_numpy(u).to(dev)
+            whole = cm.function(fname)
+            ref = whole(ug)
+            row["whole_ms"] = host_ms(lambda: whole(ug), 3, sync)
+            row["max_abs_err"] = (g - ref).abs().max().item()
+            row["rel_err"] = (torch.linalg.vector_norm(g - ref)
+                              / torch.linalg.vector_norm(ref)).item()
+        out["functions"].append(row)
+        del g, y, ul
+        dist.barrier()
+    return out
+
+
+def card_dense_us(dev, s: int = 8) -> dict:
+    """Microseconds per call of the coefficient space's dense factors on
+    the card instead of the host: eigh, qr and a triangular solve of CA-CG's
+    (2s+1)^2 and CA-GMRES's (s+1)^2 f32 Gram matrices, each call
+    synchronised (the solver reads its result), and the read of such a Gram
+    matrix from the card."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+
+    def per_call_us(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    for m in (2 * s + 1, s + 1):
+        V = rng.standard_normal((m, 4096)).astype(np.float32)
+        Gd = torch.from_numpy(V @ V.T).to(dev)
+
+        def card():
+            _, Q = torch.linalg.eigh(Gd)
+            q, r = torch.linalg.qr(Q[:, :s])
+            y = torch.linalg.solve_triangular(r, q.T[:, :1], upper=True)
+            torch.cuda.synchronize()
+            return y
+
+        out[f"dense_{m}"] = per_call_us(card, 50)
+        out[f"read_{m}"] = per_call_us(lambda: Gd.cpu().numpy(), 200)
+    return out
+
+
+def phase12a(dev, module, b, lmin, lmax, gm, A):
+    """Phase 12a: each CA case on the one-process mesh `gm`, kernel route
+    against kernels-off route, beside its per-iteration counterpart.
+    Returns ({label: iterations}, kernel-A window launches)."""
+    import torch
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import shardmap_opdef
+
+    bnorm = torch.linalg.vector_norm(b)
+    launches, one = 0, {}
+    for label, (make, counterpart, block, steady) in ca_cases(lmin, lmax).items():
+        solve = make(CompiledModule(module, "auto", dev), gm)
+        solve_off = make(CompiledModule(module, "torch", dev), gm)
+        # single solves, not warmed: a solve lasts tenths of a second to
+        # seconds, and kernel A's library is loaded by phase 1
+        torch.cuda.synchronize()
+        for c in counters().values():
+            c.reset()
+        t0 = time.perf_counter()
+        x, info = solve(b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_win = cuda_backend.window_counter.count
+        require(n_win > 0, f"phase 12a {label}: kernel A's window form not launched")
+        launches += n_win
+        x_off, info_off = solve_off(b)
+        require(info.iters == info_off.iters and torch.equal(x, x_off),
+                f"phase 12a {label}: kernel route {info.iters} iterations against kernels-off "
+                f"{info_off.iters}, bitwise {torch.equal(x, x_off)}")
+        rel = (torch.linalg.vector_norm(b - A(x)) / bnorm).item()
+        require((info.converged and rel <= CA_TOL) if steady else rel <= CA_GROSS * CA_TOL,
+                f"phase 12a {label}: converged {info.converged}, true relative residual {rel!r}")
+        mv = shardmap_opdef(CompiledModule(module, "auto", dev), "poisson", gm)
+        t0 = time.perf_counter()
+        _, cinfo = counterpart(mv, b, None)
+        torch.cuda.synchronize()
+        c_ms = (time.perf_counter() - t0) * 1e3
+        one[label] = info.iters
+        if label == CA_PROFILED:
+            # a trace of the solve's first CA_PROFILED_ITERS iterations:
+            # the whole solve's trace takes tens of seconds to read
+            short = make(CompiledModule(module, "auto", dev), gm, maxiter=CA_PROFILED_ITERS)
+            kinds = kinds_profile(lambda: short(b), CA_PROFILED_ITERS)
+            say(f"phase 12a {label} split of its first {CA_PROFILED_ITERS} iterations "
+                "(torch.profiler), per iteration: " + "; ".join(
+                    f"{k} {n:.1f} launches {k_ms:.4f} ms" for k, (n, k_ms) in sorted(kinds.items()))
+                + f"; host wall of the whole solve {ms / info.iters:.3f} ms")
+        say(f"phase 12a {label}, one process, tol {CA_TOL}: {info.iters} iterations (= kernels-off "
+            f"route, bitwise equal), converged {info.converged}, true relative residual {rel!r}; "
+            f"{ms:.1f} ms per solve, "
+            f"{info.iters / ms * 1e3:.0f} iterations/s; kernel A's window form {n_win} launches "
+            f"({n_win / info.iters:.2f} per iteration); per-iteration counterpart on the same "
+            f"mesh {cinfo.iters} iterations in {c_ms:.1f} ms, {cinfo.iters / c_ms * 1e3:.0f} "
+            f"iterations/s (CA/counterpart {info.iters / ms / (cinfo.iters / c_ms):.3f})")
+    return one, launches
+
+
+def phase12(dev, reports) -> int:
+    """Phase 12: (a) each CA case on a one-process mesh on the card, on the
+    kernel route against the kernels-off route, beside its per-iteration
+    counterpart; (b) the four-process (2,2) runs made by phase 9's
+    processes (`phase12_rank`), held to (a); sharded_function against the
+    whole-grid function. Returns (a)'s kernel-A window-form launches."""
+    import torch
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import GridMesh, ca_cg, ca_gmres
+
+    t12 = time.perf_counter()
+    module, b_np, lmin, lmax = ca_system()
+    gm = GridMesh((1,), ("x",), device=dev)
+    b = torch.from_numpy(b_np).to(dev)
+    A = CompiledModule(module, "torch", dev).opdef("poisson")
+    # the host's coefficient space, timed inside the solves: CA-CG's s
+    # inner iterations and CA-GMRES's factor and least squares per block
+    host_us = {"cg": [], "gmres": []}
+    real = {"cg": ca_cg._cg_block, "gmres": ca_gmres._ls_update}
+
+    def timed(key):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = real[key](*a)
+            host_us[key].append((time.perf_counter() - t0) * 1e6)
+            return out
+
+        return run
+
+    ca_cg._cg_block, ca_gmres._ls_update = timed("cg"), timed("gmres")
+    try:
+        one, launches = phase12a(dev, module, b, lmin, lmax, gm, A)
+    finally:
+        ca_cg._cg_block, ca_gmres._ls_update = real["cg"], real["gmres"]
+    cs = card_dense_us(dev)
+    say("phase 12 coefficient space per outer block (s=8, f32): on the host (NumPy, timed in "
+        f"12a's solves) CA-CG {np.median(host_us['cg']):.1f} us, CA-GMRES "
+        f"{np.median(host_us['gmres']):.1f} us (medians of {len(host_us['cg'])} and "
+        f"{len(host_us['gmres'])} blocks); on the card eigh + qr + triangular solve alone "
+        f"{cs['dense_17']:.1f} us (17^2), {cs['dense_9']:.1f} us (9^2), reading the Gram "
+        f"matrix {cs['read_17']:.1f} us (17^2), {cs['read_9']:.1f} us (9^2)")
+
+    rows = [r["phase12"] for r in reports]
+    for i, (label, (_, _, block, steady)) in enumerate(ca_cases(lmin, lmax).items()):
+        r = [row["ca"][i] for row in rows]
+        r0 = r[0]
+        iters = one[label]
+        require(all(x["iters"] == r0["iters"] for x in r), f"phase 12b {label}: ranks disagree")
+        require(all(x["device"].startswith("cuda") for x in r),
+                f"phase 12b {label}: a result is not on the card")
+        require(all(x["launches"].get("stencil_apply_window", 0) > 0 for x in r),
+                f"phase 12b {label}: kernel A's window form not launched on every rank")
+        rel = r0["true_rel_residual"]
+        if steady:
+            require(abs(r0["iters"] - iters) <= block,
+                    f"phase 12b {label}: {r0['iters']} iterations against {iters} in one process")
+        require((r0["converged"] and rel <= CA_TOL) if steady else rel <= CA_GROSS * CA_TOL,
+                f"phase 12b {label}: converged {r0['converged']}, true relative residual {rel!r}")
+        blocks = -(-r0["iters"] // block)
+        say(f"phase 12b {label}, four processes (2,2): {r0['iters']} iterations (one process "
+            f"{iters}), converged {r0['converged']}, true relative residual {rel!r}; "
+            f"{r0['ms']:.1f} ms per "
+            f"solve, {r0['iters'] / r0['ms'] * 1e3:.0f} iterations/s (rank 0, single solve), of "
+            f"which {r0['shift_ms']:.1f} ms in ring shifts and {r0['reduce_ms']:.1f} ms in "
+            f"reductions (host clock, each synchronised); per "
+            f"outer block of {block}: {r0['shifts'] / blocks:.1f} ring shifts, "
+            f"{r0['sent_bytes'] / blocks:.0f} B sent ({r0['staged_bytes'] / blocks:.0f} B "
+            f"through host memory), {r0['reductions'] / blocks:.2f} reductions; rank-0 launches "
+            f"{json.dumps(r0['launches'])}")
+    for i, (label, *_rest) in enumerate(PHASE12_FUNCTIONS):
+        r0 = rows[0]["functions"][i]
+        require(r0["rel_err"] <= PHASE12_FN_TOL,
+                f"phase 12b sharded_function {label}: relative error {r0['rel_err']!r}")
+        say(f"phase 12b sharded_function {label}: gathered against the one-process "
+            f"cm.function, max_abs_err {r0['max_abs_err']!r}, relative 2-norm error "
+            f"{r0['rel_err']!r} (tolerance {PHASE12_FN_TOL}); per call (host clock, rank 0, "
+            f"median [min, max] of 3) {r0['ms'][0]:.1f} [{r0['ms'][1]:.1f}, {r0['ms'][2]:.1f}] "
+            f"ms, whole grid in one process {r0['whole_ms'][0]:.1f} [{r0['whole_ms'][1]:.1f}, "
+            f"{r0['whole_ms'][2]:.1f}] ms")
+    say(f"phase 12 kernel-A window-form launches (12a) {launches}; phase wall "
+        f"{time.perf_counter() - t12:.1f} s")
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
@@ -1627,6 +1981,7 @@ def main() -> int:
     sources.append(cuda_backend.source(stencils.the_apply(stencils.graded((4096, 4096), lb=(3, -5)))))
     sources += phase10_sources(ntt)
     sources += phase11_sources(ntt)
+    sources.append(cuda_backend.source(stencils.the_apply(ca_system()[0])))
     cg_sources = [codegen.fused_cg_source(fused.cg_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -2046,6 +2401,9 @@ def main() -> int:
     # ---- phase 11: multigrid and Chebyshev at full size ---------------------
     mg_launches = phase11(ntt, dev, (b_ms, b_extra["iters"]))
 
+    # ---- phase 12: the CA solvers and sharded_function ---------------------
+    ca_launches = phase12(dev, reports)
+
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if also:
@@ -2088,8 +2446,8 @@ def main() -> int:
          "neptune_tpu/lowering/pallas_chain.py:516 (global_start)", None),
     ):
         k_ms, p_ms, bnd, lib, shape, err = forms[name]
-        kernels.append(entry_of(name, source, replaces, sh_launches[name], err, k_ms, p_ms, bnd,
-                                lib, shape, also))
+        n = sh_launches[name] + (ca_launches if name == "stencil_apply_window" else 0)
+        kernels.append(entry_of(name, source, replaces, n, err, k_ms, p_ms, bnd, lib, shape, also))
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s, builds included")
     say(json.dumps({"kernels": kernels}))
     say(card)

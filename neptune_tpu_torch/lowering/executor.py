@@ -354,6 +354,11 @@ class CompiledModule:
             a = torch.as_tensor(np.asarray(a), device=default_device(self.device))
         return a.to(device=a.device if self.device is None else self.device, dtype=dtype)
 
+    def _arg_shape(self, shape) -> tuple:
+        """The shape a grid argument of declared `shape` takes (a block of
+        it in the mesh view of `parallel.sharded_function`)."""
+        return tuple(shape)
+
     def _make_callable(self, fn: Function) -> Callable:
         def run(*args):
             if len(args) != len(fn.body.args):
@@ -366,7 +371,7 @@ class CompiledModule:
                 t = barg.type
                 if isinstance(t, (TensorType, TempType)):
                     a = self._tensor(a, torch_backend.DTYPES[t.element])
-                    want = t.bounds.shape if isinstance(t, TempType) else t.shape
+                    want = self._arg_shape(t.bounds.shape if isinstance(t, TempType) else t.shape)
                     if tuple(a.shape) != tuple(want):
                         raise TypeError(
                             f"@{fn.name} arg {barg.name_hint}: shape {tuple(a.shape)} != "

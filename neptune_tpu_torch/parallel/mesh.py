@@ -10,7 +10,11 @@ axis d; trailing grid dims beyond the mesh's rank stay whole.
 
 `ring_shift` takes the place of `lax.ppermute` over one axis and sends to
 the neighbour's global rank, computed from the mesh coordinates, so no
-per-axis groups are needed. A mesh of one position needs no process group.
+per-axis groups are needed. `allreduce` takes the place of `lax.psum` over
+the axes that shard a field: a field of fewer dims than the mesh is
+replicated along the remaining axes, so its sums run over a subgroup
+(built with the mesh, on every process in the same order). A mesh of one
+position needs no process group.
 """
 
 from __future__ import annotations
@@ -65,9 +69,15 @@ class GridMesh:
         self.coords = None
         self.device = None
         # bytes this process sent to its neighbours, and the part of them
-        # that went through host memory (a gloo group with CUDA blocks)
+        # that went through host memory (a gloo group with CUDA blocks);
+        # ring_shift calls and allreduce calls
         self.sent_bytes = 0
         self.staged_bytes = 0
+        self.shifts = 0
+        self.reductions = 0
+        # grid rank -> the group that sums a field of that rank (None: the
+        # field is whole on this process)
+        self._sum_groups: dict = {}
         if abstract:
             return
         if self.n_devices == 1:
@@ -86,6 +96,7 @@ class GridMesh:
             self.rank = dist.get_rank()
             self.group = dist.group.WORLD
         self.coords = self.coords_of(self.rank)
+        self._build_sum_groups()
         self.device = _default_device(self.rank) if device is None else torch.device(device)
         if self.device.type == "cuda" and self.device.index is not None:
             torch.cuda.set_device(self.device)
@@ -141,9 +152,51 @@ class GridMesh:
                 out.append(slice(None))
         return tuple(out)
 
+    def _build_sum_groups(self):
+        """The group of each grid rank r up to the mesh's rank: the
+        processes that differ only in the first r mesh coordinates (a new
+        group where that is neither this process alone nor all of them).
+        `dist.new_group` is collective, so every process builds every
+        group, in one order."""
+        for r in range(1, len(self.shape) + 1):
+            size = math.prod(self.shape[:r])
+            if size == 1 or self.group is None:
+                self._sum_groups[r] = None
+            elif size == self.n_devices:
+                self._sum_groups[r] = self.group
+            else:
+                mine = None
+                for rest in np.ndindex(*self.shape[r:]):
+                    ranks = [
+                        int(np.ravel_multi_index(tuple(c) + rest, self.shape))
+                        for c in np.ndindex(*self.shape[:r])
+                    ]
+                    g = dist.new_group(ranks)
+                    if rest == self.coords[r:]:
+                        mine = g
+                self._sum_groups[r] = mine
+
+    def sum_group(self, grid_rank: int):
+        """The process group over which a field of `grid_rank` dims is
+        sharded (None: every process holds it whole)."""
+        return self._sum_groups[min(grid_rank, len(self.shape))]
+
     # ------------------------------------------------------------------
     # data
     # ------------------------------------------------------------------
+
+    def allreduce(self, t: torch.Tensor, grid_rank: int, op: str = "sum") -> torch.Tensor:
+        """t ("sum", "max" or "min") over the processes that shard a field
+        of `grid_rank` dims: `lax.psum` over exactly those mesh axes, since
+        the other axes hold replicas. Counted in `reductions`."""
+        self.reductions += 1
+        group = self.sum_group(grid_rank)
+        if group is None:
+            return t
+        staged = self._staged(t)
+        buf = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
+        dist.all_reduce(buf, op=getattr(dist.ReduceOp, op.upper()), group=group)
+        return buf.to(t.device) if staged else buf
 
     def shard(self, array) -> torch.Tensor:
         """This process's block of a global array (a tensor or NumPy array
@@ -178,6 +231,7 @@ class GridMesh:
         ring. On an axis of size 1 the ring is this process: a copy. A gloo
         group takes CUDA tensors through host memory; the kernels still run
         on the card."""
+        self.shifts += 1
         if self.axis_size(name) == 1:
             return t.clone()
         send = t.contiguous()

@@ -235,14 +235,48 @@ def _single_apply(fn):
     return apply_op
 
 
-def _fused_plan(fn, op, gmesh: GridMesh, names, tt, sweeps_k: int = 1):
-    """Eligibility and geometry of the fused strip-exchange path: (need,
-    scalar_vals, ret_index, arg_order) or None. need[d] is the (lo, hi)
-    per-sweep reach in dim d; the strips carry sweeps_k times that."""
-    rank = tt.bounds.rank
+def apply_reach(op) -> list:
+    """Per dim the (lo, hi) cells one apply reads below and above each
+    output cell, from its access offsets and its inputs' lb shifts."""
+    rank = op.results[0].type.bounds.rank
     n_in = op.attrs.get("num_inputs", len(op.operands))
     outer = op.results[0].type.bounds
     input_lbs = [v.type.bounds.lb for v in op.operands[:n_in]]
+    sshape = op.attrs.get("shape")
+    offs = list(sshape.offsets) if sshape and sshape.offsets else [(0,) * rank]
+    need = []
+    for d in range(rank):
+        lo_n = hi_n = 0
+        for k in range(n_in):
+            shift = outer.lb[d] - input_lbs[k][d]
+            for o in offs:
+                adj = o[d] + shift
+                lo_n = max(lo_n, -adj)
+                hi_n = max(hi_n, adj)
+        need.append((lo_n, hi_n))
+    return need
+
+
+def _reach_fits(need, outer, gmesh: GridMesh, names, sweeps_k: int = 1) -> bool:
+    """Strips come from immediate neighbours only: the grid must split
+    evenly and the K-deep reach must fit one block (band stitching slices
+    sweeps_k*(lo+hi) core rows)."""
+    for d in range(outer.rank):
+        nm = names[d]
+        ax = gmesh.shape[gmesh.axis_names.index(nm)] if nm else 1
+        if outer.shape[d] % max(ax, 1) != 0:
+            return False
+        if sweeps_k * (need[d][0] + need[d][1]) > outer.shape[d] // max(ax, 1):
+            return False
+    return True
+
+
+def _fused_plan(fn, op, gmesh: GridMesh, names, sweeps_k: int = 1):
+    """Eligibility and geometry of the fused strip-exchange path: (need,
+    scalar_vals, ret_index, arg_order) or None. need[d] is the (lo, hi)
+    per-sweep reach in dim d; the strips carry sweeps_k times that."""
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    outer = op.results[0].type.bounds
     arg_uids = {a.uid: i for i, a in enumerate(fn.body.args)}
     for o in op.operands[:n_in]:  # apply inputs must be opdef args directly
         if o.uid not in arg_uids:
@@ -262,27 +296,9 @@ def _fused_plan(fn, op, gmesh: GridMesh, names, tt, sweeps_k: int = 1):
         else:
             return None
 
-    sshape = op.attrs.get("shape")
-    offs = list(sshape.offsets) if sshape and sshape.offsets else [(0,) * rank]
-    need = []
-    for d in range(rank):
-        lo_n = hi_n = 0
-        for k in range(n_in):
-            shift = outer.lb[d] - input_lbs[k][d]
-            for o in offs:
-                adj = o[d] + shift
-                lo_n = max(lo_n, -adj)
-                hi_n = max(hi_n, adj)
-        need.append((lo_n, hi_n))
-    # strips come from immediate neighbours only: the K-deep reach must fit
-    # one block (band stitching slices sweeps_k*(lo+hi) core rows)
-    for d in range(rank):
-        nm = names[d]
-        ax = gmesh.shape[gmesh.axis_names.index(nm)] if nm else 1
-        if outer.shape[d] % max(ax, 1) != 0:
-            return None
-        if sweeps_k * (need[d][0] + need[d][1]) > outer.shape[d] // max(ax, 1):
-            return None
+    need = apply_reach(op)
+    if not _reach_fits(need, outer, gmesh, names, sweeps_k):
+        return None
     ret = fn.body.ops[-1]
     res_uids = {r.uid: i for i, r in enumerate(op.results)}
     ret_index = [res_uids[o.uid] for o in ret.operands]
@@ -447,7 +463,7 @@ def _run_band_fixups(outs, n_fields, strips, ext_slice, sharded_dims, need_k, nl
     return outs
 
 
-def _shardmap_fused(fn, op, gmesh: GridMesh, names, tt, plan, backend) -> Callable:
+def _shardmap_fused(fn, op, gmesh: GridMesh, names, plan, backend) -> Callable:
     """Fused sharded single-apply execution: a zero-ghost main sweep on the
     block plus thin band fixups.
 
@@ -459,47 +475,59 @@ def _shardmap_fused(fn, op, gmesh: GridMesh, names, tt, plan, backend) -> Callab
     only the zone's rows of each band; here the replay is one eager apply
     over the whole band, whose zone rows read the same cells.
     """
-    rank = tt.bounds.rank
-    n_in = op.attrs.get("num_inputs", len(op.operands))
-    outer = op.results[0].type.bounds
     need, scalar_vals, ret_index, arg_order = plan
-    periodic = bool(op.attrs.get("periodic"))
-    # torus ops: whole dims wrap locally (their local extent is global);
-    # sharded dims zero-fill, and the bands (whose ring wraps at the mesh
-    # edge) recompute those edge zones
-    wrap = tuple(periodic and not names[d] for d in range(rank))
-    # the main sweep goes to kernel A's window form where the JAX package
-    # takes its window kernel: bounded ops that `supported` takes
-    use_window = _kernels(backend) and not periodic and cuda_backend.supported(op)
 
     def local_fn(*locs):
         locs = _bind(fn, locs, gmesh)
         inputs_loc = [locs[i] for i in arg_order]
-        scalars_rt = _resolve_scalars(scalar_vals, locs)
-        nloc = tuple(inputs_loc[0].shape)
-        gstart = _gstart(nloc, rank, names, outer, gmesh)
-
-        if use_window:
-            res = cuda_backend.apply_window(op, inputs_loc, scalars_rt, gstart)
-        else:
-            res = torch_backend.execute_apply_window(op, inputs_loc, scalars_rt, gstart, wrap=wrap)
-        outs = [_owned(o, inputs_loc) for o in (res if isinstance(res, tuple) else (res,))]
-
-        strips, ext_slice, sharded_dims = _strip_exchange(
-            inputs_loc, nloc, rank, names, need, periodic, gmesh
-        )
-
-        def replay(bands, zone):
-            res = torch_backend.execute_apply_window(op, bands, scalars_rt, zone.bases, wrap=wrap)
-            return list(res) if isinstance(res, tuple) else [res]
-
-        outs = _run_band_fixups(
-            outs, n_in, strips, ext_slice, sharded_dims, need, nloc, rank, gstart, replay
+        outs = fused_apply(
+            op, inputs_loc, _resolve_scalars(scalar_vals, locs), need, names, gmesh, backend
         )
         vals = [outs[i] for i in ret_index]
         return vals[0] if len(vals) == 1 else tuple(vals)
 
     return local_fn
+
+
+def window_route(op, backend: str) -> bool:
+    """Whether a block's main sweep of `op` goes to kernel A's window form:
+    where the JAX package takes its window kernel, bounded ops that
+    `supported` takes, on the kernel backends."""
+    return _kernels(backend) and not op.attrs.get("periodic") and cuda_backend.supported(op)
+
+
+def fused_apply(op, inputs_loc, scalars, need, names, gmesh: GridMesh, backend) -> list:
+    """One apply over this process's blocks on the fused-strip route: its
+    results (a list), every cell exact. need[d]: the apply's (lo, hi)
+    reach, which fits one block."""
+    rank = op.results[0].type.bounds.rank
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    outer = op.results[0].type.bounds
+    periodic = bool(op.attrs.get("periodic"))
+    # torus ops: whole dims wrap locally (their local extent is global);
+    # sharded dims zero-fill, and the bands (whose ring wraps at the mesh
+    # edge) recompute those edge zones
+    wrap = tuple(periodic and not names[d] for d in range(rank))
+    nloc = tuple(inputs_loc[0].shape)
+    gstart = _gstart(nloc, rank, names, outer, gmesh)
+
+    if window_route(op, backend):
+        res = cuda_backend.apply_window(op, inputs_loc, scalars, gstart)
+    else:
+        res = torch_backend.execute_apply_window(op, inputs_loc, scalars, gstart, wrap=wrap)
+    outs = [_owned(o, inputs_loc) for o in (res if isinstance(res, tuple) else (res,))]
+
+    strips, ext_slice, sharded_dims = _strip_exchange(
+        inputs_loc, nloc, rank, names, need, periodic, gmesh
+    )
+
+    def replay(bands, zone):
+        res = torch_backend.execute_apply_window(op, bands, scalars, zone.bases, wrap=wrap)
+        return list(res) if isinstance(res, tuple) else [res]
+
+    return _run_band_fixups(
+        outs, n_in, strips, ext_slice, sharded_dims, need, nloc, rank, gstart, replay
+    )
 
 
 def _composite_fused_ok(cm, fn, gmesh: GridMesh, names, tt, halo) -> bool:
@@ -629,7 +657,7 @@ def plan_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> RoutePl
 
     apply_op = _single_apply(fn)
     if apply_op is not None:
-        plan = _fused_plan(fn, apply_op, gmesh, names, tt)
+        plan = _fused_plan(fn, apply_op, gmesh, names)
         if plan is not None and not (backend == "cuda" and _opdef_periodic(cm.module, name)):
             return RoutePlan(
                 "fused-strip", fn, halo, names, spec, tt, n_fields, None, apply_op, plan
@@ -707,7 +735,7 @@ def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Cal
     rank = tt.bounds.rank
     n_fields = rp.n_fields
     if rp.kind == "fused-strip":
-        return _shardmap_fused(fn, rp.apply_op, gmesh, names, tt, rp.fused, backend)
+        return _shardmap_fused(fn, rp.apply_op, gmesh, names, rp.fused, backend)
     if rp.kind == "fused-composite":
         return _shardmap_fused_composite(cm, fn, gmesh, names, tt, halo, backend)
 
@@ -775,7 +803,7 @@ def shardmap_sweeps(cm, name: str, gmesh: GridMesh, k: int, backend: str = "auto
             "(composite operators cannot be time-skewed as one trapezoid)"
         )
     names = list(gmesh.axis_names[:rank]) + [None] * (rank - len(gmesh.axis_names))
-    plan = _fused_plan(fn, op, gmesh, names, tt, sweeps_k=k)
+    plan = _fused_plan(fn, op, gmesh, names, sweeps_k=k)
     if plan is None:
         raise ValueError(
             f"@{name} is not eligible for fused sharded sweeps at k={k} "

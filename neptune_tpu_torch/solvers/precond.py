@@ -21,11 +21,16 @@ import torch
 from .krylov import full_precision
 
 
-def extract_diagonal(matvec: Callable, like: torch.Tensor, halo: Sequence[tuple[int, int]]):
+def extract_diagonal(
+    matvec: Callable, like: torch.Tensor, halo: Sequence[tuple[int, int]], origin=None
+):
     """Exact operator diagonal via stencil-period probing.
 
     `like` is a zero template with the operator's grid shape, dtype and
-    device; `halo` is the per-dim (lo, hi) reach of the operator.
+    device; `halo` is the per-dim (lo, hi) reach of the operator. origin:
+    per dim the global index of `like`'s cell 0 when `like` is one block of
+    a sharded grid and `matvec` the sharded operator (default 0): the
+    probes' lattice is then the global grid's, across block edges.
     """
     shape = tuple(like.shape)
     if not halo:
@@ -39,7 +44,8 @@ def extract_diagonal(matvec: Callable, like: torch.Tensor, halo: Sequence[tuple[
     if len(periods) != len(shape):
         periods = [max(periods)] * len(shape)
 
-    grids = np.ogrid[tuple(slice(0, s) for s in shape)]
+    origin = (0,) * len(shape) if origin is None else tuple(origin)
+    grids = np.ogrid[tuple(slice(o, o + s) for o, s in zip(origin, shape))]
     diag = torch.zeros_like(like)
     for combo in itertools.product(*[range(p) for p in periods]):
         mask_np = np.ones(shape, dtype=bool)

@@ -930,3 +930,87 @@ def test_chebyshev_on_the_kernel_route(cuda, monkeypatch):
     (on, off) = infos
     assert on.converged and on.iters == off.iters and (on.iters - 1) % 10 == 0
     assert torch.equal(x, x_off)
+
+
+def _ca_system():
+    """bench.py's CA system: the 256^2 f32 5-pt Poisson operator with a
+    Dirichlet ring, the rhs from default_rng(0) on the interior, and its
+    spectral bounds."""
+    n = 256
+    b = np.zeros((n, n), np.float32)
+    b[1:-1, 1:-1] = np.random.default_rng(0).standard_normal((n - 2, n - 2))
+    return stencils.poisson5(n), b, 2.0 * (2.0 - 2.0 * np.cos(np.pi / (n + 1))), 8.0
+
+
+def _ca_solve(case, cm, gm, lmin, lmax):
+    from neptune_tpu_torch import parallel as par
+
+    lam = dict(lam_min=lmin, lam_max=lmax)
+    return {
+        "cg": lambda: par.cg_sharded(cm, "poisson", gm, s=8, basis="chebyshev", maxiter=2000,
+                                     tol=1e-4, **lam),
+        "gmres": lambda: par.gmres_sharded(cm, "poisson", gm, s=8, basis="chebyshev",
+                                           maxiter=2000, tol=1e-4, **lam),
+        "bicgstab": lambda: par.bicgstab_sharded(cm, "poisson", gm, s=2, maxiter=2000, tol=1e-4),
+        "chebyshev": lambda: par.chebyshev_sharded(cm, "poisson", gm, k_fuse=8, maxiter=3200,
+                                                   tol=1e-4, **lam),
+    }[case]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cg", "gmres", "bicgstab", "chebyshev"])
+def test_ca_solver_on_the_kernel_route(case, cuda):
+    """A CA solver on a one-process mesh on the card: every chain's core
+    matvec launches kernel A's window form; the kernels-off module takes the
+    same iterations to a bitwise-equal x and launches nothing."""
+    from neptune_tpu_torch.parallel import single_device_mesh
+
+    module, b, lmin, lmax = _ca_system()
+    gm = single_device_mesh(cuda)
+    before = cuda_backend.window_counter.count
+    x, info = _ca_solve(case, CompiledModule(module, "auto", cuda), gm, lmin, lmax)(b)
+    launched = cuda_backend.window_counter.count - before
+    x_off, info_off = _ca_solve(case, CompiledModule(module, "torch", cuda), gm, lmin, lmax)(b)
+    assert cuda_backend.window_counter.count - before == launched > 0
+    assert x.is_cuda and info.iters == info_off.iters and torch.equal(x, x_off)
+    assert bool(torch.isfinite(x).all())
+
+
+@pytest.mark.gpu
+def test_ca_coefficients_ignore_tf32(cuda):
+    """The Gram matrices and recombinations stay f32-exact when the caller
+    allows TF32: the solve is bitwise the one with TF32 off, and the
+    caller's setting is back afterwards."""
+    from neptune_tpu_torch.parallel import single_device_mesh
+
+    module, b, lmin, lmax = _ca_system()
+    gm = single_device_mesh(cuda)
+    cm = CompiledModule(module, "auto", cuda)
+    x_ref, info_ref = _ca_solve("gmres", cm, gm, lmin, lmax)(b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x, info = _ca_solve("gmres", cm, gm, lmin, lmax)(b)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert info.iters == info_ref.iters and torch.equal(x, x_ref)
+
+
+@pytest.mark.gpu
+def test_sharded_function_heat_step_on_the_kernel_route(cuda):
+    """sharded_function of the 2-D heat step on a one-process mesh: its
+    applies launch kernel A's window form, and the kernels-off module gives
+    a bitwise-equal step; the whole-grid function (kernel B's CG) agrees to
+    the solve's tol."""
+    from neptune_tpu_torch.parallel import sharded_function, single_device_mesh
+
+    cm = entry.build_step(256, "float32", device=cuda)
+    gm = single_device_mesh(cuda)
+    u = torch.from_numpy(entry.gaussian(256)).to(cuda)
+    before = cuda_backend.window_counter.count
+    y = sharded_function(cm, "step", gm)(u)
+    assert cuda_backend.window_counter.count - before > 0
+    y_off = sharded_function(CompiledModule(cm.module, "torch", cuda), "step", gm)(u)
+    assert torch.equal(y, y_off)
+    ref = cm.function("step")(u)
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5

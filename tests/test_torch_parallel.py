@@ -46,7 +46,7 @@ from neptune_tpu_torch.parallel import (  # noqa: E402
     plan_report,
     sharded_function,
 )
-from neptune_tpu_torch.passes import run_pipeline  # noqa: E402
+from neptune_tpu_torch.passes import compile_ir, run_pipeline  # noqa: E402
 from test_torch_apply import TOL  # noqa: E402
 
 GOLDEN = Path(__file__).parent / "golden"
@@ -160,8 +160,14 @@ def test_unknown_backend_and_sharded_function():
     gm = GridMesh((2,), ("x",), abstract=True)
     with pytest.raises(ValueError, match="backend"):
         plan_opdef(cm, "jacobi", gm, "pallas")
+    # sharded_function runs (test_torch_sharded_function.py); what it does
+    # not shard yet, the multigrid preconditioner, names its ROADMAP item
+    module = stencils.with_solve(stencils.poisson5(32, "float64"), "poisson", solver="cg",
+                                 tol=1e-8, max_iters=50, precond="mg")
+    f = sharded_function(compile_ir(module, device="cpu"), "solve",
+                         GridMesh((1,), ("x",), device="cpu"))
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        sharded_function(cm, "jacobi", gm)
+        f(np.zeros((32, 32)))
 
 
 # ---------------------------------------------------------------------------

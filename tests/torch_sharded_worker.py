@@ -90,6 +90,8 @@ def main() -> int:
     if rank == 0:
         np.savez(out_dir / "results.npz", **results)
         (out_dir / "solvers.json").write_text(json.dumps(solvers))
+    # every rank done with every group before any tears one down
+    torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return 0
 
