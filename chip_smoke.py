@@ -77,14 +77,27 @@ line, the card's nvidia-smi line, and the result line):
      reductions per outer block; sharded_function of the 3-D GMRES step
      (256^3, (4,1)) and the 2-D CG heat step (256^2, (2,2)) against the
      one-process function.
+ 13. multigrid, Chebyshev and Newton over a process mesh, through
+     sharded_function on a mesh of one process: (a) phase 11a's 512^2 and
+     11b's 4096^2 precond="mg" systems, kernel route against kernels-off
+     route (equal iterations, bitwise-equal x) and against phase 11's
+     whole-grid iterations (within 1), kernel A's window form on every
+     level; (b) build_ca_levels(k=2) on 11c's hierarchy, multigrid_solve
+     with the CA smoothers against per-matvec "cheb" smoothing over the same
+     matvecs (equal V-cycles, x within 1e-5 relative, fewer ring shifts);
+     (c) 11e's Chebyshev + Jacobi; (d) 10a's Allen-Cahn step with and
+     without jacobian= (Newton and GMRES iterations of the whole grid, state
+     within 1e-5 relative); (e) (a) at 512^2, (b), and (d) at 1024^2 in
+     phase 9's four processes on (2,2), held to the one-process runs, with
+     ring shifts, bytes and reductions per PCG iteration.
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
 (bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
 over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
 PyTorch call that computes the same function where there is one. Kernel
-A's launches are phase 4's and phase 11's; its window form's phase 8's and
-phase 12a's.
+A's launches are phase 4's and phase 11's; its window form's phase 8's,
+phase 12a's and phase 13a's.
 """
 
 from __future__ import annotations
@@ -673,8 +686,9 @@ def phase9_rank(argv) -> int:
             torch.linalg.vector_norm(bg - A(xg)) / torch.linalg.vector_norm(bg)
         ).item()
     report["gmres"] = solve
-    # phase 12's four-process part, in the same processes
+    # phase 12's and phase 13's four-process parts, in the same processes
     report["phase12"] = phase12_rank(rank, dev, sync)
+    report["phase13"] = phase13_rank(rank, dev)
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
@@ -1376,9 +1390,11 @@ def shapes_text(shapes: dict) -> str:
                                                                        reverse=True))
 
 
-def phase11(ntt, dev, b_ref: tuple) -> int:
+def phase11(ntt, dev, b_ref: tuple) -> dict:
     """Phase 11; b_ref is phase 3's kernel-B Jacobi-CG on 11a's system
-    (ms per solve, iterations). Returns its kernel-A launches."""
+    (ms per solve, iterations). Returns its kernel-A launches, the PCG
+    iterations of each MG_SYSTEMS case, and 11e's (module, iterations,
+    solution), for phase 13."""
     import torch
     from neptune_tpu_torch.lowering import cuda_backend
     from neptune_tpu_torch.lowering.executor import CompiledModule
@@ -1389,6 +1405,7 @@ def phase11(ntt, dev, b_ref: tuple) -> int:
     cheb_mod = sys.modules["neptune_tpu_torch.solvers.chebyshev"]
     t11 = time.perf_counter()
     infos, reads = [], [0]
+    whole = {}
     real_solve, real_test = krylov.solve, cheb_mod._unconverged
 
     def recording(*a, **k):
@@ -1435,6 +1452,7 @@ def phase11(ntt, dev, b_ref: tuple) -> int:
                 rel = rel_residual(A, runs[0][0], b)
                 route_pair(label, runs, levels, rel, tol)
                 (x, iters, ms, by_shape), (_, _, ms_off, _) = runs
+                whole[label] = iters
                 line = (f"phase 11 {label}, tol {tol}: {iters} PCG iterations (= kernels-off "
                         f"route), solutions bitwise equal, true relative residual {rel!r}; "
                         f"{ms:.2f} ms per solve, {ms / iters:.3f} ms per iteration (kernels-off "
@@ -1552,7 +1570,8 @@ def phase11(ntt, dev, b_ref: tuple) -> int:
                     f"11e: {iters} iterations, {per_solve} host reads per solve")
             rel = rel_residual(CompiledModule(module, "torch", dev).opdef("poisson"), runs[0][0], b)
             route_pair("11e chebyshev", runs, 1, rel, MG_TOL)
-            (_, _, ms, by_shape), (_, _, ms_off, _) = runs
+            (x_cheb, _, ms, by_shape), (_, _, ms_off, _) = runs
+            cheb = (module, iters, x_cheb)
             say(f"phase 11e solver=chebyshev + Jacobi on cg_poisson_512 (IR executor), tol "
                 f"{MG_TOL}, check_every {CHEB_CHECK}, bounds [{lam['lam_min']:.4e}, "
                 f"{lam['lam_max']:.4e}] from estimate_spectrum ({CHEB_EST_ITERS} iterations, "
@@ -1565,7 +1584,7 @@ def phase11(ntt, dev, b_ref: tuple) -> int:
         krylov.solve, cheb_mod._unconverged = real_solve, real_test
     a_launches = cuda_backend.counter.count
     say(f"phase 11 kernel-A launches {a_launches}; phase wall {time.perf_counter() - t11:.1f} s")
-    return a_launches
+    return {"launches": a_launches, "whole": whole, "cheb": cheb}
 
 
 # ---- phase 12: the communication-avoiding solvers and sharded_function -----
@@ -1902,6 +1921,356 @@ def phase12(dev, reports) -> int:
             f"{r0['whole_ms'][2]:.1f}] ms")
     say(f"phase 12 kernel-A window-form launches (12a) {launches}; phase wall "
         f"{time.perf_counter() - t12:.1f} s")
+    return launches
+
+
+# ---- phase 13: multigrid, Chebyshev and Newton over a process mesh ---------
+# Through `sharded_function` on a mesh of one process: (a) phase 11a's and
+# 11b's CG + precond="mg" systems, each level's matvec kernel A's window form
+# on its block; (b) build_ca_levels(k=2) on phase 11c's 512..16 hierarchy,
+# multigrid_solve with the CA smoothers against per-matvec "cheb" smoothing
+# over the same shardmap_opdef matvecs; (c) phase 11e's Chebyshev + Jacobi;
+# (d) phase 10a's implicit Allen-Cahn step, with and without jacobian=. (e)
+# runs (a) at 512^2, (b), and (d) at P13_AC_N4^2 in phase 9's four
+# processes on (2,2).
+P13_SYSTEMS = [s for s in MG_SYSTEMS if not s[0].startswith("11d")]
+P13_CA_K, P13_AC_N4, P13_X_TOL = 2, 1024, 1e-5
+
+
+class Recorded:
+    """The infos that `getattr(module, name)`, a solver returning (x, info),
+    returns while in a `with` block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.infos = module, name, []
+
+    def __enter__(self):
+        self.real = real = getattr(self.module, self.name)
+
+        def recording(*a, **k):
+            x, info = real(*a, **k)
+            self.infos.append(info)
+            return x, info
+
+        setattr(self.module, self.name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+class TreeReductions:
+    """Calls of `utils.tree.allreduce`, through which every solver norm and
+    inner product reduces (over a group or not), while in a `with` block."""
+
+    def __enter__(self):
+        from neptune_tpu_torch.utils import tree
+
+        self.tree, self.real, self.count = tree, tree.allreduce, 0
+
+        def counting(t, group=None):
+            self.count += 1
+            return self.real(t, group)
+
+        tree.allreduce = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.tree.allreduce = self.real
+
+
+def p13_mg_case(label, build, options, tol, dev, gm, routes=("auto", "torch")):
+    """One precond="mg" system through sharded_function on `gm`: per route,
+    after a first solve (which builds the hierarchy), one timed solve:
+    {route: (x block, PCG iterations, ms, first ms, kernel-A launches by
+    level shape, ring shifts, bytes sent, reductions)}."""
+    import torch
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import sharded_function
+    from neptune_tpu_torch.solvers import krylov
+
+    module = mg_module(build, options, tol)
+    shape = module.lookup("poisson").ftype.inputs[0].bounds.shape
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        shape, dtype=np.float32))
+    bl = gm.shard(b)
+    out = {}
+    with Recorded(krylov, "solve") as solves, ShapeLaunches() as shapes, \
+            TreeReductions() as reductions:
+        for route in routes:
+            f = sharded_function(CompiledModule(module, route, dev), "solve", gm)
+            _, first_ms = timed(lambda: f(bl))
+            shapes.take()
+            gm.shifts = gm.sent_bytes = reductions.count = 0
+            x, ms = timed(lambda: f(bl))
+            out[route] = (x, solves.infos[-1].iters, ms, first_ms, shapes.take(), gm.shifts,
+                          gm.sent_bytes, reductions.count)
+    return out, module, b
+
+
+def p13_true_rel(module, x, b, dev) -> float:
+    """||b - A x|| / ||b|| of a gathered solution, A on the kernels-off route."""
+    import torch
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+
+    A = CompiledModule(module, "torch", dev).opdef("poisson")
+    return float(torch.linalg.vector_norm(b - A(x)) / torch.linalg.vector_norm(b))
+
+
+def p13_example(ntt, dev, gm):
+    """(b)'s system: phase 11c's hierarchy and rhs, this process's blocks:
+    (compiled module, opdef names, b block, u* block)."""
+    import torch
+
+    cm = mg_example(ntt)
+    names = [f"poisson{n}" for n in MG_EXAMPLE_SIZES]
+    xs = torch.linspace(0.0, 1.0, MG_N, device=dev)
+    X, Y = xs[:, None], xs[None, :]
+    u_star = torch.sin(np.pi * X) * torch.sin(2 * np.pi * Y) * (X * (1 - X))
+    u_star[0, :] = u_star[-1, :] = u_star[:, 0] = u_star[:, -1] = 0.0
+    b = cm.opdef(names[0])(u_star)
+    return cm, names, gm.shard(b), gm.shard(u_star)
+
+
+def p13_ca_case(cm, names, bl, gm):
+    """build_ca_levels(k=P13_CA_K) and multigrid_solve with its CA smoothers
+    against per-matvec "cheb" smoothing over the same matvecs: (CA
+    eligibility per level, {route: (x block, V-cycles, ms, ring shifts per
+    cycle, reductions per cycle)})."""
+    import torch
+    from neptune_tpu_torch.parallel import build_ca_levels
+    from neptune_tpu_torch.solvers import multigrid_solve
+
+    lv = build_ca_levels(cm, names, gm, torch.zeros_like(bl), k=P13_CA_K)
+    plain = [lvl._replace(ca_smooth=None, ca_smooth_zero=None, ca_k=0) for lvl in lv]
+    out = {}
+    for route, levels in (("ca", lv), ("per_matvec", plain)):
+        # one solve each, not warmed: the kernels are built and loaded, and a
+        # solve takes seconds
+        gm.shifts = 0
+        with TreeReductions() as reductions:
+            (x, info), ms = timed(lambda levels=levels: multigrid_solve(
+                [None] * len(names), bl, tol=MG_EXAMPLE_TOL, maxiter=MG_EXAMPLE_MAXIT,
+                levels=levels, smoother="cheb", pre=P13_CA_K, post=P13_CA_K))
+        require(info.converged, f"phase 13b {route}: {info}")
+        out[route] = (x, info.iters, ms, gm.shifts / info.iters, reductions.count / info.iters)
+    return [lvl.ca_smooth is not None for lvl in lv], out
+
+
+def p13_allen_cahn(ntt, n, dev, gm, u0):
+    """(d): phase 10a's Allen-Cahn step through sharded_function on gm,
+    without and with jacobian=, beside the whole-grid function: {variant:
+    (state block, Newton/GMRES iterations on the mesh, ms, whole-grid state,
+    its iterations, its ms)}."""
+    from neptune_tpu_torch.lowering import executor
+    from neptune_tpu_torch.parallel import sharded_function
+
+    ac = allen_cahn(ntt, n)
+    ac.step(u0)
+    ac.step_jac(u0)  # trace both functions into the module
+    cm = ntt.get_context().compiled()
+    ul = gm.shard(u0)
+    out = {}
+    with Recorded(executor, "newton_krylov") as newton:
+        for variant in ("AC_step", "AC_step_jac"):
+            f, whole = sharded_function(cm, variant, gm), cm.function(variant)
+            f(ul)  # warm-up
+            newton.infos.clear()
+            x, ms = timed(lambda: f(ul))
+            mesh_its = [(i.iters, i.krylov_iters) for i in newton.infos]
+            newton.infos.clear()
+            xw, w_ms = timed(lambda: whole(u0))
+            w_its = [(i.iters, i.krylov_iters) for i in newton.infos]
+            out[variant] = (x, mesh_its, ms, xw, w_its, w_ms)
+    return out
+
+
+def p13_ac_state(n, dev):
+    """Phase 10a's initial state at n^2."""
+    import torch
+
+    xs = torch.linspace(0.0, 1.0, n, device=dev)
+    noise = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    return 0.9 * torch.sin(8 * np.pi * xs)[:, None] * torch.sin(8 * np.pi * xs)[None, :] \
+        + 0.05 * noise
+
+
+def phase13_rank(rank: int, dev) -> dict:
+    """Phase 13e on one of phase 9's four processes, mesh (2,2): (a) at
+    512^2, (b), and (d) at P13_AC_N4^2, each gathered."""
+    import torch
+    import torch.distributed as dist
+    import neptune_tpu_torch as ntt
+    from neptune_tpu_torch.parallel import GridMesh
+
+    gm = GridMesh((2, 2), ("x", "y"), device=dev)
+    out = {"mg": [], "ca": None, "ac": {}}
+    for label, build, options, levels, tol in P13_SYSTEMS[:2]:
+        dist.barrier()
+        runs, module, b = p13_mg_case(label, build, options, tol, dev, gm, routes=("auto",))
+        x, iters, ms, first_ms, by_shape, shifts, sent, reductions = runs["auto"]
+        row = {"label": label, "iters": iters, "ms": ms, "first_ms": first_ms,
+               "levels": len(by_shape), "shifts": shifts, "sent_bytes": sent,
+               "reductions": reductions, "device": str(x.device)}
+        xg = gm.gather(x)
+        if rank == 0:
+            row["true_rel"] = p13_true_rel(module, xg, b.to(dev), dev)
+        out["mg"].append(row)
+    dist.barrier()
+    cm, names, bl, _ = p13_example(ntt, dev, gm)
+    eligible, ca = p13_ca_case(cm, names, bl, gm)
+    out["ca"] = {"eligible": eligible, **{
+        route: {"iters": r[1], "ms": r[2], "shifts_per_cycle": r[3],
+                "reductions_per_cycle": r[4]} for route, r in ca.items()}}
+    xca, xpm = gm.gather(ca["ca"][0]), gm.gather(ca["per_matvec"][0])
+    out["ca"]["rel_x"] = float(torch.linalg.vector_norm(xca - xpm) / torch.linalg.vector_norm(xpm))
+    ntt.reset_context()
+    dist.barrier()
+    u0 = p13_ac_state(P13_AC_N4, dev)
+    for variant, (x, its, ms, xw, w_its, w_ms) in p13_allen_cahn(
+            ntt, P13_AC_N4, dev, gm, u0).items():
+        xg = gm.gather(x)
+        out["ac"][variant] = {
+            "its": its, "ms": ms, "whole_its": w_its, "whole_ms": w_ms,
+            "rel": float(torch.linalg.vector_norm(xg - xw) / torch.linalg.vector_norm(xw)),
+        }
+    ntt.reset_context()
+    dist.barrier()
+    return out
+
+
+def phase13(ntt, dev, reports, p11) -> int:
+    """Phase 13 on a mesh of one process, then (e) from phase 9's four
+    processes (`phase13_rank`); p11 holds phase 11's whole-grid results.
+    Returns the kernel-A window-form launches of (a)'s kernel routes."""
+    import torch
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import GridMesh, sharded_function
+    from neptune_tpu_torch.solvers import krylov
+
+    t13 = time.perf_counter()
+    gm = GridMesh((1,), ("x",), device=dev)
+    launches = 0
+    one = {}
+
+    # ---- (a): precond="mg" through sharded_function, both routes
+    for label, build, options, levels, tol in P13_SYSTEMS:
+        before = cuda_backend.window_counter.count
+        runs, module, b = p13_mg_case(label, build, options, tol, dev, gm)
+        launches += cuda_backend.window_counter.count - before
+        b = b.to(dev)
+        on, off = runs["auto"], runs["torch"]
+        rel = p13_true_rel(module, on[0], b, dev)
+        route_pair(f"13a {label}", ((on[0], on[1], on[2], on[4]), (off[0], off[1], off[2], off[4])),
+                   levels, rel, tol)
+        whole = p11["whole"][label]
+        require(abs(on[1] - whole) <= 1,
+                f"13a {label}: {on[1]} PCG iterations against the whole grid's {whole}")
+        one[label] = on[1]
+        say(f"phase 13a sharded_function {label} on a mesh of one process, tol {tol}: {on[1]} "
+            f"PCG iterations (= kernels-off route; whole-grid function, phase 11: {whole}), "
+            f"bitwise equal to the kernels-off route, true relative residual {rel!r}; "
+            f"{on[2]:.2f} ms per solve, {on[2] / on[1]:.3f} ms per PCG iteration (kernels-off "
+            f"{off[2]:.2f} ms); first solve with the hierarchy build {on[3]:.1f} ms; kernel A's "
+            f"window form per level {shapes_text(on[4])}")
+
+    # ---- (b): the CA smoothers on 11c's hierarchy
+    cm, names, bl, u_star = p13_example(ntt, dev, gm)
+    eligible, ca = p13_ca_case(cm, names, bl, gm)
+    ntt.reset_context()
+    (x_ca, it_ca, ms_ca, sh_ca, red_ca), (x_pm, it_pm, ms_pm, sh_pm, red_pm) = (
+        ca["ca"], ca["per_matvec"])
+    rel_x = float(torch.linalg.vector_norm(x_ca - x_pm) / torch.linalg.vector_norm(x_pm))
+    require(it_ca == it_pm and rel_x <= P13_X_TOL,
+            f"13b: CA {it_ca} V-cycles against per-matvec {it_pm}, relative x difference {rel_x!r}")
+    require(sh_ca < sh_pm, f"13b: ring shifts per cycle CA {sh_ca} against per-matvec {sh_pm}")
+    say(f"phase 13b build_ca_levels(k={P13_CA_K}) on 11c's {MG_N}..{MG_EXAMPLE_SIZES[-1]} "
+        f"hierarchy, one process: CA levels {eligible}; multigrid_solve cheb, tol "
+        f"{MG_EXAMPLE_TOL}: CA {it_ca} V-cycles, per-matvec {it_pm}, relative x difference "
+        f"{rel_x!r}; per cycle ring shifts CA {sh_ca:.1f}, per-matvec {sh_pm:.1f}, reductions "
+        f"{red_ca:.1f} and {red_pm:.1f}; {ms_ca:.1f} ms per solve against {ms_pm:.1f} ms (max |x - u*| "
+        f"{float((x_ca - u_star).abs().max()):.3e})")
+
+    # ---- (c): 11e's Chebyshev through sharded_function
+    module, whole_iters, x_whole = p11["cheb"]
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (MG_N, MG_N), dtype=np.float32)).to(dev)
+    rows = {}
+    with Recorded(krylov, "solve") as solves:
+        for route in ("auto", "torch"):
+            f = sharded_function(CompiledModule(module, route, dev), "solve", gm)
+            x, ms = timed(lambda: f(b))
+            rows[route] = (x, solves.infos[-1].iters, ms)
+    (x, iters, ms), (x_off, it_off, ms_off) = rows["auto"], rows["torch"]
+    rel = p13_true_rel(module, x, b, dev)
+    require(iters == it_off and torch.equal(x, x_off),
+            f"13c: {iters} iterations against the kernels-off route's {it_off}")
+    require(iters == whole_iters and rel <= 1.01 * MG_TOL,
+            f"13c: {iters} iterations against the whole grid's {whole_iters}, true relative "
+            f"residual {rel!r}")
+    say(f"phase 13c sharded_function solver=chebyshev + Jacobi (11e's system), one process: "
+        f"{iters} iterations (= kernels-off route, bitwise; whole grid {whole_iters}), true "
+        f"relative residual {rel!r}, max |x - whole grid| "
+        f"{float((x - x_whole).abs().max())!r}; {ms:.1f} ms per solve (kernels-off "
+        f"{ms_off:.1f} ms)")
+
+    # ---- (d): 10a's Allen-Cahn step through sharded_function
+    u0 = p13_ac_state(AC_N, dev)
+    for variant, (x, its, ms, xw, w_its, w_ms) in p13_allen_cahn(ntt, AC_N, dev, gm, u0).items():
+        rel = float(torch.linalg.vector_norm(x - xw) / torch.linalg.vector_norm(xw))
+        require(its == w_its and rel <= P13_X_TOL,
+                f"13d {variant}: Newton/GMRES {its} against the whole grid's {w_its}, relative "
+                f"state difference {rel!r}")
+        newton_its = sum(i for i, _ in its)
+        say(f"phase 13d sharded_function {variant} Allen-Cahn {AC_N}^2 f32, one process: Newton "
+            f"and GMRES iterations {its} (= whole grid), relative state difference {rel!r}; "
+            f"{ms:.1f} ms per step, {ms / newton_its:.1f} ms per Newton iteration (whole grid "
+            f"{w_ms:.1f} ms per step)")
+    ntt.reset_context()
+
+    # ---- (e): four processes on (2,2)
+    rows = [r["phase13"] for r in reports]
+    r0 = rows[0]
+    for i, (label, _, _, levels, tol) in enumerate(P13_SYSTEMS[:2]):
+        r = [row["mg"][i] for row in rows]
+        m = r[0]
+        require(all(x["iters"] == m["iters"] for x in r), f"13e {label}: ranks disagree")
+        require(all(x["device"].startswith("cuda") and x["levels"] == levels for x in r),
+                f"13e {label}: kernel A's window form not on every level of every rank")
+        require(abs(m["iters"] - one[label]) <= 1 and m["true_rel"] <= 1.01 * tol,
+                f"13e {label}: {m['iters']} PCG iterations against {one[label]} on one process, "
+                f"true relative residual {m['true_rel']!r}")
+        say(f"phase 13e {label}, four processes (2,2): {m['iters']} PCG iterations (one process "
+            f"{one[label]}), true relative residual {m['true_rel']!r}; {m['ms']:.1f} ms per "
+            f"solve (rank 0), {m['ms'] / m['iters']:.2f} ms per PCG iteration; per PCG "
+            f"iteration {m['shifts'] / m['iters']:.1f} ring shifts, "
+            f"{m['sent_bytes'] / m['iters']:.0f} B sent, {m['reductions'] / m['iters']:.1f} "
+            f"reductions; first solve with the hierarchy build {m['first_ms']:.1f} ms")
+    c = r0["ca"]
+    require(all(row["ca"]["eligible"] == eligible for row in rows),
+            f"13e CA eligibility {[row['ca']['eligible'] for row in rows]} against {eligible}")
+    require(c["ca"]["iters"] == c["per_matvec"]["iters"] and c["rel_x"] <= P13_X_TOL
+            and abs(c["ca"]["iters"] - it_ca) <= 1,
+            f"13e CA multigrid: {c}; one process {it_ca} V-cycles")
+    say(f"phase 13e build_ca_levels(k={P13_CA_K}), four processes (2,2): CA levels "
+        f"{c['eligible']} (= one process); CA {c['ca']['iters']} V-cycles, per-matvec "
+        f"{c['per_matvec']['iters']} (one process {it_ca}), relative x difference {c['rel_x']!r}; "
+        f"per cycle ring shifts CA {c['ca']['shifts_per_cycle']:.1f} against per-matvec "
+        f"{c['per_matvec']['shifts_per_cycle']:.1f}, reductions {c['ca']['reductions_per_cycle']:.1f} "
+        f"and {c['per_matvec']['reductions_per_cycle']:.1f}; {c['ca']['ms']:.1f} against "
+        f"{c['per_matvec']['ms']:.1f} ms per solve (rank 0)")
+    for variant, a in r0["ac"].items():
+        require(a["its"] == a["whole_its"] and a["rel"] <= P13_X_TOL,
+                f"13e {variant}: {a['its']} against the whole grid's {a['whole_its']}, relative "
+                f"state difference {a['rel']!r}")
+        say(f"phase 13e sharded_function {variant} Allen-Cahn {P13_AC_N4}^2, four processes "
+            f"(2,2): Newton and GMRES iterations {a['its']} (= whole grid), relative state "
+            f"difference {a['rel']!r}; {a['ms']:.1f} ms per step (whole grid {a['whole_ms']:.1f} "
+            "ms)")
+    say(f"phase 13 kernel-A window-form launches (13a) {launches}; phase wall "
+        f"{time.perf_counter() - t13:.1f} s")
     return launches
 
 
@@ -2399,10 +2768,14 @@ def main() -> int:
     phase10(ntt, dev, rng)
 
     # ---- phase 11: multigrid and Chebyshev at full size ---------------------
-    mg_launches = phase11(ntt, dev, (b_ms, b_extra["iters"]))
+    p11 = phase11(ntt, dev, (b_ms, b_extra["iters"]))
+    mg_launches = p11["launches"]
 
     # ---- phase 12: the CA solvers and sharded_function ---------------------
     ca_launches = phase12(dev, reports)
+
+    # ---- phase 13: multigrid, Chebyshev and Newton over a process mesh -----
+    ca_launches += phase13(ntt, dev, reports, p11)
 
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}

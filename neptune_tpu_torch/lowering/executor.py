@@ -123,13 +123,7 @@ class _OpdefRule(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, _rule_tangent, *tangents):
         rule_counter.count += 1
-        args = _OpdefRule._args(ctx)
-        slots = [i for i, t in enumerate(tangents) if t is not None and ctx.is_tensor[i]]
-        f = _OpdefRule._partial(ctx.rule.view(), args, slots)
-        _, out_t = torch.func.jvp(
-            f, tuple(args[i] for i in slots), tuple(tangents[i] for i in slots)
-        )
-        return out_t
+        return ctx.rule.jvp(_OpdefRule._args(ctx), tangents)
 
     @staticmethod
     def vmap(info, in_dims, rule, *args):
@@ -157,14 +151,43 @@ class _OpdefRule(torch.autograd.Function):
 
 
 class _Rule:
-    """What `_OpdefRule` needs of one opdef: its kernel route, and its eager
-    view looked up at each use (the view's callables are cached)."""
+    """What `_OpdefRule` needs of one opdef: its kernel route, its eager
+    view looked up at each use (the view's callables are cached), and the
+    tangent taken from that view."""
 
     def __init__(self, cm: "CompiledModule", name: str, route: Callable):
         self.cm, self.name, self.route = cm, name, route
 
     def view(self) -> Callable:
         return self.cm._torch_view().opdef(self.name)
+
+    def jvp(self, args: list, tangents: Sequence):
+        """The tangent of the outputs: `torch.func.jvp` of the eager view
+        in the tensor arguments that carry a tangent."""
+        slots = [
+            i for i, t in enumerate(tangents)
+            if t is not None and isinstance(args[i], torch.Tensor)
+        ]
+        f = _OpdefRule._partial(self.view(), args, slots)
+        _, out_t = torch.func.jvp(
+            f, tuple(args[i] for i in slots), tuple(tangents[i] for i in slots)
+        )
+        return out_t
+
+
+def rule_callable(rule, name: str) -> Callable:
+    """`rule.route` as a callable that goes through `_OpdefRule` when its
+    result may be differentiated (`CompiledModule._differentiating`) and
+    straight to the route otherwise, without the Function's host time
+    (tens of microseconds per call)."""
+
+    def run(*args):
+        if CompiledModule._differentiating(args):
+            return _OpdefRule.apply(rule, *args)
+        return rule.route(*args)
+
+    run.__name__ = name
+    return run
 
 
 class CompiledModule:
@@ -247,17 +270,7 @@ class CompiledModule:
         )
 
     def _with_rule(self, name: str, cb: Callable) -> Callable:
-        rule = _Rule(self, name, cb)
-
-        def run(*args):
-            if self._differentiating(args):
-                return _OpdefRule.apply(rule, *args)
-            # nothing to differentiate: the kernel route alone, without the
-            # Function's host time (tens of microseconds per call)
-            return cb(*args)
-
-        run.__name__ = getattr(cb, "__name__", f"neptune_{name}")
-        return run
+        return rule_callable(_Rule(self, name, cb), getattr(cb, "__name__", f"neptune_{name}"))
 
     def function(self, name: str) -> Callable:
         """Callable for a plain function."""
@@ -558,14 +571,7 @@ class CompiledModule:
 
         M = None
         if precond == "mg":
-            # the hierarchy (coarsened modules, probes, power iterations) is
-            # built once per solve site and device
-            key = (id(op), handle.symbol, b.device)
-            if key not in self._mg_sites:
-                self._mg_sites[key] = auto_mg_preconditioner(
-                    self.module, handle, self.backend, device=b.device, **pc_opts
-                )
-            M = self._mg_sites[key]
+            M = self._mg_site(op, handle, b.device, pc_opts)
         elif precond not in (None, "none"):
             like = torch.zeros(handle.grid_shape, dtype=handle.dtype, device=b.device)
             dense = handle.dense(b.device) if precond == "ssor_dense" else None
@@ -591,6 +597,22 @@ class CompiledModule:
         if _verbose(op):
             report_solve(f"KSP({solver})", handle.symbol, info)
         return x
+
+    def _mg_site(self, op: Operation, handle: MatrixHandle, device, pc_opts: dict, gmesh=None):
+        """precond="mg"'s M for one solve site: the hierarchy (coarsened
+        modules, probes, power iterations) is built once per solve site,
+        device and mesh (None: the whole grid)."""
+        key = (id(op), handle.symbol, device, gmesh)
+        if key not in self._mg_sites:
+            self._mg_sites[key] = auto_mg_preconditioner(
+                self.module, handle, self.backend, device=device, gmesh=gmesh, **pc_opts
+            )
+        return self._mg_sites[key]
+
+    def _reduction_group(self, states):
+        """The process group that the norms of `states` (a tensor or a tuple
+        of them) reduce over: none on the whole grid."""
+        return None
 
     def solve_mixed(self, handle: MatrixHandle, b, *, solver: str, tol: float,
                     max_iters: int, precond: str, options=None, verbose: bool = False):
@@ -686,6 +708,7 @@ class CompiledModule:
             "picard" if method == "picard" else "newton",
             merged_nonlinear_options(op.attrs.get("options"), method),
         )
+        group = self._reduction_group(states0)
         if method in ("newton", "newton-krylov"):
             x, info = newton_krylov(
                 residual,
@@ -695,11 +718,13 @@ class CompiledModule:
                 krylov_tol=op.attrs.get("krylov_tol", 1e-6),
                 krylov_iters=op.attrs.get("krylov_iters", 200),
                 jac_mv=jac_mv,
+                group=group,
                 **okw,
             )
         elif method == "picard":
             x, info = picard(
-                residual, states0, tol=op.attrs["tol"], max_iters=op.attrs["max_iters"], **okw
+                residual, states0, tol=op.attrs["tol"], max_iters=op.attrs["max_iters"],
+                group=group, **okw,
             )
         else:
             raise ValueError(f"unknown nonlinear method {method!r}")
@@ -756,6 +781,7 @@ class CompiledModule:
                 tol=op.attrs["tol"],
                 max_iters=op.attrs["max_iters"],
                 jac_mv=self._jac_mv(op.attrs.get("jacobian"), 1, (state,)),
+                group=self._reduction_group(state),
                 **okw,
             )
             return x[0]
@@ -817,12 +843,14 @@ def single_apply_interior(fn: Function):
 
 
 class _CoarseOp:
-    """What build_levels needs of a coarse level: a scaled matvec and the
-    halo for probing its diagonal."""
+    """What build_levels needs of a coarse level: a scaled matvec, the halo
+    for probing its diagonal, and the mesh it runs over (None: the whole
+    grid)."""
 
-    def __init__(self, matvec, halo):
+    def __init__(self, matvec, halo, gmesh=None):
         self.matvec = matvec
         self.halo = halo
+        self.gmesh = gmesh
 
     def __call__(self, x):
         return self.matvec(x)
@@ -836,6 +864,7 @@ def auto_mg_preconditioner(
     mg_levels: Optional[int] = None,
     mg_smoother: str = "jacobi",
     device=None,
+    gmesh=None,
 ):
     """Geometric-MG preconditioner for `solve_linear(..., precond="mg")`.
 
@@ -852,6 +881,13 @@ def auto_mg_preconditioner(
     levels). mg_smoother: "jacobi" or "cheb" (both symmetric, as
     CG requires). `device` holds the levels' tensors (default
     `config.device`).
+
+    gmesh: a `parallel.GridMesh` whose blocks the solve runs on (the
+    handle's matvec is then the mesh's sharded opdef): each coarse level
+    is `parallel.shardmap_opdef` of its coarsened module, and M takes and
+    returns this process's blocks. The level count follows the global
+    grid; a level whose block turns odd above the coarsest raises
+    ValueError (`solvers.multigrid.build_levels`).
     """
     from ..passes.coarsen import coarsen_opdef
     from ..solvers.multigrid import mg_preconditioner
@@ -875,9 +911,20 @@ def auto_mg_preconditioner(
     mod = module
     for lvl in range(1, mg_levels):
         mod = coarsen_opdef(mod, handle.symbol)
-        mv = CompiledModule(mod, backend, device).opdef(handle.symbol)
+        cm = CompiledModule(mod, backend, device)
+        if gmesh is None:
+            mv = cm.opdef(handle.symbol)
+        else:
+            from ..parallel.sharded_apply import shardmap_opdef
+
+            mv = shardmap_opdef(cm, handle.symbol, gmesh, cm.backend)
         scale = 0.25**lvl  # rediscretization damping (see the docstring)
-        ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo))
+        ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo, gmesh))
+    if gmesh is not None:
+        gmesh.check_divisible(shape)
+        shape = tuple(
+            n // gmesh.shape[d] if d < len(gmesh.shape) else n for d, n in enumerate(shape)
+        )
     like = torch.zeros(shape, dtype=handle.dtype, device=default_device(device))
     return mg_preconditioner(ops, like, smoother=mg_smoother)
 

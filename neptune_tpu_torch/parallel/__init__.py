@@ -6,8 +6,8 @@ own device. `shardmap_opdef` / `shardmap_sweeps` run an operator on the
 blocks; the communication-avoiding solvers (`cg_sharded`, `gmres_sharded`,
 `bicgstab_sharded`, `chebyshev_sharded`) solve with one exchange and one
 reduction per outer block; `sharded_function` runs a whole compiled
-function on the blocks. The CA multigrid smoother (`build_ca_levels`,
-`ca_smoother`) is not ported yet (ROADMAP.md, queue 1, item 9).
+function on the blocks; `build_ca_levels` and `ca_smoother` give the
+multigrid V-cycle communication-avoiding smoothers on the blocks.
 """
 
 from .distributed import initialize_multihost
@@ -17,11 +17,14 @@ from .sharded import sharded_function, sharded_opdef
 from .ca_bicgstab import bicgstab_sharded
 from .ca_cg import cg_sharded
 from .ca_gmres import gmres_sharded
+from .ca_multigrid import build_ca_levels, ca_smoother
 from .ca_chebyshev import chebyshev_sharded
 from .sharded_apply import plan_opdef, plan_report, shardmap_opdef, shardmap_sweeps
 
 __all__ = [
     "bicgstab_sharded",
+    "build_ca_levels",
+    "ca_smoother",
     "cg_sharded",
     "chebyshev_sharded",
     "gmres_sharded",

@@ -13,19 +13,26 @@ executor (`_MeshModule`), each op on this process's blocks:
     as deep as the apply's reach; the band fixups);
   * every opdef call is `shardmap_opdef`'s matvec;
   * every `solve_linear` (and an un-lowered implicit-linear
-    `time_advance`) runs `krylov.solve` over that matvec with the group
-    that shards the field, Jacobi's diagonal probed and CG's Dirichlet lift
-    masked in global coordinates; kernel B's fused site is not taken (it
-    solves a whole grid), as the JAX package's GSPMD path pins its jnp
-    backend;
+    `time_advance`) runs `krylov.solve` (CG, GMRES, BiCGStab or Chebyshev,
+    with its options) over that matvec with the group that shards the
+    field, Jacobi's diagonal probed and CG's Dirichlet lift masked in
+    global coordinates; kernel B's fused site is not taken (it solves a
+    whole grid), as the JAX package's GSPMD path pins its jnp backend;
+  * `precond="mg"` builds `auto_mg_preconditioner` over the mesh: every
+    level's matvec is `shardmap_opdef` of the coarsened module, and the
+    V-cycle runs on blocks (`solvers.multigrid`), its hierarchy cached per
+    solve site and mesh;
+  * `solve_nonlinear` and implicit-nonlinear `time_advance` run
+    `newton_krylov` (or `picard`) over the sharded residual with the
+    mesh's group: J·v is `torch.func.jvp` through the sharded opdef's
+    derivative rule, or the `jacobian=` opdef's sharded matvec;
   * reductions and bounded stores work in global coordinates.
 
 An op this view cannot shard yet raises NotImplementedError naming it:
-`precond="mg"` (until the mesh-aware V-cycle exists), "ssor" and
-"ssor_dense", `solver="direct"` and "chebyshev", `precision="mixed"`,
-`solve_nonlinear` and implicit-nonlinear `time_advance`, applies with no
-field input, applies whose inputs and result differ in shape or whose
-reach exceeds a block, and bounded stores between different bounds.
+`precond="ssor"` and "ssor_dense", `solver="direct"`,
+`precision="mixed"`, applies with no field input, applies whose inputs
+and result differ in shape or whose reach exceeds a block, and bounded
+stores between different bounds.
 """
 
 from __future__ import annotations
@@ -40,7 +47,11 @@ from ..lowering.executor import CompiledModule, _verbose, report_solve
 from ..lowering.torch_backend import _block_index
 from ..solvers import krylov
 from ..solvers.precond import extract_diagonal, safe_inv_diag
-from ..utils.options import linear_option_kwargs, merged_linear_options
+from ..utils.options import (
+    linear_option_kwargs,
+    merged_linear_options,
+    split_precond_options,
+)
 from .mesh import GridMesh
 from .sharded_apply import _reach_fits, apply_reach, fused_apply, shardmap_opdef
 
@@ -168,39 +179,42 @@ class _MeshModule(CompiledModule):
         if op.attrs.get("precision", "full") == "mixed":
             _refuse('solve_linear with precision="mixed"')
         return self._mesh_solve(
-            handle, env[op.operands[1].uid], op.attrs["solver"], op.attrs["tol"],
+            op, handle, env[op.operands[1].uid], op.attrs["solver"], op.attrs["tol"],
             op.attrs["max_iters"], op.attrs.get("precond", "none"), op.attrs.get("options"),
             lift=True, verbose=_verbose(op),
         )
 
     def _time_advance(self, op: Operation, env):
         method = TimeMethod(op.attrs["method"])
-        if method == TimeMethod.IMPLICIT_LINEAR:
-            # the base's direct interpretation: krylov.solve without the lift
+        if method == TimeMethod.IMPLICIT_LINEAR and op.attrs.get("precond") != "mg":
+            # the base's direct interpretation: krylov.solve without the
+            # lift (with "mg" the base raises, as the JAX package's does)
             return self._mesh_solve(
-                self._handle_for(op.attrs["system"]), env[op.operands[0].uid],
+                op, self._handle_for(op.attrs["system"]), env[op.operands[0].uid],
                 op.attrs["solver"], op.attrs["tol"], op.attrs["max_iters"],
                 op.attrs.get("precond", "none"), op.attrs.get("options"), lift=False,
             )
-        if method == TimeMethod.IMPLICIT_NONLINEAR:
-            _refuse("time_advance with method=implicit_nonlinear")
         return super()._time_advance(op, env)
 
-    def _solve_nonlinear(self, op: Operation, env):
-        _refuse("solve_nonlinear")
+    def _reduction_group(self, states):
+        t = states[0] if isinstance(states, (tuple, list)) else states
+        return self.gm.sum_group(t.ndim) if t.ndim else None
 
-    def _mesh_solve(self, handle, b, solver, tol, max_iters, precond, options, *, lift,
+    def _mesh_solve(self, op, handle, b, solver, tol, max_iters, precond, options, *, lift,
                     verbose=False):
         """krylov.solve over the handle's sharded matvec, reducing over the
         group that shards the field."""
-        if solver not in ("cg", "gmres", "bicgstab"):
+        if solver not in ("cg", "gmres", "bicgstab", "chebyshev"):
             _refuse(f'solve_linear with solver="{solver}"')
-        if precond not in (None, "none", "jacobi"):
+        if precond not in (None, "none", "jacobi", "mg"):
             _refuse(f'solve_linear with precond="{precond}"')
         opts = merged_linear_options(options, solver)
+        pc_opts = split_precond_options(opts, precond)
         rank = handle.temp_type.bounds.rank
         M = None
-        if precond == "jacobi":
+        if precond == "mg":
+            M = self._mg_site(op, handle, b.device, pc_opts, gmesh=self.gm)
+        elif precond == "jacobi":
             halo = handle.halo or tuple((1, 1) for _ in range(rank))
             diag = extract_diagonal(
                 handle.matvec, torch.zeros_like(b), halo, origin=self._start(tuple(b.shape))

@@ -719,6 +719,49 @@ def plan_report(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> str:
     return "\n".join(lines) + "\n"
 
 
+class _MeshRule:
+    """What `executor._OpdefRule` needs of a sharded opdef: its route over
+    the blocks, and the tangent of that route.
+
+    `torch.func.jvp` cannot see through `GridMesh.ring_shift`, so the
+    tangent exchanges outside AD: the primal's and the tangent's blocks
+    are padded with their neighbours' composed-reach ghosts
+    (`halo_pad_local`, the extended-block route's exchange), then the
+    tangent is `torch.func.jvp` of the opdef's eager evaluation on the
+    extended blocks, carved to the core. Reverse mode over a mesh is not
+    ported (its cotangent strips would travel the other way)."""
+
+    def __init__(self, cm, rp: "RoutePlan", gmesh: GridMesh, route: Callable):
+        self.module, self.rp, self.gm, self.route = cm.module, rp, gmesh, route
+        self.periodic = _opdef_periodic(cm.module, rp.fn.name)
+
+    def view(self):
+        raise NotImplementedError(
+            f"@{self.rp.fn.name}: reverse-mode derivatives of a sharded opdef are not "
+            "ported; forward mode (torch.func.jvp) is"
+        )
+
+    def jvp(self, args: list, tangents):
+        rp, gm = self.rp, self.gm
+        nf = rp.n_fields
+        args = _bind(rp.fn, args, gm)
+        tans = [
+            (a.new_zeros(a.shape) if t is None else t.to(a.dtype)) for a, t in zip(args, tangents)
+        ]
+        pad = lambda x: halo_pad_local(x, rp.halo, rp.names, gm, periodic=self.periodic)  # noqa: E731
+        ext = [pad(a) for a in args[:nf]] + args[nf:]
+        ext_t = [pad(t) for t in tans[:nf]] + tans[nf:]
+        start = _ext_start(rp, tuple(args[0].shape), gm)
+
+        def local(*vals):
+            return _eval_opdef_local(
+                self.module, rp.fn.name, list(vals), tuple(ext[0].shape), start, "torch",
+                carve_halo=rp.halo,
+            )
+
+        return torch.func.jvp(local, tuple(ext), tuple(ext_t))[1]
+
+
 def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Callable:
     """Explicit-communication sharded matvec for opdef @name: a function of
     this process's blocks (and the trailing scalars) returning its blocks
@@ -729,10 +772,35 @@ def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Cal
     forms; "cuda" also sends every apply of the extended-block route to
     kernel A's window form (and keeps torus ops and composites off the
     fused routes, as the JAX package's "pallas"); "torch" runs eagerly.
+
+    The callable carries `gmesh` and the opdef's verified `halo` (what the
+    solvers need to find the mesh and probe the diagonal exactly), and a
+    forward-mode derivative rule (`_MeshRule`) for `torch.func.jvp`, which
+    Newton's J·v over a sharded residual takes.
     """
+    from ..lowering.executor import rule_callable
+
     rp = plan_opdef(cm, name, gmesh, backend)
+    f = rule_callable(
+        _MeshRule(cm, rp, gmesh, _route(cm, name, gmesh, rp, backend)), f"neptune_sharded_{name}"
+    )
+    f.gmesh, f.halo = gmesh, rp.fn.attrs.get("halo")
+    return f
+
+
+def _ext_start(rp: "RoutePlan", local_shape, gmesh: GridMesh) -> list:
+    """Global logical coordinate of cell 0 of a block extended by the
+    opdef's composed-reach ghosts (`halo_pad_local`), per dim."""
+    return [
+        (gmesh.axis_index(rp.names[d]) * local_shape[d] if rp.names[d] else 0)
+        - rp.halo[d][0] + rp.tt.bounds.lb[d]
+        for d in range(rp.tt.bounds.rank)
+    ]
+
+
+def _route(cm, name: str, gmesh: GridMesh, rp: "RoutePlan", backend: str) -> Callable:
+    """The callable of `rp`'s route for opdef @name (see `shardmap_opdef`)."""
     fn, halo, names, tt = rp.fn, rp.halo, rp.names, rp.tt
-    rank = tt.bounds.rank
     n_fields = rp.n_fields
     if rp.kind == "fused-strip":
         return _shardmap_fused(fn, rp.apply_op, gmesh, names, rp.fused, backend)
@@ -748,11 +816,7 @@ def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Cal
         exts = [
             halo_pad_local(x, halo, names, gmesh, periodic=periodic) for x in locs[:n_fields]
         ] + list(locs[n_fields:])
-        start = [
-            (gmesh.axis_index(names[d]) * local_shape[d] if names[d] else 0)
-            - halo[d][0] + tt.bounds.lb[d]
-            for d in range(rank)
-        ]
+        start = _ext_start(rp, local_shape, gmesh)
         return _eval_opdef_local(
             cm.module, name, exts, tuple(exts[0].shape), start, ext_backend, carve_halo=halo
         )

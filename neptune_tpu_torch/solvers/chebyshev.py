@@ -32,21 +32,24 @@ class SpectrumBounds(NamedTuple):
     lam_max: torch.Tensor
 
 
-def _normalized(w):
-    return tscale(1.0 / torch.clamp(tnorm(w), min=1e-300), w)
+def _normalized(w, group=None):
+    return tscale(1.0 / torch.clamp(tnorm(w, group), min=1e-300), w)
 
 
-def power_method(matvec: Callable, probe, iters: int = 40, M: Optional[Callable] = None):
+def power_method(
+    matvec: Callable, probe, iters: int = 40, M: Optional[Callable] = None, group=None
+):
     """Largest-eigenvalue estimate of (M o matvec) by power iteration, as a
     0-d tensor on the probe's device; reads nothing on the host.
 
     `probe` seeds the iteration (any vector with a component along the top
-    eigenvector; the right-hand side works)."""
+    eigenvector; the right-hand side works). group: the process group of a
+    sharded grid (`krylov`'s `group=`): the norms reduce over it."""
     M = M or _identity
-    v = _normalized(probe)
+    v = _normalized(probe, group)
     for _ in range(iters):
-        v = _normalized(M(matvec(v)))
-    return tnorm(M(matvec(v)))  # ||v|| == 1
+        v = _normalized(M(matvec(v)), group)
+    return tnorm(M(matvec(v)), group)  # ||v|| == 1
 
 
 def estimate_spectrum(
@@ -55,6 +58,7 @@ def estimate_spectrum(
     iters: int = 40,
     M: Optional[Callable] = None,
     safety: float = 1.05,
+    group=None,
 ):
     """[lam_min, lam_max] bounds for an SPD (preconditioned) operator.
 
@@ -62,12 +66,12 @@ def estimate_spectrum(
     iteration on the reflected operator lam_max*I - A, which maps the
     smallest eigenvalue to the largest. 2*iters matvecs, once."""
     M = M or _identity
-    lam_max = power_method(matvec, probe, iters, M) * safety
+    lam_max = power_method(matvec, probe, iters, M, group) * safety
 
     def reflected(v):
         return tsub(tscale(lam_max, v), M(matvec(v)))
 
-    lam_min = lam_max - power_method(reflected, probe, iters)
+    lam_min = lam_max - power_method(reflected, probe, iters, group=group)
     # clamp away from 0 (a singular/near-null mode would zero the interval)
     lam_min = torch.maximum(lam_min, lam_max * 1e-8)
     return SpectrumBounds(lam_min, lam_max)
@@ -134,6 +138,7 @@ def chebyshev(
     spectrum_iters: int = 40,
     residual_replacement: bool = True,
     replace_every: int = 0,
+    group=None,
 ):
     """Preconditioned Chebyshev iteration for SPD operators.
 
@@ -148,31 +153,32 @@ def chebyshev(
     residual, one extra matvec each; in the check_every=0 loop,
     replace_every=m rebases the recurrence every m iterations.
 
-    Missing bounds are estimated by `estimate_spectrum` from b."""
+    Missing bounds are estimated by `estimate_spectrum` from b. group: the
+    process group of a sharded grid; every norm reduces over it."""
     M = M or _identity
     x0 = tzeros_like(b) if x0 is None else x0
 
     if lam_max is None or lam_min is None:
-        est = estimate_spectrum(matvec, b, spectrum_iters, M)
+        est = estimate_spectrum(matvec, b, spectrum_iters, M, group=group)
         lam_min = est.lam_min if lam_min is None else lam_min
         lam_max = est.lam_max if lam_max is None else lam_max
     rec = _Recurrence(matvec, M, lam_min, lam_max)
-    target, _ = _tolerances(b, tol, atol)
+    target, _ = _tolerances(b, tol, atol, group)
 
     if check_every <= 0:
         x, r = _fixed(rec, b, x0, maxiter, replace_every)
-        rnorm = tnorm(tsub(b, matvec(x))) if residual_replacement else tnorm(r)
+        rnorm = tnorm(tsub(b, matvec(x)) if residual_replacement else r, group)
         return x, SolveInfo(maxiter, float(rnorm), bool(rnorm <= target))
 
     x, r, d, rho = rec.start(b, x0)
-    k, rnorm = 1, tnorm(r)
+    k, rnorm = 1, tnorm(r, group)
     while _unconverged(k, maxiter, rnorm, target):
         for _ in range(check_every):
             x, r, d, rho = rec.step(x, r, d, rho)
         if residual_replacement:
             # rebase the recurrence on the true residual at the check point
             r = tsub(b, matvec(x))
-        k, rnorm = k + check_every, tnorm(r)
+        k, rnorm = k + check_every, tnorm(r, group)
     return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
 
 

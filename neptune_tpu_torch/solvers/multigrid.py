@@ -19,6 +19,17 @@ The port of `neptune_tpu/solvers/multigrid.py`:
 
 Coarse-grid corrections are zeroed on each level's boundary ring (the
 correction equation has homogeneous Dirichlet data there).
+
+On a mesh of processes (`parallel.GridMesh`) the same cycle runs on
+blocks: when the finest operator carries a `gmesh` (a
+`parallel.shardmap_opdef` matvec, or a handle or wrapper around one),
+`like`, `b` and every level's tensors are this process's blocks. The
+diagonal probes, the boundary-ring mask, the red-black parity and the
+power iteration's seed follow the global grid; every norm, and the
+coarsest CG's, reduces over the mesh's group; `restrict` is block-local
+(each level above the coarsest needs even block extents); `prolong`
+exchanges a one-cell coarse halo with the neighbours and replicates the
+edge cell at the domain edge, as the whole-grid interpolation clamps.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch.nn.functional as F
 from ..config import default_device
 from .chebyshev import power_method
 from .chebyshev import smooth as _cheb_smooth
+from ..utils.tree import tnorm
 from .krylov import SolveInfo
 from .krylov import cg as _cg
 from .precond import extract_diagonal, safe_inv_diag
@@ -51,6 +63,8 @@ class MGLevel(NamedTuple):
     ca_smooth: Optional[Callable] = None  # (b, x) -> (x', r')
     ca_smooth_zero: Optional[Callable] = None  # (b,) -> (x', r')
     ca_k: int = 0  # the smoother's fused iteration count
+    # the mesh whose blocks this level's tensors are (None: the whole grid)
+    mesh: Optional[object] = None
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -69,21 +83,50 @@ def _matvec_of(op) -> Callable:
     return getattr(op, "matvec", None) or op
 
 
+def _mesh_of(op):
+    """The `GridMesh` an operator runs over (None: the whole grid)."""
+    return getattr(op, "gmesh", None) or getattr(_matvec_of(op), "gmesh", None)
+
+
+def _geometry(mesh, shape) -> tuple:
+    """(global shape, global index of cell 0) of a block of `shape`."""
+    if mesh is None:
+        return tuple(shape), (0,) * len(shape)
+    split = [d < len(mesh.shape) for d in range(len(shape))]
+    gshape = tuple(n * mesh.shape[d] if split[d] else n for d, n in enumerate(shape))
+    origin = tuple(mesh.coords[d] * n if split[d] else 0 for d, n in enumerate(shape))
+    return gshape, origin
+
+
+def _group(mesh, rank: int):
+    """The process group a field of `rank` dims reduces over (None: none)."""
+    return None if mesh is None else mesh.sum_group(rank)
+
+
 def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) -> list[MGLevel]:
     """Per-level smoother data, on `like`'s device and in its dtype.
 
     ops: finest-to-coarsest operators, `MatrixHandle`s (their halo gives
     exact diagonal probing) or bare matvec callables. like: a finest-grid
-    tensor or array (shape, dtype and device template). Each coarser level
-    halves every dimension. rings: per-level boundary-ring width of the
-    correction mask; by default each operator's largest halo (1 if unknown).
+    tensor or array (shape, dtype and device template; on a mesh, this
+    process's block). Each coarser level halves every dimension. rings:
+    per-level boundary-ring width of the correction mask; by default each
+    operator's largest halo (1 if unknown).
     """
     like = _as_tensor(like)
     dtype, device, rank = like.dtype, like.device, like.ndim
+    mesh = _mesh_of(ops[0])
     levels = []
     shape = tuple(like.shape)
     for i, op in enumerate(ops):
+        gshape, origin = _geometry(mesh, shape)
         if i + 1 < len(ops) and any(s % 2 for s in shape):
+            if mesh is not None:
+                raise ValueError(
+                    f"multigrid level {i} grid {gshape} on mesh {mesh.shape}: block {shape} "
+                    "is not 2:1-coarsenable (every block extent must be even above the "
+                    "coarsest level)"
+                )
             raise ValueError(
                 f"multigrid level {i} grid {shape} is not 2:1-coarsenable "
                 "(every extent must be even above the coarsest level)"
@@ -91,20 +134,28 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
         mv = _matvec_of(op)
         halo = _halo_of(op)
         lvl_like = torch.zeros(shape, dtype=dtype, device=device)
-        inv_diag = safe_inv_diag(extract_diagonal(mv, lvl_like, halo or ((1, 1),) * rank))
+        inv_diag = safe_inv_diag(
+            extract_diagonal(mv, lvl_like, halo or ((1, 1),) * rank, origin=origin)
+        )
         ring = rings[i] if rings is not None else max((max(h) for h in halo), default=1)
         idx = np.ones(shape, bool)
         for d in range(rank):
-            iv = np.arange(shape[d])
-            m = (iv >= ring) & (iv < shape[d] - ring)
+            iv = np.arange(origin[d], origin[d] + shape[d])
+            m = (iv >= ring) & (iv < gshape[d] - ring)
             idx = idx & m.reshape((1,) * d + (-1,) + (1,) * (rank - d - 1))
 
         # lam_max of the Jacobi-preconditioned operator D^-1 A, from the
-        # JAX package's probe (seed 12345, 20 iterations, x1.1)
-        seed_vec = torch.from_numpy(np.random.default_rng(12345).standard_normal(shape))
-        seed_vec = seed_vec.to(device=device, dtype=dtype)
-        lmax = power_method(mv, seed_vec, iters=20, M=lambda v, iv=inv_diag: iv * v) * 1.1
-        levels.append(MGLevel(mv, inv_diag, torch.from_numpy(idx).to(device), float(lmax)))
+        # JAX package's probe (seed 12345, 20 iterations, x1.1); on a mesh
+        # each block is its part of the global seed
+        seed = np.random.default_rng(12345).standard_normal(gshape)
+        seed = seed[tuple(slice(o, o + n) for o, n in zip(origin, shape))]
+        seed_vec = torch.from_numpy(np.ascontiguousarray(seed)).to(device=device, dtype=dtype)
+        lmax = power_method(
+            mv, seed_vec, iters=20, M=lambda v, iv=inv_diag: iv * v, group=_group(mesh, rank)
+        ) * 1.1
+        levels.append(
+            MGLevel(mv, inv_diag, torch.from_numpy(idx).to(device), float(lmax), mesh=mesh)
+        )
         shape = tuple(s // 2 for s in shape)
     return levels
 
@@ -120,19 +171,47 @@ def restrict(r: torch.Tensor) -> torch.Tensor:
 _MODES = {1: "linear", 2: "bilinear", 3: "trilinear"}
 
 
-def prolong(e: torch.Tensor, fine_shape) -> torch.Tensor:
-    """Cell-centred multilinear interpolation up to fine_shape."""
+def _interpolate(e: torch.Tensor, fine_shape) -> torch.Tensor:
     out = F.interpolate(
         e[None, None], size=tuple(fine_shape), mode=_MODES[e.ndim], align_corners=False
     )
     return out[0, 0]
 
 
-def _red_mask(shape, device) -> torch.Tensor:
-    """Checkerboard parity mask: True where the index sum is even."""
+def prolong(e: torch.Tensor, fine_shape, mesh=None) -> torch.Tensor:
+    """Cell-centred multilinear interpolation up to fine_shape (2:1).
+
+    On a mesh, e and the result are this process's blocks: each sharded
+    dim in turn takes a one-cell halo from the neighbours (a later dim's
+    strips are cut from the earlier dims' extended block, so the corner
+    cell arrives), the extended block is interpolated and its centre
+    carved out. At the domain edge nothing is added: the interpolation's
+    own clamp replicates the edge cell there, as on the whole grid, so the
+    blocks are bitwise those of the whole-grid result."""
+    if mesh is None:
+        return _interpolate(e, fine_shape)
+    lows = []
+    for d in range(min(e.ndim, len(mesh.shape))):
+        name, n, idx = mesh.axis_names[d], mesh.shape[d], mesh.coords[d]
+        if n == 1:
+            lows.append(0)
+            continue
+        lo = mesh.ring_shift(e.narrow(d, e.shape[d] - 1, 1), name, 1)
+        hi = mesh.ring_shift(e.narrow(d, 0, 1), name, -1)
+        e = torch.cat(([lo] if idx > 0 else []) + [e] + ([hi] if idx < n - 1 else []), dim=d)
+        lows.append(int(idx > 0))
+    out = _interpolate(e, [2 * s for s in e.shape])
+    return out[tuple(slice(2 * lo, 2 * lo + f) for lo, f in zip(lows, fine_shape))]
+
+
+def _red_mask(shape, device, origin=None) -> torch.Tensor:
+    """Checkerboard parity mask: True where the (global) index sum is even;
+    origin: the global index of cell 0 of a block."""
+    origin = (0,) * len(shape) if origin is None else origin
     s = 0
-    for d, n in enumerate(shape):
-        s = s + torch.arange(n, device=device).reshape((1,) * d + (-1,) + (1,) * (len(shape) - d - 1))
+    for d, (n, o) in enumerate(zip(shape, origin)):
+        iv = torch.arange(o, o + n, device=device)
+        s = s + iv.reshape((1,) * d + (-1,) + (1,) * (len(shape) - d - 1))
     return (s % 2) == 0
 
 
@@ -155,7 +234,7 @@ def _smoother(L: MGLevel, b, smoother: str, omega: float) -> Callable:
             )
 
     elif smoother == "rb":
-        red = _red_mask(b.shape, b.device)
+        red = _red_mask(b.shape, b.device, _geometry(L.mesh, tuple(b.shape))[1])
 
         def smooth(x, n):
             for _ in range(n):
@@ -225,7 +304,9 @@ def v_cycle(
         # vector keeps a zero ring (identity rows), so CG acts on the SPD
         # interior block only; an under-solved coarsest grid would cap the
         # V-cycle's rate
-        x, _ = _cg(L.matvec, b, x0=x, tol=1e-8, maxiter=coarse_iters)
+        x, _ = _cg(
+            L.matvec, b, x0=x, tol=1e-8, maxiter=coarse_iters, group=_group(L.mesh, b.ndim)
+        )
         return x
 
     if L.ca_smooth is not None:
@@ -255,7 +336,7 @@ def v_cycle(
     # zero the correction's ring too before interpolating: keeps any
     # coarsest-level ring drift out of fine interior cells
     ec = torch.where(Lc.interior, ec, 0.0)
-    e = prolong(ec, x.shape)
+    e = prolong(ec, x.shape, L.mesh)
     x = x + torch.where(L.interior, e, 0.0)
     if L.ca_smooth is not None:
         x, _ = L.ca_smooth(b, x)
@@ -281,17 +362,18 @@ def multigrid_solve(
 
     ops[0] is the finest operator (matching b's grid); each later entry is
     the operator rediscretized on the 2:1-coarsened grid. The loop tests
-    ||b - A x|| <= tol * ||b|| on the host after every cycle.
+    ||b - A x|| <= tol * ||b|| on the host after every cycle (on a mesh,
+    both norms over the mesh's group).
     """
     _check_smoother(smoother)  # before any cycle, as the JAX package traces one
     b = _as_tensor(b)
     lv = list(levels) if levels is not None else build_levels(ops, b)
-    bnorm = torch.sqrt(torch.sum(b * b))
+    group = _group(lv[0].mesh, b.ndim)
+    bnorm = tnorm(b, group)
     limit = tol * torch.clamp(bnorm, min=1e-30)
 
     def resnorm(x):
-        r = b - lv[0].matvec(x)
-        return torch.sqrt(torch.sum(r * r))
+        return tnorm(b - lv[0].matvec(x), group)
 
     if x0 is None:
         # copy-through ring rows are identity: x*_ring = b_ring exactly;
@@ -333,7 +415,7 @@ def fmg_start(
     for lvl in range(len(levels) - 1, -1, -1):
         bl = rhs[lvl] if lvl > 0 else b
         if lvl < len(levels) - 1:
-            x = prolong(x, bl.shape)
+            x = prolong(x, bl.shape, levels[lvl].mesh)
             # the finest level takes the true boundary values (see
             # multigrid_solve); coarser levels carry zero-ring data
             x = torch.where(levels[lvl].interior, x, bl if lvl == 0 else 0.0)

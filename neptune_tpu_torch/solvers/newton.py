@@ -44,6 +44,7 @@ def newton_krylov(
     max_backtracks: int = 25,
     max_step: Optional[float] = None,
     jac_mv: Optional[Callable] = None,
+    group=None,
 ):
     """Solve F(x) = 0 by Newton's method with GMRES inner solves.
 
@@ -53,9 +54,11 @@ def newton_krylov(
     max_step caps ||dx|| per Newton iteration (PETSc -snes_linesearch_maxstep).
     jac_mv: optional user linearization `(x, v) -> J(x)·v` (the `jacobian=`
     attr of solve_nonlinear); default is the exact jvp of `residual`.
+    group: the process group of a sharded state (`krylov`'s `group=`):
+    every norm, and the inner GMRES's, reduces over it.
     """
     F = residual(x0)
-    fnorm = tnorm(F)
+    fnorm = tnorm(F, group)
     target = torch.clamp(tol * fnorm, min=atol)
     x = x0
     k = kry = stall = 0
@@ -68,10 +71,11 @@ def newton_krylov(
 
         # solve J dx = -F, matrix-free
         dx, info = gmres(
-            jv, tscale(-1.0, F), tol=krylov_tol, maxiter=krylov_iters, restart=restart, M=M
+            jv, tscale(-1.0, F), tol=krylov_tol, maxiter=krylov_iters, restart=restart, M=M,
+            group=group,
         )
         if max_step is not None:
-            dxnorm = tnorm(dx)
+            dxnorm = tnorm(dx, group)
             cap = torch.as_tensor(max_step, dtype=dxnorm.dtype, device=dxnorm.device)
             dx = tscale(
                 torch.where(dxnorm > cap, cap / torch.clamp(dxnorm, min=1e-30), 1.0), dx
@@ -90,7 +94,7 @@ def newton_krylov(
             trial_lam, min_fn, min_lam = 1.0, float("inf"), 1.0
             for _ in range(max_backtracks):
                 F_trial = residual(taxpy(trial_lam, dx, x))
-                fn = tnorm(F_trial)
+                fn = tnorm(F_trial, group)
                 if bool(fn <= (1.0 - 1e-4 * trial_lam) * fnorm):
                     lam, F_new = trial_lam, F_trial
                     break
@@ -103,7 +107,7 @@ def newton_krylov(
         x_new = taxpy(lam, dx, x)
         if F_new is None:
             F_new = residual(x_new)
-        fnorm_new = tnorm(F_new)
+        fnorm_new = tnorm(F_new, group)
         stall = stall + 1 if bool(fnorm_new >= fnorm) else 0
         x, F, fnorm = x_new, F_new, fnorm_new
         k += 1
@@ -118,19 +122,21 @@ def picard(
     tol: float = 1e-8,
     max_iters: int = 200,
     damping: float = 1.0,
+    group=None,
 ):
     """Damped Picard / Richardson iteration for F(x) = 0: x <- x - w F(x).
 
     Takes the same residual as newton_krylov and converges when
-    I - w dF/dx is a contraction. Convergence test: ||F(x)|| <= tol.
+    I - w dF/dx is a contraction. Convergence test: ||F(x)|| <= tol, the
+    norm reduced over `group` on a sharded state.
     """
     x = x0
     F = residual(x)
-    fnorm = tnorm(F)
+    fnorm = tnorm(F, group)
     k = 0
     while k < max_iters and bool(fnorm > tol):
         x = taxpy(-damping, F, x)
         F = residual(x)
-        fnorm = tnorm(F)
+        fnorm = tnorm(F, group)
         k += 1
     return x, NewtonInfo(k, float(fnorm), bool(fnorm <= tol), 0)

@@ -1014,3 +1014,50 @@ def test_sharded_function_heat_step_on_the_kernel_route(cuda):
     assert torch.equal(y, y_off)
     ref = cm.function("step")(u)
     assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_ca_smoother_on_the_kernel_route(cuda):
+    """The CA multigrid smoother on a one-process mesh on the card: its core
+    matvecs launch kernel A's window form, and the kernels-off module gives
+    bitwise-equal (x', r') from zero and from a live guess."""
+    from neptune_tpu_torch.parallel import build_ca_levels, ca_smoother, single_device_mesh
+
+    module, b, _, _ = _ca_system()
+    gm = single_device_mesh(cuda)
+    bs = torch.from_numpy(b).to(cuda)
+    x1 = torch.randn(bs.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    outs = []
+    for backend in ("auto", "torch"):
+        cm = CompiledModule(module, backend, cuda)
+        (lvl,) = build_ca_levels(cm, ["poisson"], gm, torch.zeros_like(bs), k=3)
+        sm, sm0 = ca_smoother(cm, "poisson", gm, k=3, lam_min=lvl.cheb_lmax / 4,
+                              lam_max=lvl.cheb_lmax, inv_diag=lvl.inv_diag)
+        before = cuda_backend.window_counter.count
+        outs.append((sm0(bs), sm(bs, x1)))
+        launched = cuda_backend.window_counter.count - before
+        assert launched == (7 if backend == "auto" else 0), launched
+    for got, ref in zip(outs[0], outs[1]):
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert got[0].is_cuda and bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.gpu
+def test_sharded_rule_on_the_card(cuda):
+    """The derivative rule of shardmap_opdef on the card: a nonlinear
+    residual's tangent on a one-process mesh equals the eager view's,
+    bitwise, and its primal is the window form's."""
+    from neptune_tpu_torch.lowering.executor import rule_counter
+    from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
+
+    _, ntt = allen_cahn_step(64)
+    cm = ntt.get_context().compiled()
+    f = shardmap_opdef(CompiledModule(cm.module, "auto", cuda), "ac_res", single_device_mesh(cuda))
+    view = CompiledModule(cm.module, "torch", cuda).opdef("ac_res")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, up, v = (torch.randn(64, 64, device=cuda, generator=gen) for _ in range(3))
+    before = (rule_counter.count, cuda_backend.window_counter.count)
+    out, tan = torch.func.jvp(lambda a: f(a, up), (x,), (v,))
+    assert rule_counter.count == before[0] + 1 and cuda_backend.window_counter.count > before[1]
+    ref_out, ref_tan = torch.func.jvp(lambda a: view(a, up), (x,), (v,))
+    assert torch.equal(out, ref_out) and torch.equal(tan, ref_tan) and bool(tan.abs().max() > 0)

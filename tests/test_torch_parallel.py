@@ -160,14 +160,65 @@ def test_unknown_backend_and_sharded_function():
     gm = GridMesh((2,), ("x",), abstract=True)
     with pytest.raises(ValueError, match="backend"):
         plan_opdef(cm, "jacobi", gm, "pallas")
-    # sharded_function runs (test_torch_sharded_function.py); what it does
-    # not shard yet, the multigrid preconditioner, names its ROADMAP item
+    # sharded_function runs (test_torch_sharded_function.py), the multigrid
+    # preconditioner too: on a one-process mesh it is the whole-grid function
     module = stencils.with_solve(stencils.poisson5(32, "float64"), "poisson", solver="cg",
                                  tol=1e-8, max_iters=50, precond="mg")
-    f = sharded_function(compile_ir(module, device="cpu"), "solve",
-                         GridMesh((1,), ("x",), device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        f(np.zeros((32, 32)))
+    cm = compile_ir(module, device="cpu")
+    f = sharded_function(cm, "solve", GridMesh((1,), ("x",), device="cpu"))
+    b = np.random.default_rng(5).standard_normal((32, 32))
+    assert torch.equal(f(b), cm.function("solve")(b))
+
+
+def test_shardmap_opdef_carries_its_mesh_and_a_jvp_rule():
+    """The sharded matvec carries its mesh and the verifier's halo, and a
+    forward-mode rule: its tangent on a one-process mesh is the eager
+    view's, bitwise, for a nonlinear opdef; for a linear one it is the
+    matvec of the tangent. Reverse mode names what is missing."""
+    import neptune_tpu_torch as ntt
+    from neptune_tpu_torch.lowering.executor import rule_counter
+    from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
+
+    n = 32
+    ntt.reset_context()
+
+    @ntt.nonlinear_op_def(bounds=([0, 0], [n, n]), dtype="float64", name="cubic")
+    def cubic(u, up):
+        lap = u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1] - 4.0 * u[0, 0]
+        return u[0, 0] - up[0, 0] - 0.05 * (lap + u[0, 0] - u[0, 0] * u[0, 0] * u[0, 0])
+
+    cm = ntt.get_context().compiled()
+    gm = single_device_mesh("cpu")
+    f = shardmap_opdef(cm, "cubic", gm)
+    assert f.gmesh is gm and f.halo == ((1, 1), (1, 1))
+    x, up, v = torch.from_numpy(np.random.default_rng(0).standard_normal((3, n, n)))
+    before = rule_counter.count
+    out, tan = torch.func.jvp(lambda a: f(a, up), (x,), (v,))
+    assert rule_counter.count == before + 1
+    view = cm.opdef("cubic", differentiable=True)
+    ref_out, ref_tan = torch.func.jvp(lambda a: view(a, up), (x,), (v,))
+    assert torch.equal(out, ref_out) and torch.equal(tan, ref_tan)
+    with pytest.raises(NotImplementedError, match="reverse-mode"):
+        f(x.clone().requires_grad_(True), up).sum().backward()
+
+    mv = shardmap_opdef(CompiledModule(stencils.poisson5(n, "float64")), "poisson", gm)
+    _, tan = torch.func.jvp(mv, (x,), (v,))
+    assert torch.equal(tan, mv(v))
+
+
+def test_odd_blocks_name_the_level_and_the_mesh():
+    """Above the coarsest level every block extent must be even: the
+    V-cycle restricts block-locally (the JAX package reshards instead)."""
+    from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
+    from neptune_tpu_torch.solvers.multigrid import build_levels
+
+    gm = single_device_mesh("cpu")
+    mvs = [
+        shardmap_opdef(CompiledModule(stencils.poisson5(n, "float64")), "poisson", gm)
+        for n in (20, 10, 5)
+    ]
+    with pytest.raises(ValueError, match=r"level 2 grid \(5, 5\) on mesh \(1,\)"):
+        build_levels(mvs + [None], torch.zeros(20, 20, dtype=torch.float64))
 
 
 # ---------------------------------------------------------------------------

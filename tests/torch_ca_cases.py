@@ -218,13 +218,112 @@ def function_module(kind):
         return run_pipeline(reach2_jacobi()).module, "solve", [rhs_ring(32, rng)]
     if kind == "stats32":
         return run_pipeline(stats_program()).module, "stats", [rng.standard_normal((32, 32))]
+    if kind in MG_PROGRAMS:
+        solve = MG_PROGRAMS[kind]
+        module = stencils.with_solve(stencils.poisson5(32, "float64"), "poisson", **solve)
+        return run_pipeline(module).module, "solve", [rhs_ring(32, rng)]
+    if kind.startswith("ac2d_"):
+        # a smooth state: 0.8 sin(pi x) sin(pi y) plus seeded noise
+        x = np.linspace(0.0, 1.0, 32)
+        u0 = 0.8 * np.outer(np.sin(np.pi * x), np.sin(np.pi * x))
+        u0 = u0 + 0.05 * rng.standard_normal((32, 32))
+        fname = kind[len("ac2d_"):]
+        module = allen_cahn_2d()
+        # solve_nonlinear runs as written; "step"'s time_advance is
+        # interpreted by the executor, not lowered by the pipeline
+        return module, fname, [u0]
     raise KeyError(kind)
+
+
+# the solve_linear programs of the mesh-aware V-cycle and Chebyshev: kind ->
+# solve_linear keywords (32^2 f64 Poisson, rhs with ring values)
+MG_PROGRAMS = {
+    "mg32": dict(solver="cg", tol=1e-10, max_iters=50, precond="mg"),
+    "mg32_cheb": dict(solver="cg", tol=1e-10, max_iters=50, precond="mg",
+                      options={"mg_smoother": "cheb"}),
+    "cheb32_jacobi": dict(solver="chebyshev", tol=1e-9, max_iters=600, precond="jacobi",
+                          options={"check_every": 10}),
+    "cheb32_bounds": dict(solver="chebyshev", tol=1e-12, max_iters=97,
+                          options={"lam_min": float(lam_min(32)), "lam_max": 8.0}),
+}
 
 
 def rhs_ring(n, rng):
     """A seeded rhs with nonzero ring values (what CG's Dirichlet lift
     handles)."""
     return rng.standard_normal((n, n))
+
+
+def allen_cahn_2d(n=32, dt=0.05, k=5.0):
+    """Fully implicit Allen-Cahn on an n^2 f64 grid: @ac_res(u, up) = u - up
+    - dt (k lap(u) + u - u^3), u - up on the boundary rows; @ac_jac(v, u,
+    up), its Jacobian in the full form; @solve(u0) and @solve_jac(u0):
+    solve_nonlinear from u0 with up = u0, without and with jacobian=,
+    verbose (their SNES line gives Newton's iterations); @step(u0):
+    time_advance(method=implicit_nonlinear). dt k = 0.25 keeps the Jacobian
+    I + O(1). Verified, not lowered."""
+    b = NeptuneBuilder()
+    bounds = Bounds.of([0, 0], [n, n])
+    tt = TempType("float64", bounds)
+    ft = FieldType("float64", bounds)
+
+    def body_of(name, n_in, interior_of, boundary_of):
+        fn = b.make_opdef(name, "nonlinear_opdef", [tt] * n_in, [tt])
+        b.push_block(fn.body)
+        op, blk = b.start_apply(list(fn.body.args), bounds)
+        b.push_block(blk)
+        i, j, *fields = blk.args
+        edge = None
+        for iv in (i, j):
+            for e in (0, n - 1):
+                c = b.cmp("eq", iv, b.constant(e, iv.type))
+                edge = c if edge is None else b.logical_or(edge, c)
+        b.yield_(b.select(edge, boundary_of(*fields), interior_of(*fields)))
+        b.pop_block()
+        b.return_([b.finish_apply(op)])
+        b.pop_block()
+
+    def c(v):
+        return b.constant(v, F64)
+
+    def lap(u):
+        acc = b.mul(c(-4.0), b.access(u, [0, 0]))
+        for o in ([-1, 0], [1, 0], [0, -1], [0, 1]):
+            acc = b.add(acc, b.access(u, o))
+        return acc
+
+    def res_interior(u, up):
+        u0 = b.access(u, [0, 0])
+        react = b.sub(u0, b.mul(b.mul(u0, u0), u0))
+        rhs = b.add(b.mul(c(k), lap(u)), react)
+        return b.sub(b.sub(u0, b.access(up, [0, 0])), b.mul(c(dt), rhs))
+
+    def jac_interior(v, u, up):
+        v0, u0 = b.access(v, [0, 0]), b.access(u, [0, 0])
+        react = b.sub(v0, b.mul(b.mul(c(3.0), b.mul(u0, u0)), v0))
+        rhs = b.add(b.mul(c(k), lap(v)), react)
+        return b.sub(v0, b.mul(c(dt), rhs))
+
+    body_of("ac_res", 2, res_interior,
+            lambda u, up: b.sub(b.access(u, [0, 0]), b.access(up, [0, 0])))
+    body_of("ac_jac", 3, jac_interior,
+            lambda v, u, up: b.add(b.access(v, [0, 0]), b.mul(c(0.0), b.access(up, [0, 0]))))
+
+    for fname in ("solve", "solve_jac", "step"):
+        fn = b.make_function(fname, "func", [TensorType("float64", (n, n))],
+                             [TensorType("float64", (n, n))])
+        b.push_block(fn.body)
+        u0 = b.load(b.wrap(fn.body.args[0], ft))
+        if fname == "step":
+            out = b.time_advance(u0, dt, 1, residual="ac_res", tol=1e-10, max_iters=20)
+        else:
+            out = b.solve_nonlinear(
+                "ac_res", [u0], captures=[u0], tol=1e-10, max_iters=20, verbose=True,
+                jacobian="ac_jac" if fname == "solve_jac" else None,
+            )
+        b.return_([out])
+        b.pop_block()
+    return verify_and_annotate(b.module)
 
 
 # name -> (program, mesh)
@@ -238,7 +337,68 @@ FUNCTIONS = {
     "wide_41": ("wide32", (4, 1)),
     "stats_22": ("stats32", (2, 2)),
     "stats_14": ("stats32", (1, 4)),
+    "mg_22": ("mg32", (2, 2)),
+    "mg_41": ("mg32", (4, 1)),
+    "mg_cheb_41": ("mg32_cheb", (4, 1)),
+    "cheb_jacobi_22": ("cheb32_jacobi", (2, 2)),
+    "cheb_bounds_14": ("cheb32_bounds", (1, 4)),
+    "newton_22": ("ac2d_solve", (2, 2)),
+    "newton_jac_41": ("ac2d_solve_jac", (4, 1)),
+    "step_nonlinear_22": ("ac2d_step", (2, 2)),
 }
+
+
+# ---- multigrid over a mesh (test_torch_ca_multigrid.py) ---------------------
+
+MG_SIZES = (128, 64, 32, 16)
+MG_NAMES = tuple(f"poisson{n}" for n in MG_SIZES)
+MG_MESHES = ((2, 2), (4, 1))
+
+
+def poisson_hierarchy(nt, sizes=MG_SIZES):
+    """The rediscretized 1/h^2-scaled 5-pt f64 Poisson opdefs @poisson{n},
+    finest first, as tests/test_multigrid.py builds them, in a fresh context
+    of `nt`'s DSL (either package's): their assembled handles."""
+    nt.reset_context()
+
+    def make(n):
+        inv_h2 = float((n - 1) * (n - 1))
+
+        @nt.linear_op_def(bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]),
+                          dtype="float64", name=f"poisson{n}")
+        def op(u):
+            return (4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]) * inv_h2
+
+        return op
+
+    return [nt.assemble_matrix(make(n)) for n in sizes]
+
+
+def wide5(n=64):
+    """@wide5: 6 u - the four cells at distance 2, on a ring 2 deep (the JAX
+    package's wide-stencil diagonal-probe case)."""
+    terms = [((-2, 0), 1.0), ((2, 0), 1.0), ((0, -2), 1.0), ((0, 2), 1.0)]
+    return stencil_op("wide5", (n, n), 6.0, terms, ring=2)
+
+
+# the meshes each solve runs on: every solve costs seconds of gloo round
+# trips (~1 ms per ring shift or reduction among four CPU processes), so
+# each runs where it tests most: red-black multigrid_solve on (2,2); the CA
+# cycle against per-matvec smoothing, and Newton, on (4,1), whose coarsest
+# level is CA-ineligible
+MG_SOLVES = {"rb": ((2, 2),), "pcg": ((2, 2), (4, 1)), "ca": ((4, 1),), "newton": ((4, 1),)}
+
+# the prolongation cases: (rank, coarse shape); a block corner lies inside
+# each grid on (2,2), and every block touches the domain edge
+PROLONG = {"2d": (2, (32, 32)), "3d": (3, (16, 16, 8))}
+
+
+def snes_iters(text: str) -> list:
+    """Newton's iteration counts from the verbose SNES lines in `text`, as
+    either package prints them."""
+    import re
+
+    return [int(m) for m in re.findall(r"SNES\([^)]*\) \S+: iters=(\d+)", text)]
 
 
 class Spawn:

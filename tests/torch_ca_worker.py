@@ -6,7 +6,9 @@
 MODE "ca" runs every case of `torch_ca_cases` for the communication-
 avoiding solvers (FIXED, CONVERGED, ORACLE, COMM); MODE "function" runs
 its FUNCTIONS through `sharded_function` (the Allen-Cahn program's IR text
-comes from OUT_DIR/allen_cahn.mlir, printed by the parent). Each process
+comes from OUT_DIR/allen_cahn.mlir, printed by the parent); MODE "mg" runs
+the mesh-aware multigrid, the CA smoothers and Newton over a sharded
+residual (`run_mg`). Each process
 joins a gloo group on localhost, runs on its own blocks on the CPU, gathers
 the results, and rank 0 writes OUT_DIR/results.npz (arrays) and
 OUT_DIR/info.json (iterations, residual norms, call counts). Imports the
@@ -15,6 +17,8 @@ port only, never JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import sys
@@ -138,14 +142,143 @@ def run_functions(meshes, results, infos, out_dir: Path):
             module, fname, args = cases.function_module(kind)
             cm = CompiledModule(module, device="cpu")
         gm.shifts = gm.reductions = 0
-        out = sharded_function(cm, fname, gm)(*[gm.shard(a) for a in args])
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            out = sharded_function(cm, fname, gm)(*[gm.shard(a) for a in args])
         outs = out if isinstance(out, tuple) else (out,)
         for i, o in enumerate(outs):
             if o.dim():
                 results[f"fn/{name}/{i}"] = gm.gather(o).numpy()
             else:
                 results[f"fn/{name}/{i}"] = o.numpy()
-        infos[name] = {"shifts": gm.shifts, "reductions": gm.reductions}
+        infos[name] = {"shifts": gm.shifts, "reductions": gm.reductions,
+                       "snes_iters": cases.snes_iters(log.getvalue())}
+
+
+def run_mg(meshes, results, infos):
+    """The mesh-aware V-cycle, the CA smoothers and Newton over a sharded
+    residual, on each mesh of `cases.MG_MESHES` (see
+    test_torch_ca_multigrid.py for what is compared)."""
+    import neptune_tpu_torch as ntt
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.parallel import build_ca_levels, ca_smoother
+    from neptune_tpu_torch.solvers import multigrid, newton_krylov
+    from neptune_tpu_torch.solvers.chebyshev import chebyshev
+
+    cases.poisson_hierarchy(ntt)
+    cm = ntt.get_context().compiled()
+    names = cases.MG_NAMES
+    b = cases.rhs(cm.module, names[0], 0)
+    built = {}
+    for mesh in cases.MG_MESHES:
+        gm = meshes[mesh]
+        tag = "x".join(map(str, mesh))
+        group = gm.sum_group(2)
+        bs = gm.shard(b)
+        mvs = [shardmap_opdef(cm, nm, gm) for nm in names]
+        lv = built[mesh] = build_ca_levels(cm, names, gm, torch.zeros_like(bs), k=3)
+        plain = [lvl._replace(ca_smooth=None, ca_smooth_zero=None, ca_k=0) for lvl in lv]
+        infos[f"levels/{tag}"] = {
+            "eligible": [lvl.ca_smooth is not None for lvl in lv],
+            "lmax": [lvl.cheb_lmax for lvl in lv],
+        }
+        results[f"inv_diag/{tag}"] = gm.gather(lv[0].inv_diag).numpy()
+        runs = {name for name, on in cases.MG_SOLVES.items() if mesh in on}
+
+        if "rb" in runs:
+            # multigrid_solve with red-black smoothing over the shardmap matvecs
+            x, info = multigrid.multigrid_solve(mvs, bs, tol=1e-9, maxiter=60)
+            results[f"rb/{tag}"], infos[f"rb/{tag}"] = gm.gather(x).numpy(), _info(info)
+
+        if "pcg" in runs:
+            # MG-PCG with the Chebyshev-smoothed cycle
+            M = multigrid.mg_preconditioner(mvs, bs, smoother="cheb", levels=plain)
+            x, info = krylov.cg(mvs[0], bs, M=M, tol=1e-8, maxiter=200, group=group)
+            results[f"pcg/{tag}"], infos[f"pcg/{tag}"] = gm.gather(x).numpy(), _info(info)
+
+        if "ca" in runs:
+            # CA-smoothed multigrid_solve against per-matvec "cheb" smoothing
+            for route, levels in (("ca", lv), ("per_matvec", plain)):
+                gm.shifts = 0
+                x, info = multigrid.multigrid_solve(
+                    [None] * 4, bs, tol=1e-9, maxiter=60, levels=levels, smoother="cheb",
+                    pre=3, post=3,
+                )
+                results[f"{route}/{tag}"] = gm.gather(x).numpy()
+                infos[f"{route}/{tag}"] = dict(_info(info), shifts=gm.shifts)
+
+        if "newton" in runs:
+            # Newton-Krylov over a sharded residual: F = A u + 0.1 u^3 - b
+            module = stencils.poisson5(64, "float64")
+            mv = shardmap_opdef(CompiledModule(module), "poisson", gm)
+            b64 = gm.shard(cases.rhs(module, "poisson", 2))
+
+            def F(u, mv=mv, b64=b64):
+                return mv(u) + 0.1 * u * u * u - b64
+
+            x, info = newton_krylov(F, torch.zeros_like(b64), group=group)
+            results[f"newton/{tag}"] = gm.gather(x).numpy()
+            infos[f"newton/{tag}"] = {
+                "iters": info.iters, "krylov_iters": info.krylov_iters,
+                "converged": bool(info.converged), "fnorm": float(tree.tnorm(F(x), group)),
+            }
+
+        # prolongation at block corners and domain edges
+        for pname, (rank, shape) in cases.PROLONG.items():
+            e = gm.shard(np.random.default_rng(rank).standard_normal(shape))
+            fine = tuple(2 * n for n in e.shape)
+            results[f"prolong/{pname}/{tag}"] = gm.gather(multigrid.prolong(e, fine, gm)).numpy()
+
+    gm = meshes[(2, 2)]
+    group = gm.sum_group(2)
+    bs = gm.shard(b)
+    L = built[(2, 2)][0]
+    mv = L.matvec
+    lmax = L.cheb_lmax
+
+    # the smoother against chebyshev(maxiter=k) over the same matvec
+    sm, sm0 = ca_smoother(cm, names[0], gm, k=3, lam_min=lmax / 4, lam_max=lmax,
+                          inv_diag=L.inv_diag)
+    x1 = gm.shard(np.random.default_rng(1).standard_normal(b.shape))
+    for start, (xs, rs), x0 in (
+        ("zero", sm0(bs), torch.zeros_like(bs)), ("live", sm(bs, x1), x1),
+    ):
+        xo, _ = chebyshev(mv, bs, x0=x0, M=lambda v: L.inv_diag * v, lam_min=lmax / 4,
+                          lam_max=lmax, maxiter=3, residual_replacement=False, group=group)
+        results[f"smoother/{start}"] = gm.gather(xs).numpy()
+        results[f"smoother_oracle/{start}"] = gm.gather(xo).numpy()
+        results[f"smoother_r/{start}"] = gm.gather(rs).numpy()
+        results[f"smoother_true_r/{start}"] = gm.gather(bs - mv(xs)).numpy()
+
+    # exchange rounds per smoothing pass, against k per-matvec applications
+    rounds = {}
+    for k in (2, 6):
+        s_k, s0_k = ca_smoother(cm, names[0], gm, k=k, lam_min=lmax / 4, lam_max=lmax,
+                                inv_diag=L.inv_diag)
+        gm.shifts = 0
+        s0_k(bs)
+        rounds[f"zero_{k}"] = gm.shifts
+        gm.shifts = 0
+        s_k(bs, x1)
+        rounds[f"live_{k}"] = gm.shifts
+        gm.shifts = 0
+        v = bs
+        for _ in range(k):
+            v = mv(v)
+        rounds[f"naive_{k}"] = gm.shifts
+    infos["rounds"] = rounds
+
+    # CA-MG preconditioning CG (k=2)
+    lv2 = build_ca_levels(cm, names, gm, torch.zeros_like(bs), k=2)
+    M = multigrid.mg_preconditioner([None], bs, smoother="cheb", levels=lv2)
+    x, info = krylov.cg(mv, bs, M=M, tol=1e-8, maxiter=200, group=group)
+    results["ca_pcg"], infos["ca_pcg"] = gm.gather(x).numpy(), _info(info)
+
+    # the wide stencil's diagonal, probed through build_ca_levels
+    module = cases.wide5()
+    lw = build_ca_levels(CompiledModule(module), ["wide5"], gm, torch.zeros(32, 32,
+                         dtype=torch.float64), k=2)
+    results["wide5_inv_diag"] = gm.gather(lw[0].inv_diag).numpy()
 
 
 def main() -> int:
@@ -158,6 +291,8 @@ def main() -> int:
     meshes = Meshes()
     if mode == "ca":
         run_ca(meshes, results, infos)
+    elif mode == "mg":
+        run_mg(meshes, results, infos)
     else:
         run_functions(meshes, results, infos, out_dir)
     if rank == 0:
