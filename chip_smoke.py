@@ -689,6 +689,7 @@ def phase9_rank(argv) -> int:
     # phase 12's and phase 13's four-process parts, in the same processes
     report["phase12"] = phase12_rank(rank, dev, sync)
     report["phase13"] = phase13_rank(rank, dev)
+    report["phase14"] = phase14_rank(rank, dev)
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
@@ -2274,6 +2275,349 @@ def phase13(ntt, dev, reports, p11) -> int:
     return launches
 
 
+# ---- phase 14: the rest of sharded_function, reverse mode and the dry run --
+# Through sharded_function, each case on the kernel route and the kernels-off
+# route, on a mesh of one process and (phase14_rank) on (2,2) in phase 9's
+# four processes: (a) phase 3's 512^2 f32 Poisson system with CG +
+# precond="ssor" (phase 10d's tolerance); (b) bench.py's
+# cg_poisson_512_mixed_1e10 (f64 Poisson, precision="mixed": f32 Jacobi-CG
+# inner solves on the twin's sharded matvec; (2,2) runs it to the end at
+# P14_MIXED_N4^2 on both routes, and at 512^2 one refinement round whose
+# inner CG stops at P14_MIXED_CAP iterations, on the kernel route, as the
+# gloo round trips (~15 ms per inner iteration) make the whole solve's 8070
+# take two minutes); (c) ssor_dense and direct at 64^2 f64, which
+# the dense matrix limits; (d) the gradient of sum(w x) through
+# differentiable_solve of the entry's heat_A + theta I at 512^2 (CG, the
+# transposed solve through the sharded opdef's reverse rule); (e)
+# dryrun_multichip(4) on the card.
+P14_MIXED_N4, P14_MIXED_CAP, P14_DENSE_N, P14_DENSE_TOL = 32, 1000, 64, 1e-10
+P14_GRAD_N, P14_GRAD_TOL, P14_THETA = 512, 1e-6, 0.25
+
+
+def p14_module(kind: str, n: int, inner_iters: int = MIXED_INNER_ITERS):
+    """(a)-(c)'s program: @solve(b) on the 5-pt Poisson operator at n^2
+    (mixed: inner solves of at most inner_iters iterations)."""
+    from neptune_tpu_torch import stencils
+
+    if kind == "ssor":
+        return stencils.with_solve(stencils.poisson5(n), "poisson", solver="cg", tol=SSOR_TOL,
+                                   max_iters=SSOR_MAXIT, precond="ssor")
+    if kind == "mixed":
+        return stencils.with_solve(stencils.poisson5(n, "float64"), "poisson", solver="cg",
+                                   tol=MIXED_TOL, max_iters=inner_iters, precond="jacobi",
+                                   precision="mixed")
+    solve = dict(solver="direct") if kind == "direct" else dict(
+        solver="cg", tol=P14_DENSE_TOL, max_iters=500, precond="ssor_dense")
+    return stencils.with_solve(stencils.poisson5(n, "float64"), "poisson", **solve)
+
+
+class OneRound:
+    """`refine.refined_solve` capped at one refinement round while in a
+    `with` block (the executor's mixed solve looks it up at each call)."""
+
+    def __enter__(self):
+        from neptune_tpu_torch.solvers import refine
+
+        self.refine, self.real = refine, refine.refined_solve
+        refine.refined_solve = lambda *a, **k: self.real(*a, **dict(k, max_rounds=1))
+        return self
+
+    def __exit__(self, *exc):
+        self.refine.refined_solve = self.real
+
+
+def p14_capped(dev, gm) -> tuple:
+    """(b)'s 512^2 system, one refinement round whose inner CG stops at
+    P14_MIXED_CAP iterations, on the kernel route, one unwarmed solve:
+    ((x block, (rounds, inner iterations), ms, ring shifts, gathers,
+    reductions, window-form launches), the true f64 relative residual of
+    the gathered x, the whole grid's)."""
+    with OneRound():
+        runs, module, b = p14_solve_case("mixed", MIXED_N, dev, gm, routes=("auto",), warm=False,
+                                         inner_iters=P14_MIXED_CAP)
+        xw = p14_whole(module, b, dev)[0]
+    bd = b.to(dev)
+    x = runs["auto"][0]
+    return runs["auto"], p13_true_rel(module, gm.gather(x), bd, dev), p13_true_rel(module, xw, bd,
+                                                                                  dev)
+
+
+def p14_solve_case(kind: str, n: int, dev, gm, routes=("auto", "torch"), warm=True,
+                   inner_iters: int = MIXED_INNER_ITERS) -> dict:
+    """One of (a)-(c) through sharded_function on gm: {route: (x block,
+    iterations (Krylov iterations, or refinement rounds and inner
+    iterations), ms, ring shifts, gathers, reductions, window-form
+    launches)}, each route timed once (after one warm-up solve where warm),
+    and the global rhs."""
+    import torch
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import sharded_function
+    from neptune_tpu_torch.solvers import krylov, refine
+
+    module = p14_module(kind, n, inner_iters)
+    dtype = np.float64 if kind in ("mixed", "ssor_dense", "direct") else np.float32
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal((n, n)).astype(dtype))
+    bl = gm.shard(b)
+    out = {}
+    with Recorded(krylov, "solve") as solves, Recorded(refine, "refined_solve") as rounds, \
+            TreeReductions() as reductions:
+        for route in routes:
+            f = sharded_function(CompiledModule(module, route, dev), "solve", gm)
+            if warm:
+                f(bl)
+            solves.infos.clear()
+            rounds.infos.clear()
+            gm.shifts = gm.gathers = reductions.count = 0
+            before = cuda_backend.window_counter.count
+            x, ms = timed(lambda: f(bl))
+            if kind == "mixed":
+                its = (rounds.infos[-1].rounds, rounds.infos[-1].inner_iters)
+            else:
+                its = solves.infos[-1].iters if solves.infos else 1
+            out[route] = (x, its, ms, gm.shifts, gm.gathers, reductions.count,
+                          cuda_backend.window_counter.count - before)
+    return out, module, b
+
+
+def p14_whole(module, b, dev):
+    """The whole-grid function on the kernel route, timed after a warm-up:
+    (x, Krylov iterations or refinement info, ms)."""
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.solvers import krylov, refine
+
+    f = CompiledModule(module, "auto", dev).function("solve")
+    bd = b.to(dev)
+    f(bd)
+    with Recorded(krylov, "solve") as solves, Recorded(refine, "refined_solve") as rounds:
+        x, ms = timed(lambda: f(bd))
+    its = (rounds.infos[-1].rounds, rounds.infos[-1].inner_iters) if rounds.infos else (
+        solves.infos[-1].iters if solves.infos else 1)
+    return x, its, ms
+
+
+def p14_grad(n: int, dev, gm, routes=("auto", "torch")) -> dict:
+    """(d): the gradient of sum(w x), x = (heat_A + theta I)^-1 b by
+    differentiable_solve over gm's group, in b and theta: {route: (b's
+    gradient block, theta's gradient summed over the mesh, ms, window-form
+    launches, rule calls)}; "whole": the whole grid's, kernel route."""
+    import torch
+    from neptune_tpu_torch import entry
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule, rule_counter
+    from neptune_tpu_torch.parallel import shardmap_opdef
+    from neptune_tpu_torch.solvers import differentiable_solve
+
+    module = entry.build_step(n, "float32", device=dev).module
+    rng = np.random.default_rng(SEED + 7)
+    b, w = (torch.from_numpy(a) for a in rng.standard_normal((2, n, n), dtype=np.float32))
+    out = {}
+    for route in (*routes, "whole"):
+        if route == "whole":
+            mv, bb, ww, group = CompiledModule(module, "auto", dev).opdef("heat_A"), b.to(dev), \
+                w.to(dev), None
+        else:
+            mv = shardmap_opdef(CompiledModule(module, route, dev), "heat_A", gm)
+            bb, ww, group = gm.shard(b), gm.shard(w), gm.sum_group(2)
+
+        def grad(mv=mv, bb=bb, ww=ww, group=group):
+            bl = bb.clone().requires_grad_(True)
+            theta = torch.tensor(P14_THETA, device=dev, requires_grad=True)
+            x = differentiable_solve(lambda v: mv(v) + theta * v, bl, solver="cg",
+                                     tol=P14_GRAD_TOL, maxiter=200, group=group)
+            (ww * x).sum().backward()
+            tg = theta.grad if group is None else gm.allreduce(theta.grad, 2)
+            return bl.grad, tg
+
+        grad()  # warm-up
+        before = (cuda_backend.window_counter.count, rule_counter.count)
+        (gb, gt), ms = timed(grad)
+        out[route] = (gb, float(gt), ms, cuda_backend.window_counter.count - before[0],
+                      rule_counter.count - before[1])
+    return out
+
+
+def p14_rel(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(
+        b.double()))
+
+
+def phase14_rank(rank: int, dev) -> dict:
+    """Phase 14 on one of phase 9's four processes, mesh (2,2): (a)-(d),
+    each route's result gathered; rank 0 holds the whole grid's."""
+    import torch
+    import torch.distributed as dist
+    from neptune_tpu_torch.parallel import GridMesh
+
+    gm = GridMesh((2, 2), ("x", "y"), device=dev)
+    out = {}
+    for label, kind, n in (("a", "ssor", SSOR_N), ("b", "mixed", P14_MIXED_N4),
+                           ("c ssor_dense", "ssor_dense", P14_DENSE_N),
+                           ("c direct", "direct", P14_DENSE_N)):
+        dist.barrier()
+        runs, module, b = p14_solve_case(kind, n, dev, gm, warm=False)
+        (x, its, ms, sh, ga, red, win), off = runs["auto"], runs["torch"]
+        row = {"iters": its, "ms": ms, "shifts": sh, "gathers": ga, "reductions": red,
+               "window": win, "off_iters": off[1], "off_ms": off[2],
+               "bitwise": bool(torch.equal(x, off[0])), "device": str(x.device), "n": n}
+        xg = gm.gather(x)
+        if rank == 0:
+            xw, w_its, w_ms = p14_whole(module, b, dev)
+            row.update(whole_iters=w_its, whole_ms=w_ms, rel_whole=p14_rel(xg, xw))
+            if kind == "mixed":
+                row["true_rel"] = p13_true_rel(module, xg, b.to(dev), dev)
+        out[label] = row
+    dist.barrier()
+    (x, its, ms, sh, ga, red, win), true_rel, whole_rel = p14_capped(dev, gm)
+    out["b capped"] = {"iters": its, "ms": ms, "shifts": sh, "gathers": ga, "reductions": red,
+                       "window": win, "device": str(x.device), "true_rel": true_rel,
+                       "whole_rel": whole_rel}
+    dist.barrier()
+    g = p14_grad(P14_GRAD_N, dev, gm, routes=("auto", "torch"))
+    (gb, gt, ms, win, rule), off = g["auto"], g["torch"]
+    gbg = gm.gather(gb)
+    row = {"ms": ms, "window": win, "rule": rule, "off_ms": off[2],
+           "bitwise": bool(torch.equal(gb, off[0])) and gt == off[1]}
+    if rank == 0:
+        whole = g["whole"]
+        row.update(rel_b=p14_rel(gbg, whole[0]), rel_theta=abs(gt - whole[1]) / abs(whole[1]),
+                   whole_ms=whole[2])
+    out["d"] = row
+    dist.barrier()
+    return out
+
+
+def phase14(dev, reports) -> int:
+    """Phase 14 on a mesh of one process, then (a)-(d) from phase 9's four
+    processes (`phase14_rank`) and (e) the dry run. Returns the kernel-A
+    window-form launches of the one-process kernel routes."""
+    import torch
+    from neptune_tpu_torch import entry
+    from neptune_tpu_torch.parallel import GridMesh
+
+    t14 = time.perf_counter()
+    gm = GridMesh((1,), ("x",), device=dev)
+    launches = 0
+    one = {}
+    for label, kind, n in (("a SSOR", "ssor", SSOR_N), ("b mixed", "mixed", MIXED_N),
+                           ("c ssor_dense", "ssor_dense", P14_DENSE_N),
+                           ("c direct", "direct", P14_DENSE_N)):
+        # the mixed solve takes seconds: timed once, not warmed (the kernels
+        # are built and loaded)
+        runs, module, b = p14_solve_case(kind, n, dev, gm, warm=kind != "mixed")
+        (x, its, ms, sh, ga, red, win), (x_off, its_off, ms_off, *_r) = runs["auto"], runs["torch"]
+        launches += win
+        xw, w_its, w_ms = p14_whole(module, b, dev)
+        rel = p14_rel(x, xw)
+        one[kind] = its
+        require(torch.equal(x, x_off) and its == its_off,
+                f"14{label}: kernel route {its} against the kernels-off route's {its_off}, "
+                f"bitwise {torch.equal(x, x_off)}")
+        txt = (f"phase 14{label} sharded_function {n}^2 on a mesh of one process: "
+               f"{its} (= kernels-off route, bitwise; whole grid {w_its}), ")
+        if kind == "ssor":
+            require(abs(its - w_its) <= 1 and win > 0,
+                    f"14a: {its} iterations against the whole grid's {w_its}, window form {win}")
+            txt += f"true relative residual {p13_true_rel(module, x, b.to(dev), dev)!r}; "
+        elif kind == "mixed":
+            true_rel = p13_true_rel(module, x, b.to(dev), dev)
+            require(its[0] == w_its[0] and true_rel <= MIXED_TOL and win >= its[1],
+                    f"14b: rounds {its} against the whole grid's {w_its}, true relative residual "
+                    f"{true_rel!r}, the f32 twin's window form {win} launches")
+            txt += f"true f64 relative residual {true_rel!r}; "
+        else:
+            require(rel <= 1e-10, f"14{label}: relative difference from the whole grid {rel!r}")
+        txt += (f"relative difference from the whole grid {rel!r}; {ms:.1f} ms per solve "
+                f"(kernels-off {ms_off:.1f} ms, whole grid {w_ms:.1f} ms); per solve {sh} ring "
+                f"shifts, {ga} gathers, {red} reductions; kernel A's window form {win} launches")
+        say(txt)
+    # (b) capped, as (2,2) runs it at 512^2
+    (x, its1, ms, sh, ga, red, win), true1, whole1 = p14_capped(dev, gm)
+    launches += win
+    require(its1 == (1, P14_MIXED_CAP) and win >= its1[1],
+            f"14b capped: {its1}, window form {win}")
+    say(f"phase 14b capped {MIXED_N}^2 on a mesh of one process (one round, inner CG stopped at "
+        f"{P14_MIXED_CAP}; kernel route, one unwarmed solve): {its1}, true f64 relative "
+        f"residual {true1!r} (whole grid {whole1!r}); {ms:.1f} ms; {sh} ring shifts, {red} "
+        f"reductions; kernel A's window form {win} launches")
+    g = p14_grad(P14_GRAD_N, dev, gm)
+    (gb, gt, ms, win, rule), (gb_off, gt_off, ms_off, *_r), whole = g["auto"], g["torch"], \
+        g["whole"]
+    launches += win
+    rel_b, rel_t = p14_rel(gb, whole[0]), abs(gt - whole[1]) / abs(whole[1])
+    require(torch.equal(gb, gb_off) and gt == gt_off and win > 0 and rule > 0,
+            f"14d: kernel route against kernels-off route bitwise {torch.equal(gb, gb_off)}, "
+            f"window form {win}, rule {rule}")
+    require(rel_b <= 1e-5 and rel_t <= 1e-5, f"14d: relative gradient error {rel_b!r}, {rel_t!r}")
+    say(f"phase 14d differentiable_solve gradient at {P14_GRAD_N}^2 f32 on a mesh of one process: "
+        f"= kernels-off route bitwise; relative difference from the whole grid's gradient in b "
+        f"{rel_b!r}, in theta {rel_t!r}; {ms:.1f} ms per gradient (kernels-off {ms_off:.1f} ms, "
+        f"whole grid {whole[2]:.1f} ms); {rule} reverse/forward rule calls, kernel A's window "
+        f"form {win} launches")
+
+    # ---- (2,2), from phase 9's processes
+    rows = [r["phase14"] for r in reports]
+    r0 = rows[0]
+    for label in ("a", "b", "c ssor_dense", "c direct"):
+        r = [row[label] for row in rows]
+        m = r0[label]
+        require(all(x["iters"] == m["iters"] and x["bitwise"] and x["off_iters"] == m["iters"]
+                    and x["device"].startswith("cuda") for x in r),
+                f"14{label} (2,2): ranks or routes disagree: {r}")
+        if label == "a":
+            require(all(x["window"] > 0 for x in r), f"14a (2,2): window form {r}")
+            require(abs(m["iters"] - one["ssor"]) <= 1, f"14a (2,2): {m['iters']} against "
+                    f"{one['ssor']} on one process")
+        elif label == "b":
+            require(all(x["window"] > 0 for x in r) and m["iters"][0] == m["whole_iters"][0]
+                    and m["true_rel"] <= MIXED_TOL, f"14b (2,2): {m}")
+        else:
+            require(m["rel_whole"] <= 1e-10, f"14{label} (2,2): {m}")
+        say(f"phase 14{label} four processes (2,2), {m['n']}^2: {m['iters']} (= kernels-off "
+            f"route, bitwise, every rank; whole grid {m['whole_iters']}), relative difference "
+            f"from the whole grid {m['rel_whole']!r}"
+            + (f", true f64 relative residual {m['true_rel']!r}" if "true_rel" in m else "")
+            + f"; {m['ms']:.1f} ms per solve (rank 0, one solve; kernels-off {m['off_ms']:.1f} "
+            f"ms; whole grid {m['whole_ms']:.1f} ms); per solve {m['shifts']} ring shifts, "
+            f"{m['gathers']} gathers, {m['reductions']} reductions; window form per rank "
+            f"{[x['window'] for x in r]}")
+    r = [row["b capped"] for row in rows]
+    m = r0["b capped"]
+    # the f32 inner CG's dot products sum over (2,2)'s blocks in another
+    # order than over the whole grid: its residual after the same count of
+    # iterations agrees to 1%
+    require(all(x["iters"] == [1, P14_MIXED_CAP] and x["window"] >= P14_MIXED_CAP
+                and x["device"].startswith("cuda") for x in r)
+            and abs(m["true_rel"] - m["whole_rel"]) <= 0.01 * m["whole_rel"],
+            f"14b capped (2,2): {r}")
+    say(f"phase 14b capped four processes (2,2), {MIXED_N}^2 (one round, inner CG stopped at "
+        f"{P14_MIXED_CAP}; kernel route, one unwarmed solve): {m['iters']} on every rank, true "
+        f"f64 relative residual {m['true_rel']!r} (whole grid {m['whole_rel']!r}, one process "
+        f"{true1!r}); {m['ms']:.1f} ms (rank 0), "
+        f"{m['ms'] / m['iters'][1]:.2f} ms per inner iteration; {m['shifts']} ring shifts, "
+        f"{m['reductions']} reductions; window form per rank {[x['window'] for x in r]}")
+    d = [row["d"] for row in rows]
+    d0 = d[0]
+    require(all(x["bitwise"] and x["window"] > 0 and x["rule"] > 0 for x in d)
+            and d0["rel_b"] <= 1e-5 and d0["rel_theta"] <= 1e-5, f"14d (2,2): {d}")
+    say(f"phase 14d differentiable_solve gradient at {P14_GRAD_N}^2, four processes (2,2): = "
+        f"kernels-off route bitwise on every rank; relative difference from the whole grid's "
+        f"gradient in b {d0['rel_b']!r}, in theta {d0['rel_theta']!r}; {d0['ms']:.1f} ms per "
+        f"gradient (rank 0; kernels-off {d0['off_ms']:.1f} ms, whole grid {d0['whole_ms']:.1f} "
+        f"ms); window form per rank {[x['window'] for x in d]}")
+
+    # ---- (e): the dry run on the card
+    dry = entry.dryrun_multichip(4, dev.type)
+    say(f"phase 14e dryrun_multichip(4) on the card: mesh {dry['mesh']}, {dry['backend']} on "
+        f"{dry['device']}, all seven parts passed in {dry['wall_s']:.1f} s wall; rank 0 per part "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in dry["seconds"].items()))
+    say(f"phase 14 kernel-A window-form launches (one process) {launches}; phase wall "
+        f"{time.perf_counter() - t14:.1f} s")
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
@@ -2776,6 +3120,9 @@ def main() -> int:
 
     # ---- phase 13: multigrid, Chebyshev and Newton over a process mesh -----
     ca_launches += phase13(ntt, dev, reports, p11)
+
+    # ---- phase 14: the rest of sharded_function, reverse mode, the dry run -
+    ca_launches += phase14(dev, reports)
 
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}

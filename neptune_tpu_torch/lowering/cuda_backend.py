@@ -232,17 +232,18 @@ def _launch(k: _Launch, inputs: Sequence, scalars: Sequence, device, shape, meta
 
 
 def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, global_start=None,
-                  plan="auto"):
+                  plan="auto", shape=None):
     """Launch kernel A on CUDA tensors: returns the result tensor(s). With
     global_start, the window form over one local block whose cell 0 has
-    these global logical coordinates (counted as `stencil_apply_window`).
+    these global logical coordinates (counted as `stencil_apply_window`);
+    the block's shape is the inputs', or `shape` for an apply with none.
     plan: the tiled plan to build, default `apply_plan(op)`."""
     k = _launcher(op, plan)
     if global_start is None:
         out = _launch(k, inputs, scalars, device, k.shape, k.meta_addr, "stencil_apply")
         counter.count += 1
         return out
-    shape = tuple(inputs[0].shape)
+    shape = tuple(inputs[0].shape) if inputs else tuple(shape)
     if len(shape) != len(k.shape):
         raise ValueError(f"stencil_apply_window: block {shape} has not the rank of {k.shape}")
     out = _launch(k, inputs, scalars, device, shape, k.window(shape, global_start),
@@ -251,14 +252,17 @@ def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, gl
     return out
 
 
-def apply_window(op: Operation, inputs: Sequence, scalars: Sequence, global_start: Sequence[int]):
+def apply_window(op: Operation, inputs: Sequence, scalars: Sequence, global_start: Sequence[int],
+                 shape=None, device=None):
     """Kernel A's window form: the apply over one local block whose cell 0
     has the global logical coordinates `global_start`. The plain version
     for CPU tensors, the kernel for CUDA ones. The caller has checked
-    `supported(op)`."""
-    device = inputs[0].device
+    `supported(op)`. An apply with no inputs names its block's `shape` and
+    `device`."""
+    device = inputs[0].device if inputs else torch.device(device)
     if device.type == "cpu":
-        return torch_backend.execute_apply_window(op, inputs, scalars, global_start)
+        return torch_backend.execute_apply_window(
+            op, inputs, scalars, global_start, shape=shape, device=device)
     if device.type != "cuda":
         raise ValueError(f"stencil_apply_window: no kernel for device {device}")
-    return stencil_apply(op, inputs, scalars, device, global_start)
+    return stencil_apply(op, inputs, scalars, device, global_start, shape=shape)

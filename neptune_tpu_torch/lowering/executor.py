@@ -83,9 +83,11 @@ class _OpdefRule(torch.autograd.Function):
     The forward runs the kernel route (`rule.route`), which autograd cannot
     see through. The tangent (`jvp`, taken by `torch.func.jvp` and forward
     AD) and the cotangent (`backward`, taken by `torch.autograd.grad` and
-    `torch.func.vjp`) are those of the same opdef on the module's eager view
-    (`rule.view()`), with respect to the tensor arguments; scalars and other
-    non-tensor arguments pass through with no tangent. Under
+    `torch.func.vjp`) are the rule's (`rule.jvp`, `rule.vjp`): those of the
+    same opdef on the module's eager view, and over a mesh those of its
+    evaluation on the halo-padded blocks (`parallel.sharded_apply._MeshRule`),
+    with respect to the tensor arguments; scalars and other non-tensor
+    arguments pass through with no tangent. Under
     `torch.func.vmap` (dense assembly) the kernel route runs once per
     slice of the batch."""
 
@@ -141,9 +143,7 @@ class _OpdefRule(torch.autograd.Function):
         rule_counter.count += 1
         args = _OpdefRule._args(ctx)
         slots = [i for i, t in enumerate(ctx.is_tensor) if t and ctx.needs_input_grad[i + 1]]
-        f = _OpdefRule._partial(ctx.rule.view(), args, slots)
-        _, pull = torch.func.vjp(f, *(args[i] for i in slots))
-        cots = pull(grads[0] if len(grads) == 1 else tuple(grads))
+        cots = ctx.rule.vjp(args, slots, grads[0] if len(grads) == 1 else tuple(grads))
         out = [None] * (1 + len(args))
         for i, c in zip(slots, cots):
             out[i + 1] = c
@@ -153,7 +153,7 @@ class _OpdefRule(torch.autograd.Function):
 class _Rule:
     """What `_OpdefRule` needs of one opdef: its kernel route, its eager
     view looked up at each use (the view's callables are cached), and the
-    tangent taken from that view."""
+    tangent and cotangent taken from that view."""
 
     def __init__(self, cm: "CompiledModule", name: str, route: Callable):
         self.cm, self.name, self.route = cm, name, route
@@ -173,6 +173,13 @@ class _Rule:
             f, tuple(args[i] for i in slots), tuple(tangents[i] for i in slots)
         )
         return out_t
+
+    def vjp(self, args: list, slots: list, cotangent):
+        """The cotangents of the arguments at `slots`: `torch.func.vjp` of
+        the eager view."""
+        f = _OpdefRule._partial(self.view(), args, slots)
+        _, pull = torch.func.vjp(f, *(args[i] for i in slots))
+        return pull(cotangent)
 
 
 def rule_callable(rule, name: str) -> Callable:
@@ -202,6 +209,8 @@ class CompiledModule:
         self._opdef_cache: dict[str, Callable] = {}
         self._structure_cache: dict[int, Callable] = {}
         self._fn_cache: dict[str, Callable] = {}
+        # matrix symbol -> its handle, which keeps its dense matrix
+        self._handles: dict[str, MatrixHandle] = {}
         # (id(solve_linear op), matrix symbol) -> fused solve site or None
         self._fused_sites: dict = {}
         # (id(solve_linear op), matrix symbol, device) -> precond="mg"'s M
@@ -525,15 +534,17 @@ class CompiledModule:
         return torch_backend.execute_apply(op, operand_arrays, device)
 
     def _handle_for(self, sym: str) -> MatrixHandle:
-        fn = self.module.lookup(sym)
-        return MatrixHandle(
-            symbol=sym,
-            matvec=self.opdef(sym),
-            temp_type=fn.ftype.inputs[0],
-            structure_key_hash=fn.attrs.get("structure_key_hash", 0),
-            halo=fn.attrs.get("halo", ()),
-            interior=single_apply_interior(fn),
-        )
+        if sym not in self._handles:
+            fn = self.module.lookup(sym)
+            self._handles[sym] = MatrixHandle(
+                symbol=sym,
+                matvec=self.opdef(sym),
+                temp_type=fn.ftype.inputs[0],
+                structure_key_hash=fn.attrs.get("structure_key_hash", 0),
+                halo=fn.attrs.get("halo", ()),
+                interior=single_apply_interior(fn),
+            )
+        return self._handles[sym]
 
     def _assemble(self, op: Operation) -> MatrixHandle:
         return self._handle_for(op.attrs["symbol"])
@@ -614,6 +625,11 @@ class CompiledModule:
         of them) reduce over: none on the whole grid."""
         return None
 
+    def _origin(self, shape):
+        """The global index of cell 0 of a grid value of this shape, per dim:
+        None (0) on the whole grid, a block's start in the mesh view."""
+        return None
+
     def solve_mixed(self, handle: MatrixHandle, b, *, solver: str, tol: float,
                     max_iters: int, precond: str, options=None, verbose: bool = False):
         """precision="mixed": f32 inner Krylov solves on the operator's f32
@@ -640,10 +656,13 @@ class CompiledModule:
         lo = self.low_precision_opdef(handle.symbol)
         M_lo = None
         if precond not in (None, "none"):
-            like32 = torch.zeros(handle.grid_shape, dtype=torch.float32, device=b.device)
-            M_lo = make_preconditioner(precond, lo, like32, handle.halo)
+            like32 = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+            M_lo = make_preconditioner(
+                precond, lo, like32, handle.halo, origin=self._origin(tuple(b.shape))
+            )
         x, info = refined_solve(
-            handle.matvec, lo, b, solver=solver, tol=tol, inner_iters=max_iters, M_lo=M_lo
+            handle.matvec, lo, b, solver=solver, tol=tol, inner_iters=max_iters, M_lo=M_lo,
+            group=self._reduction_group(b),
         )
         if verbose:
             print(

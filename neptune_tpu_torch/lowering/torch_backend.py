@@ -516,6 +516,8 @@ def execute_apply_window(
     global_start: Sequence[int],
     wrap=None,
     carve=None,
+    shape=None,
+    device=None,
 ):
     """One apply over a local block of a sharded grid: the plain version of
     kernel A's window form, and the port of `_eval_apply_local`
@@ -534,7 +536,8 @@ def execute_apply_window(
     carve: per dim the (lo, hi) ghost widths of the block around a core;
     the results are then core-shaped, every access a slice of the block.
     Where an input's shifted slice would leave the block, the ext-shaped
-    form runs instead (callers tell the two apart by shape).
+    form runs instead (callers tell the two apart by shape). shape and
+    device: the block's, for an apply with no inputs.
     """
     out_type: TempType = op.results[0].type
     n_in = op.attrs.get("num_inputs", len(op.operands))
@@ -542,8 +545,10 @@ def execute_apply_window(
     outer = out_type.bounds
     rank = outer.rank
     input_lbs = [v.type.bounds.lb for v in op.operands[:n_in]]
-    shape = tuple(arrays[0].shape)
-    device = arrays[0].device
+    if arrays:
+        shape, device = tuple(arrays[0].shape), arrays[0].device
+    else:
+        shape, device = tuple(shape), torch.device(device)
     dtype = DTYPES[out_type.element]
     if wrap is None:
         wrap = bool(op.attrs.get("periodic"))

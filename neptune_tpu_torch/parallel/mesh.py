@@ -70,11 +70,12 @@ class GridMesh:
         self.device = None
         # bytes this process sent to its neighbours, and the part of them
         # that went through host memory (a gloo group with CUDA blocks);
-        # ring_shift calls and allreduce calls
+        # ring_shift calls, allreduce calls and gather calls
         self.sent_bytes = 0
         self.staged_bytes = 0
         self.shifts = 0
         self.reductions = 0
+        self.gathers = 0
         # grid rank -> the group that sums a field of that rank (None: the
         # field is whole on this process)
         self._sum_groups: dict = {}
@@ -208,7 +209,9 @@ class GridMesh:
         return t.is_cuda and "nccl" not in str(dist.get_backend(self.group))
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The global array, on every process, from each one's block."""
+        """The global array, on every process, from each one's block.
+        Counted in `gathers`."""
+        self.gathers += 1
         if self.group is None:
             return local
         src = local.detach().contiguous()

@@ -45,7 +45,7 @@ import torch
 from ..ir.core import Module, Operation
 from ..ir.types import ScalarType, TempType
 from ..lowering import chain, cuda_backend, sweeps, torch_backend
-from .halo import halo_pad_local
+from .halo import halo_pad_local, halo_pad_local_transpose
 from .mesh import GridMesh
 
 _BACKENDS = ("auto", "torch", "cuda")
@@ -530,6 +530,27 @@ def fused_apply(op, inputs_loc, scalars, need, names, gmesh: GridMesh, backend) 
     )
 
 
+def far_apply(op, inputs_loc, scalars, need, names, gmesh: GridMesh, backend) -> list:
+    """One apply whose reach exceeds a block, over this process's blocks:
+    its results (a list). Each input is padded with `need` ghost cells per
+    dim over as many hops as the reach takes (`halo_pad_local`), and the
+    apply runs on the extended blocks, kernel A's window form where
+    `window_route` takes the op, and the core is kept."""
+    rank = op.results[0].type.bounds.rank
+    outer = op.results[0].type.bounds
+    periodic = bool(op.attrs.get("periodic"))
+    nloc = tuple(inputs_loc[0].shape)
+    ext = [halo_pad_local(x, need, names, gmesh, periodic=periodic) for x in inputs_loc]
+    start = [g - lo for g, (lo, _) in zip(_gstart(nloc, rank, names, outer, gmesh), need)]
+    if window_route(op, backend):
+        res = cuda_backend.apply_window(op, ext, scalars, start)
+        res = res if isinstance(res, tuple) else (res,)
+        core = tuple(slice(lo, lo + n) for (lo, _), n in zip(need, nloc))
+        return [r[core].contiguous() for r in res]
+    res = torch_backend.execute_apply_window(op, ext, scalars, start, carve=need)
+    return list(res) if isinstance(res, tuple) else [res]
+
+
 def _composite_fused_ok(cm, fn, gmesh: GridMesh, names, tt, halo) -> bool:
     """Eligibility of a composite (multi-stage) opdef for the fused
     strip-exchange path: every field arg on the same bounds (trailing
@@ -721,36 +742,31 @@ def plan_report(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> str:
 
 class _MeshRule:
     """What `executor._OpdefRule` needs of a sharded opdef: its route over
-    the blocks, and the tangent of that route.
+    the blocks, and the tangent and cotangent of that route.
 
-    `torch.func.jvp` cannot see through `GridMesh.ring_shift`, so the
-    tangent exchanges outside AD: the primal's and the tangent's blocks
-    are padded with their neighbours' composed-reach ghosts
-    (`halo_pad_local`, the extended-block route's exchange), then the
-    tangent is `torch.func.jvp` of the opdef's eager evaluation on the
-    extended blocks, carved to the core. Reverse mode over a mesh is not
-    ported (its cotangent strips would travel the other way)."""
+    `torch.func` cannot see through `GridMesh.ring_shift`, so both exchange
+    outside AD: the blocks are padded with their neighbours' composed-reach
+    ghosts (`halo_pad_local`, the extended-block route's exchange), and the
+    opdef's eager evaluation on the extended blocks, carved to the core, is
+    differentiated there. The tangent pads the tangent's blocks the same
+    way. The cotangent of the extended blocks goes back through the
+    exchange's adjoint (`halo_pad_local_transpose`): each ghost zone's
+    cotangent returns to its owner and is added to its edge cells. Every
+    process differentiates its own part of the output, so a field
+    argument's cotangent is that block of the whole cotangent; a scalar
+    argument, the same on every process, gets this process's part of its
+    cotangent (the whole is their sum over the mesh)."""
 
     def __init__(self, cm, rp: "RoutePlan", gmesh: GridMesh, route: Callable):
         self.module, self.rp, self.gm, self.route = cm.module, rp, gmesh, route
         self.periodic = _opdef_periodic(cm.module, rp.fn.name)
 
-    def view(self):
-        raise NotImplementedError(
-            f"@{self.rp.fn.name}: reverse-mode derivatives of a sharded opdef are not "
-            "ported; forward mode (torch.func.jvp) is"
-        )
-
-    def jvp(self, args: list, tangents):
+    def _extended(self, args: list):
+        """(bound args, the field blocks padded with their ghosts plus the
+        scalars, the eager evaluation of the opdef on extended blocks)."""
         rp, gm = self.rp, self.gm
-        nf = rp.n_fields
         args = _bind(rp.fn, args, gm)
-        tans = [
-            (a.new_zeros(a.shape) if t is None else t.to(a.dtype)) for a, t in zip(args, tangents)
-        ]
-        pad = lambda x: halo_pad_local(x, rp.halo, rp.names, gm, periodic=self.periodic)  # noqa: E731
-        ext = [pad(a) for a in args[:nf]] + args[nf:]
-        ext_t = [pad(t) for t in tans[:nf]] + tans[nf:]
+        ext = [self._pad(a) for a in args[: rp.n_fields]] + args[rp.n_fields:]
         start = _ext_start(rp, tuple(args[0].shape), gm)
 
         def local(*vals):
@@ -759,7 +775,34 @@ class _MeshRule:
                 carve_halo=rp.halo,
             )
 
+        return args, ext, local
+
+    def _pad(self, x):
+        return halo_pad_local(x, self.rp.halo, self.rp.names, self.gm, periodic=self.periodic)
+
+    def jvp(self, args: list, tangents):
+        args, ext, local = self._extended(args)
+        nf = self.rp.n_fields
+        tans = [
+            (a.new_zeros(a.shape) if t is None else t.to(a.dtype)) for a, t in zip(args, tangents)
+        ]
+        ext_t = [self._pad(t) for t in tans[:nf]] + tans[nf:]
         return torch.func.jvp(local, tuple(ext), tuple(ext_t))[1]
+
+    def vjp(self, args: list, slots: list, cotangent):
+        from ..lowering.executor import _OpdefRule
+
+        rp = self.rp
+        dtypes = [args[i].dtype for i in slots]
+        _, ext, local = self._extended(args)
+        f = _OpdefRule._partial(local, ext, slots)
+        _, pull = torch.func.vjp(f, *(ext[i] for i in slots))
+        cots = pull(cotangent)
+        return tuple(
+            (halo_pad_local_transpose(c, rp.halo, rp.names, self.gm, periodic=self.periodic)
+             if i < rp.n_fields else c).to(dt)
+            for i, c, dt in zip(slots, cots, dtypes)
+        )
 
 
 def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Callable:
@@ -775,8 +818,10 @@ def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Cal
 
     The callable carries `gmesh` and the opdef's verified `halo` (what the
     solvers need to find the mesh and probe the diagonal exactly), and a
-    forward-mode derivative rule (`_MeshRule`) for `torch.func.jvp`, which
-    Newton's J·v over a sharded residual takes.
+    derivative rule (`_MeshRule`): forward mode for `torch.func.jvp`, which
+    Newton's J·v over a sharded residual takes, and reverse mode for
+    `torch.autograd.grad` and `torch.func.vjp`, which the transposed solves
+    of `differentiable_solve` and `differentiable_root` take.
     """
     from ..lowering.executor import rule_callable
 

@@ -92,6 +92,7 @@ def differentiable_solve(
     tol: float = 1e-10,
     maxiter: int = 1000,
     M: Optional[Callable] = None,
+    group=None,
 ):
     """Solve A x = b with implicit differentiation.
 
@@ -100,11 +101,22 @@ def differentiable_solve(
     tolerance), computed with one adjoint solve with Aᵀ (the operator itself
     when symmetric=True, else Aᵀ through `torch.func.vjp`), by the same
     solver and preconditioner, as in the JAX package.
+
+    group: the process group of a sharded grid (`b` this process's block,
+    `matvec` a sharded operator such as `parallel.shardmap_opdef`'s): both
+    solves reduce over it, and Aᵀ goes through the sharded opdef's reverse
+    rule. Each process then gets its block of the gradient of the sum of
+    every process's loss. A parameter that every process holds whole (a
+    scalar) gets only this process's part of its gradient: sum it over
+    the group (`GridMesh.allreduce`) before stepping it, where the JAX
+    package's `jax.grad` under shardings returns the whole.
     """
 
     def solve(mv, rhs):
         with torch.no_grad():
-            return krylov.solve(mv, _detach(rhs), solver=solver, tol=tol, maxiter=maxiter, M=M)[0]
+            return krylov.solve(
+                mv, _detach(rhs), solver=solver, tol=tol, maxiter=maxiter, M=M, group=group
+            )[0]
 
     x_star = solve(matvec, b)
     r = tsub(b, matvec(x_star))
@@ -113,14 +125,16 @@ def differentiable_solve(
 
 class _RootInverse:
     """The linearized system at the root: dx = -J⁻¹ dF (tangent) and
-    g -> -J⁻ᵀ g (cotangent), each by GMRES."""
+    g -> -J⁻ᵀ g (cotangent), each by GMRES (over `group`)."""
 
-    def __init__(self, residual, x_star, tol, maxiter):
+    def __init__(self, residual, x_star, tol, maxiter, group=None):
         self.residual, self.like, self.tol, self.maxiter = residual, x_star, tol, maxiter
+        self.group = group
 
     def _gmres(self, mv, v):
         with torch.no_grad():
-            x, _ = krylov.gmres(mv, _detach(v), tol=self.tol, maxiter=self.maxiter)
+            x, _ = krylov.gmres(mv, _detach(v), tol=self.tol, maxiter=self.maxiter,
+                                group=self.group)
         return tscale(-1.0, x)
 
     def solve(self, v):
@@ -142,13 +156,17 @@ def differentiable_root(
     max_iters: int = 50,
     krylov_tol: float = 1e-8,
     krylov_iters: int = 300,
+    group=None,
 ):
     """Solve F(x) = 0 with implicit differentiation.
 
     `residual` may close over differentiable parameters; the backward pass
     solves one linear system with ∂F/∂x at the root (its transpose through
     `torch.func.vjp`, by GMRES), with no differentiation through the Newton
-    iterations.
+    iterations. group: the process group of a sharded grid, as
+    `differentiable_solve`'s; Newton and both GMRES solves reduce over it,
+    and a parameter every process holds whole gets this process's part of
+    its gradient, to be summed over the group.
     """
     x0 = _detach(x0)
     with torch.no_grad():
@@ -159,7 +177,8 @@ def differentiable_root(
             max_iters=max_iters,
             krylov_tol=krylov_tol,
             krylov_iters=krylov_iters,
+            group=group,
         )
 
     F = residual(x_star)
-    return _attach(x_star, F, _RootInverse(residual, x_star, krylov_tol, krylov_iters))
+    return _attach(x_star, F, _RootInverse(residual, x_star, krylov_tol, krylov_iters, group))

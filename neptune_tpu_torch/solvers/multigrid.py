@@ -46,7 +46,7 @@ from .chebyshev import smooth as _cheb_smooth
 from ..utils.tree import tnorm
 from .krylov import SolveInfo
 from .krylov import cg as _cg
-from .precond import extract_diagonal, safe_inv_diag
+from .precond import extract_diagonal, red_mask, safe_inv_diag
 
 
 class MGLevel(NamedTuple):
@@ -125,7 +125,8 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
                 raise ValueError(
                     f"multigrid level {i} grid {gshape} on mesh {mesh.shape}: block {shape} "
                     "is not 2:1-coarsenable (every block extent must be even above the "
-                    "coarsest level)"
+                    "coarsest level; gathering such a level to fewer processes is ROADMAP.md, "
+                    "queue 1, item 9)"
                 )
             raise ValueError(
                 f"multigrid level {i} grid {shape} is not 2:1-coarsenable "
@@ -204,17 +205,6 @@ def prolong(e: torch.Tensor, fine_shape, mesh=None) -> torch.Tensor:
     return out[tuple(slice(2 * lo, 2 * lo + f) for lo, f in zip(lows, fine_shape))]
 
 
-def _red_mask(shape, device, origin=None) -> torch.Tensor:
-    """Checkerboard parity mask: True where the (global) index sum is even;
-    origin: the global index of cell 0 of a block."""
-    origin = (0,) * len(shape) if origin is None else origin
-    s = 0
-    for d, (n, o) in enumerate(zip(shape, origin)):
-        iv = torch.arange(o, o + n, device=device)
-        s = s + iv.reshape((1,) * d + (-1,) + (1,) * (len(shape) - d - 1))
-    return (s % 2) == 0
-
-
 def _check_smoother(smoother: str) -> None:
     if smoother not in ("rb", "jacobi", "cheb"):
         raise ValueError(f"unknown smoother {smoother!r}; options: 'rb', 'jacobi', 'cheb'")
@@ -234,7 +224,7 @@ def _smoother(L: MGLevel, b, smoother: str, omega: float) -> Callable:
             )
 
     elif smoother == "rb":
-        red = _red_mask(b.shape, b.device, _geometry(L.mesh, tuple(b.shape))[1])
+        red = red_mask(b.shape, b.device, _geometry(L.mesh, tuple(b.shape))[1])
 
         def smooth(x, n):
             for _ in range(n):

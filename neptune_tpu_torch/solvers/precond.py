@@ -62,9 +62,10 @@ def safe_inv_diag(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d == 0, one, 1.0 / torch.where(d == 0, one, d))
 
 
-def jacobi(matvec: Callable, like: torch.Tensor, halo) -> Callable:
-    """M(x) = x / diag(A), with zero-diagonal entries passed through."""
-    inv = safe_inv_diag(extract_diagonal(matvec, like, halo))
+def jacobi(matvec: Callable, like: torch.Tensor, halo, origin=None) -> Callable:
+    """M(x) = x / diag(A), with zero-diagonal entries passed through.
+    origin: as `extract_diagonal`'s, for one block of a sharded grid."""
+    inv = safe_inv_diag(extract_diagonal(matvec, like, halo, origin=origin))
 
     def M(x):
         return x * inv
@@ -72,15 +73,20 @@ def jacobi(matvec: Callable, like: torch.Tensor, halo) -> Callable:
     return M
 
 
-def _red_mask_np(shape) -> np.ndarray:
-    """Checkerboard parity mask: True where the index sum is even."""
-    s = np.zeros(shape, np.int64)
-    for d, n in enumerate(shape):
-        s = s + np.arange(n).reshape((1,) * d + (-1,) + (1,) * (len(shape) - d - 1))
+def red_mask(shape, device, origin=None) -> torch.Tensor:
+    """Checkerboard parity mask: True where the (global) index sum is even;
+    origin: the global index of cell 0 of a block (default 0), so that the
+    colours of a sharded grid's blocks are the whole grid's."""
+    origin = (0,) * len(shape) if origin is None else origin
+    s = 0
+    for d, (n, o) in enumerate(zip(shape, origin)):
+        iv = torch.arange(o, o + n, device=device)
+        s = s + iv.reshape((1,) * d + (-1,) + (1,) * (len(shape) - d - 1))
     return (s % 2) == 0
 
 
-def ssor_stencil(matvec: Callable, like: torch.Tensor, halo, omega: float = 1.0) -> Callable:
+def ssor_stencil(matvec: Callable, like: torch.Tensor, halo, omega: float = 1.0,
+                 origin=None) -> Callable:
     """Matrix-free red-black SSOR: M^{-1} r with two operator applications
     and the probed diagonal, no assembled matrix.
 
@@ -92,11 +98,15 @@ def ssor_stencil(matvec: Callable, like: torch.Tensor, halo, omega: float = 1.0)
     ordering because star stencils have no same-color coupling. Stencils
     with same-color couplings (reach-2 offsets like (2,0)) have those
     dropped from L/U: still symmetric positive definite, a weaker smoother.
+
+    origin: per dim the global index of `like`'s cell 0 when `like` is one
+    block of a sharded grid and `matvec` the sharded operator: the probes
+    and the colours then follow the whole grid's lattice.
     """
-    diag = extract_diagonal(matvec, like, halo)
+    diag = extract_diagonal(matvec, like, halo, origin=origin)
     dsafe = torch.where(diag == 0, torch.ones_like(diag), diag)
     inv = safe_inv_diag(diag)
-    red = torch.from_numpy(_red_mask_np(tuple(like.shape))).to(like.device)
+    red = red_mask(tuple(like.shape), like.device, origin)
     scale = omega * (2.0 - omega)
 
     def offdiag(z):
@@ -137,21 +147,24 @@ def ssor_dense(A: torch.Tensor, omega: float = 1.0) -> Callable:
 
 
 def make_preconditioner(
-    name: str, matvec: Callable, like, halo=(), dense_matrix=None, omega: float = 1.0
+    name: str, matvec: Callable, like, halo=(), dense_matrix=None, omega: float = 1.0,
+    origin=None,
 ):
     """Preconditioner factory keyed by the `precond` op attribute.
 
     "ssor" is matrix-free (red-black sweeps through the operator itself);
     "ssor_dense" is the assembled-triangular-solve variant for small
     systems and the exactness oracle. "mg" needs the module to coarsen and
-    is built by the executor (`auto_mg_preconditioner`), not here.
+    is built by the executor (`auto_mg_preconditioner`), not here. origin:
+    the global index of `like`'s cell 0 when it is one block of a sharded
+    grid (Jacobi and SSOR).
     """
     if name in (None, "none"):
         return None
     if name == "jacobi":
-        return jacobi(matvec, like, halo)
+        return jacobi(matvec, like, halo, origin=origin)
     if name == "ssor":
-        return ssor_stencil(matvec, like, halo, omega=omega)
+        return ssor_stencil(matvec, like, halo, omega=omega, origin=origin)
     if name == "ssor_dense":
         if dense_matrix is None:
             raise ValueError("ssor_dense preconditioner requires an assembled matrix")

@@ -36,27 +36,30 @@ def refined_solve(
     inner_iters: int = 500,
     max_rounds: int = 6,
     M_lo: Optional[Callable] = None,
+    group=None,
 ):
     """Solve A x = b to f64 tolerance using f32 inner Krylov solves.
 
     matvec_hi: float64 operator (residual evaluation)
     matvec_lo: float32 twin (inner solves)
+    group: the process group of a sharded grid (b a block, the matvecs
+    sharded): every norm, and the inner solves', reduces over it.
     """
     b = torch.as_tensor(b).to(torch.float64)
-    bnorm = tnorm(b)
+    bnorm = tnorm(b, group)
     target = tol * torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
     x = torch.zeros_like(b)
     r = b
-    rnorm = tnorm(r)
+    rnorm = tnorm(r, group)
     k = inner = 0
     while k < max_rounds and bool(rnorm > target):
         dx32, info = krylov.solve(
             matvec_lo, r.to(torch.float32), solver=solver, tol=inner_tol,
-            maxiter=inner_iters, M=M_lo,
+            maxiter=inner_iters, M=M_lo, group=group,
         )
         x = x + dx32.to(torch.float64)
         r = b - matvec_hi(x)
-        rnorm = tnorm(r)
+        rnorm = tnorm(r, group)
         k += 1
         inner += info.iters
     return x, RefineInfo(k, inner, float(rnorm), bool(rnorm <= target))

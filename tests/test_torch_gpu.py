@@ -1061,3 +1061,81 @@ def test_sharded_rule_on_the_card(cuda):
     assert rule_counter.count == before[0] + 1 and cuda_backend.window_counter.count > before[1]
     ref_out, ref_tan = torch.func.jvp(lambda a: view(a, up), (x,), (v,))
     assert torch.equal(out, ref_out) and torch.equal(tan, ref_tan) and bool(tan.abs().max() > 0)
+
+
+def _mesh_routes(module, fname, x, cuda):
+    """fname through sharded_function on a one-process mesh, on the kernel
+    route and the kernels-off route: (kernel result, kernels-off result,
+    window-form launches of the kernel route)."""
+    from neptune_tpu_torch.parallel import sharded_function, single_device_mesh
+
+    gm = single_device_mesh(cuda)
+    outs = []
+    for route in ("auto", "torch"):
+        before = cuda_backend.window_counter.count
+        outs.append(sharded_function(CompiledModule(module, route, cuda), fname, gm)(x))
+        if route == "auto":
+            launched = cuda_backend.window_counter.count - before
+    return outs[0], outs[1], launched
+
+
+@pytest.mark.gpu
+def test_sharded_ssor_on_the_card(cuda):
+    """CG + precond="ssor" through sharded_function on a one-process mesh:
+    the kernel route equals the kernels-off route bitwise, with kernel A's
+    window form in both SSOR sweeps and the matvec."""
+    module = stencils.with_solve(stencils.poisson5(128), "poisson", solver="cg", tol=1e-4,
+                                 max_iters=500, precond="ssor")
+    b = torch.randn(128, 128, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    got, ref, launched = _mesh_routes(module, "solve", b, cuda)
+    assert launched > 0 and got.is_cuda and torch.equal(got, ref)
+    assert float(torch.linalg.vector_norm(b - CompiledModule(module, "torch", cuda).opdef(
+        "poisson")(got)) / torch.linalg.vector_norm(b)) <= 1.01e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("program", ["no_input", "far", "far_periodic"])
+def test_sharded_apply_shapes_on_the_card(program, cuda):
+    """An apply with no field input (kernel A's window form at the block's
+    start) and an apply whose reach exceeds a block (on the extended block;
+    the window form where the op is bounded) through sharded_function on a
+    one-process mesh: bitwise the kernels-off route's and the whole grid's."""
+    import torch_ca_cases as cases
+
+    module = {
+        "no_input": lambda: cases.no_input_program(dtype="float32"),
+        "far": lambda: cases.far_program(dtype="float32"),
+        "far_periodic": lambda: cases.far_program(periodic=True, dtype="float32"),
+    }[program]()
+    fname = module.funcs()[0].name
+    x = torch.randn(32, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    got, ref, launched = _mesh_routes(module, fname, x, cuda)
+    assert torch.equal(got, ref) and (launched > 0) == (program != "far_periodic")
+    assert torch.equal(got, CompiledModule(module, "torch", cuda).function(fname)(x))
+
+
+@pytest.mark.gpu
+def test_sharded_reverse_rule_on_the_card(cuda):
+    """The reverse-mode rule of shardmap_opdef on the card: the gradient of
+    a loss through a nonlinear residual on a one-process mesh is the
+    kernels-off route's, bitwise; the primal ran kernel A's window form."""
+    from neptune_tpu_torch.lowering.executor import rule_counter
+    from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
+
+    _, ntt = allen_cahn_step(64)
+    cm = ntt.get_context().compiled()
+    gm = single_device_mesh(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x, up, w = (torch.randn(64, 64, device=cuda, generator=gen) for _ in range(3))
+    grads = []
+    for route in ("auto", "torch"):
+        f = shardmap_opdef(CompiledModule(cm.module, route, cuda), "ac_res", gm)
+        xg, upg = x.clone().requires_grad_(True), up.clone().requires_grad_(True)
+        before = (rule_counter.count, cuda_backend.window_counter.count)
+        (w * f(xg, upg)).sum().backward()
+        if route == "auto":
+            assert rule_counter.count == before[0] + 1
+            assert cuda_backend.window_counter.count > before[1]
+        grads.append((xg.grad, upg.grad))
+    assert all(torch.equal(g, r) for g, r in zip(*grads))
+    assert bool(grads[0][0].abs().max() > 0)

@@ -174,7 +174,9 @@ def test_shardmap_opdef_carries_its_mesh_and_a_jvp_rule():
     """The sharded matvec carries its mesh and the verifier's halo, and a
     forward-mode rule: its tangent on a one-process mesh is the eager
     view's, bitwise, for a nonlinear opdef; for a linear one it is the
-    matvec of the tangent. Reverse mode names what is missing."""
+    matvec of the tangent. The reverse-mode rule's cotangent is the eager
+    view's too, to roundoff (the unpadding adds each ghost's zero
+    cotangent)."""
     import neptune_tpu_torch as ntt
     from neptune_tpu_torch.lowering.executor import rule_counter
     from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
@@ -198,8 +200,14 @@ def test_shardmap_opdef_carries_its_mesh_and_a_jvp_rule():
     view = cm.opdef("cubic", differentiable=True)
     ref_out, ref_tan = torch.func.jvp(lambda a: view(a, up), (x,), (v,))
     assert torch.equal(out, ref_out) and torch.equal(tan, ref_tan)
-    with pytest.raises(NotImplementedError, match="reverse-mode"):
-        f(x.clone().requires_grad_(True), up).sum().backward()
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal((n, n)))
+    xg, upg = x.clone().requires_grad_(True), up.clone().requires_grad_(True)
+    before = rule_counter.count
+    (f(xg, upg) * w).sum().backward()
+    assert rule_counter.count == before + 1
+    _, pull = torch.func.vjp(view, x, up)
+    for got, ref in zip((xg.grad, upg.grad), pull(w)):
+        assert (got - ref).abs().max() <= 1e-14 * ref.abs().max()
 
     mv = shardmap_opdef(CompiledModule(stencils.poisson5(n, "float64")), "poisson", gm)
     _, tan = torch.func.jvp(mv, (x,), (v,))

@@ -222,7 +222,9 @@ def test_ssor_stencil_matches_jax(omega):
         Md = mod.ssor_dense(H.dense(), omega=omega)
         outs.append((_np(M(rr)), _np(Md(rr)), _np(H.dense())))
     (ref, ref_d, A_ref), (got, got_d, A) = outs
-    np.testing.assert_array_equal(precond._red_mask_np((n, n)), jax_precond._red_mask_np((n, n)))
+    np.testing.assert_array_equal(
+        precond.red_mask((n, n), "cpu").numpy(), jax_precond._red_mask_np((n, n))
+    )
     assert np.abs(A - A_ref).max() == 0
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
     assert np.abs(got_d - ref_d).max() <= 1e-12 * np.abs(ref_d).max()
@@ -304,6 +306,29 @@ def test_direct_in_a_compiled_function():
         outs.append(_np(S().solve(b)))
     ref, got = outs
     assert _rel(got, ref) <= 1e-10
+
+
+def test_direct_solves_assemble_once(monkeypatch):
+    """A compiled function's direct solves assemble the dense matrix at the
+    first solve only: the executor keeps one handle per matrix symbol, and
+    the handle keeps its matrix."""
+    b = np.random.default_rng(6).standard_normal((16, 16))
+    p = poisson(ntt, 16)
+
+    @ntt.jit_class
+    class S:
+        def __init__(self):
+            self.H = ntt.assemble_matrix(p)
+
+        def solve(self, b):
+            return ntt.solve_linear(self.H, b, solver="direct")
+
+    calls = []
+    real = torch.func.vmap
+    monkeypatch.setattr(torch.func, "vmap", lambda *a, **k: calls.append(1) or real(*a, **k))
+    s = S()
+    x1, x2 = s.solve(b), s.solve(b)
+    assert len(calls) == 1 and torch.equal(torch.as_tensor(x1), torch.as_tensor(x2))
 
 
 def test_dense_f32_is_full_precision():

@@ -218,10 +218,14 @@ def function_module(kind):
         return run_pipeline(reach2_jacobi()).module, "solve", [rhs_ring(32, rng)]
     if kind == "stats32":
         return run_pipeline(stats_program()).module, "stats", [rng.standard_normal((32, 32))]
-    if kind in MG_PROGRAMS:
-        solve = MG_PROGRAMS[kind]
-        module = stencils.with_solve(stencils.poisson5(32, "float64"), "poisson", **solve)
-        return run_pipeline(module).module, "solve", [rhs_ring(32, rng)]
+    if kind in MG_PROGRAMS or kind in SOLVE_PROGRAMS:
+        solve = dict(MG_PROGRAMS.get(kind) or SOLVE_PROGRAMS[kind])
+        n = solve.pop("n", 32)
+        module = stencils.with_solve(stencils.poisson5(n, "float64"), "poisson", **solve)
+        return run_pipeline(module).module, "solve", [rhs_ring(n, rng)]
+    if kind in SHAPE_PROGRAMS:
+        build, fname, shape = SHAPE_PROGRAMS[kind]
+        return run_pipeline(build()).module, fname, [rng.standard_normal(shape)]
     if kind.startswith("ac2d_"):
         # a smooth state: 0.8 sin(pi x) sin(pi y) plus seeded noise
         x = np.linspace(0.0, 1.0, 32)
@@ -245,6 +249,29 @@ MG_PROGRAMS = {
                           options={"check_every": 10}),
     "cheb32_bounds": dict(solver="chebyshev", tol=1e-12, max_iters=97,
                           options={"lam_min": float(lam_min(32)), "lam_max": 8.0}),
+}
+
+
+# the solves that the mesh view runs on the whole grid's dense matrix, on
+# red-black blocks, or by f64 refinement of f32 solves: kind -> solve_linear
+# keywords (f64 Poisson, 32^2 unless "n" says otherwise; verbose, so that
+# both packages print their KSP lines)
+SOLVE_PROGRAMS = {
+    # 34^2 on (2,2) and 36^2 on (4,1): blocks of 17 and 9 rows start at odd
+    # global indices, where block-local colours and probes would be wrong
+    "ssor34": dict(n=34, solver="cg", tol=1e-10, max_iters=200, precond="ssor", verbose=True),
+    "ssor36": dict(n=36, solver="cg", tol=1e-10, max_iters=200, precond="ssor", verbose=True),
+    "ssor_dense32": dict(solver="cg", tol=1e-10, max_iters=200, precond="ssor_dense",
+                         verbose=True),
+    "direct32": dict(solver="direct", verbose=True),
+    # refined to 1e-13: the two packages' f32 inner solves round apart, so
+    # their x agree only to about cond(A) tol (2.3e-10 apart at tol 1e-10)
+    "mixed32": dict(solver="cg", tol=1e-13, max_iters=200, precision="mixed", verbose=True),
+    "mixed_ssor36": dict(n=36, solver="cg", tol=1e-13, max_iters=200, precision="mixed",
+                         precond="ssor", verbose=True),
+    # three levels of a 36^2 grid: level 1 is 18^2, in blocks of 9 on (2,2)
+    "mg_odd36": dict(n=36, solver="cg", tol=1e-10, max_iters=50, precond="mg",
+                     options={"mg_levels": 3}),
 }
 
 
@@ -345,6 +372,32 @@ FUNCTIONS = {
     "newton_22": ("ac2d_solve", (2, 2)),
     "newton_jac_41": ("ac2d_solve_jac", (4, 1)),
     "step_nonlinear_22": ("ac2d_step", (2, 2)),
+    "ssor_22": ("ssor34", (2, 2)),
+    "ssor_41": ("ssor36", (4, 1)),
+    "ssor_dense_22": ("ssor_dense32", (2, 2)),
+    "direct_22": ("direct32", (2, 2)),
+    "mixed_22": ("mixed32", (2, 2)),
+    "mixed_ssor_41": ("mixed_ssor36", (4, 1)),
+    "noin_22": ("noin32", (2, 2)),
+    "noin_41": ("noin32", (4, 1)),
+    "far_22": ("far32", (2, 2)),
+    "far_41": ("far32", (4, 1)),
+    "far_periodic_41": ("far32_periodic", (4, 1)),
+    "stores_22": ("stores32", (2, 2)),
+    "stores_14": ("stores32", (1, 4)),
+}
+
+# programs that raise on the mesh: name -> (program, mesh, the exception's
+# type, a pattern of its message, whether the JAX package's GSPMD
+# sharded_function raises too). A 30^2 grid does not split over 4 rows and
+# an apply cannot read inputs of another shape: both packages raise. Odd
+# blocks above the coarsest multigrid level: the port raises, naming the
+# ROADMAP item, where the JAX package's GSPMD reshards the level.
+RAISING = {
+    "reshape_22": ("reshape36", (2, 2), "ValueError", "differ from the result", True),
+    "far30_41": ("far30", (4, 1), "ValueError", "not divisible", True),
+    "mg_odd_22": ("mg_odd36", (2, 2), "ValueError", "queue 1, item 9", False),
+    "mg_odd_41": ("mg_odd36", (4, 1), "ValueError", "queue 1, item 9", False),
 }
 
 
@@ -447,3 +500,229 @@ class Spawn:
         with np.load(self.out_dir / "results.npz") as z:
             results = {k: z[k] for k in z.files}
         return results, json.loads((self.out_dir / "info.json").read_text())
+
+
+
+# ---- the remaining apply and store shapes of sharded_function ---------------
+
+
+def _temp_function(name, in_bounds, out_bounds, body, dtype="float64"):
+    """@name(u: temp on in_bounds) -> temp on out_bounds, built by
+    body(b, u) -> the result value; verified."""
+    b = NeptuneBuilder()
+    fn = b.make_function(name, "func", [TempType(dtype, in_bounds)],
+                         [TempType(dtype, out_bounds)])
+    b.push_block(fn.body)
+    b.return_([body(b, fn.body.args[0])])
+    b.pop_block()
+    return verify_and_annotate(b.module)
+
+
+def _one_apply(b, inputs, bounds, result_type, value_of, periodic=False):
+    """One apply of value_of(index values, input block args)."""
+    op, blk = b.start_apply(inputs, bounds, result_type=result_type, periodic=periodic)
+    b.push_block(blk)
+    rank = bounds.rank
+    b.yield_(value_of(blk.args[:rank], blk.args[rank:]))
+    b.pop_block()
+    return b.finish_apply(op)
+
+
+def no_input_program(n=32, dtype="float64"):
+    """@noin(u) = u + g u[1, 0] on rows [0, n - 1), where g is an apply with
+    no field input: 0.25 i - 0.125 j + 1 on the interior, 0 on the ring."""
+    full = Bounds.of([0, 0], [n, n])
+    S = F64 if dtype == "float64" else F32
+
+    def body(b, u):
+        def g_of(ivs, _):
+            i, j = (b.cast(v, S) for v in ivs)
+            ramp = b.sub(b.mul(b.constant(0.25, S), i), b.mul(b.constant(0.125, S), j))
+            return b.add(ramp, b.constant(1.0, S))
+
+        def out_of(_, f):
+            return b.add(b.access(f[0], [0, 0]),
+                         b.mul(b.access(f[1], [0, 0]), b.access(f[0], [1, 0])))
+
+        g = _one_apply(b, [], Bounds.of([1, 1], [n - 1, n - 1]), TempType(dtype, full), g_of)
+        return _one_apply(b, [u, g], Bounds.of([0, 0], [n - 1, n]), None, out_of)
+
+    return _temp_function("noin", full, full, body, dtype)
+
+
+def far_program(n=32, reach=12, periodic=False, dtype="float64"):
+    """@far(u) = u + u[-r, 0] + u[r, 0] + 0.5 u[0, -r] + 0.25 u[0, r], r =
+    reach, on [r, n - r)^2 (every read inside the domain) or on the whole
+    torus. At n=32 and r=12 the reach is more than a block of the (4,1) mesh
+    holds (8 rows): the ghosts come from two neighbours along the ring."""
+    full = Bounds.of([0, 0], [n, n])
+    bounds = full if periodic else Bounds.of([reach, reach], [n - reach, n - reach])
+    r = reach
+    S = F64 if dtype == "float64" else F32
+
+    def body(b, u):
+        def value_of(_, f):
+            acc = b.add(b.access(f[0], [0, 0]), b.access(f[0], [-r, 0]))
+            acc = b.add(acc, b.access(f[0], [r, 0]))
+            acc = b.add(acc, b.mul(b.constant(0.5, S), b.access(f[0], [0, -r])))
+            return b.add(acc, b.mul(b.constant(0.25, S), b.access(f[0], [0, r])))
+
+        return _one_apply(b, [u], bounds, None, value_of, periodic=periodic)
+
+    return _temp_function("far", full, full, body, dtype)
+
+
+def reshape_program(n=32, pad=2):
+    """@reshape(u on [0, n + 2 pad)^2) -> v on [pad, n + pad)^2: v = 2 u -
+    u[-2, 0] - u[0, 1] + 0.5 u[2, 2], on all of v's domain. Its input and
+    result differ in shape, so their blocks do not line up."""
+    inb = Bounds.of([0, 0], [n + 2 * pad] * 2)
+    outb = Bounds.of([pad, pad], [n + pad] * 2)
+
+    def body(b, u):
+        def value_of(_, f):
+            acc = b.sub(b.mul(b.constant(2.0, F64), b.access(f[0], [0, 0])),
+                        b.access(f[0], [-2, 0]))
+            acc = b.sub(acc, b.access(f[0], [0, 1]))
+            return b.add(acc, b.mul(b.constant(0.5, F64), b.access(f[0], [2, 2])))
+
+        return _one_apply(b, [u], outb, TempType("float64", outb), value_of)
+
+    return _temp_function("reshape", inb, outb, body)
+
+
+def store_program(n=32, shift=4):
+    """@stores(u: n x n) -> (u', sum): a 5-pt average v on [shift, n +
+    shift)^2, the input's domain shifted by `shift` (same shape, other
+    bounds), stored into u's field on [6, n - 2)^2, and the sum of v over
+    that box: a bounded store between different bounds."""
+    b = NeptuneBuilder()
+    full = Bounds.of([0, 0], [n, n])
+    moved = Bounds.of([shift, shift], [n + shift] * 2)
+    box = Bounds.of([6, 6], [n - 2, n - 2])
+    fn = b.make_function("stores", "func", [TensorType("float64", (n, n))],
+                         [TensorType("float64", (n, n)), F64])
+    b.push_block(fn.body)
+    f = b.wrap(fn.body.args[0], FieldType("float64", full))
+
+    def value_of(_, fs):
+        acc = b.access(fs[0], [0, 0])
+        for o in ([-1, 0], [1, 0], [0, -1], [0, 1]):
+            acc = b.add(acc, b.access(fs[0], o))
+        return b.mul(b.constant(0.2, F64), acc)
+
+    v = _one_apply(b, [b.load(f)], Bounds.of([shift + 1] * 2, [n + shift - 1] * 2),
+                   TempType("float64", moved), value_of)
+    b.store(v, f, bounds=box)
+    b.return_([b.unwrap(f), b.reduce(v, "sum", bounds=box)])
+    b.pop_block()
+    return verify_and_annotate(b.module)
+
+
+# kind -> (module builder, function, its argument's shape)
+SHAPE_PROGRAMS = {
+    "noin32": (no_input_program, "noin", (32, 32)),
+    "far32": (far_program, "far", (32, 32)),
+    "far32_periodic": (lambda: far_program(periodic=True), "far", (32, 32)),
+    "far30": (lambda: far_program(n=30), "far", (30, 30)),
+    "reshape36": (reshape_program, "reshape", (36, 36)),
+    "stores32": (store_program, "stores", (32, 32)),
+}
+
+
+def ksp_counts(text: str) -> list:
+    """(solver, iterations or refinement rounds) of every KSP line in
+    `text`, as either package prints them."""
+    import re
+
+    return [(k, int(n)) for k, n in
+            re.findall(r"KSP\(([^)]*)\) \S+: (?:iters|rounds)=(\d+)", text)]
+
+
+# ---- reverse mode over a mesh (test_torch_mesh_grad.py) ---------------------
+
+
+def grad_module(n=32):
+    """The opdefs whose derivatives the mesh-gradient tests take, f64 on an
+    n^2 grid: @cubic(u, up) = u - up - 0.05 (lap u + u - u^3) on the
+    interior (a copy-through ring); @adv(u) = u + 0.1 (u[1,0] u[0,1] -
+    u[-1,0] u[0,-1]) on the torus; @deep(u) and @pdeep(u), the same with
+    rows 9 away in place of 1, on rows [9, n - 9) and on the torus (a reach
+    deeper than a block of (4,1)); @lap(u) = u + 0.1 (4 u - the four
+    neighbours) on the interior, and @plap(u), the same on the torus (both
+    SPD)."""
+    b = NeptuneBuilder()
+    full = Bounds.of([0, 0], [n, n])
+    tt = TempType("float64", full)
+    nbrs = ([-1, 0], [1, 0], [0, -1], [0, 1])
+
+    def c(v):
+        return b.constant(v, F64)
+
+    def opdef(name, kind, n_in, value_of, periodic, reach=1):
+        fn = b.make_opdef(name, kind, [tt] * n_in, [tt])
+        b.push_block(fn.body)
+        bounds = full if periodic else Bounds.of([reach, 1], [n - reach, n - 1])
+        b.return_([_one_apply(b, list(fn.body.args), bounds, None, value_of, periodic)])
+        b.pop_block()
+
+    def lap(u):
+        acc = b.mul(c(4.0), b.access(u, [0, 0]))
+        for o in nbrs:
+            acc = b.sub(acc, b.access(u, o))
+        return acc
+
+    def cubic(_, f):
+        u0 = b.access(f[0], [0, 0])
+        react = b.sub(u0, b.mul(b.mul(u0, u0), u0))
+        rhs = b.add(b.mul(c(-1.0), lap(f[0])), react)
+        return b.sub(b.sub(u0, b.access(f[1], [0, 0])), b.mul(c(0.05), rhs))
+
+    def adv_by(r):
+        def adv(_, f):
+            u = f[0]
+            fwd = b.mul(b.access(u, [r, 0]), b.access(u, [0, 1]))
+            bwd = b.mul(b.access(u, [-r, 0]), b.access(u, [0, -1]))
+            return b.add(b.access(u, [0, 0]), b.mul(c(0.1), b.sub(fwd, bwd)))
+
+        return adv
+
+    def shifted(_, f):
+        return b.add(b.access(f[0], [0, 0]), b.mul(c(0.1), lap(f[0])))
+
+    opdef("cubic", "nonlinear_opdef", 2, cubic, False)
+    opdef("adv", "nonlinear_opdef", 1, adv_by(1), True)
+    opdef("deep", "nonlinear_opdef", 1, adv_by(9), False, reach=9)
+    opdef("pdeep", "nonlinear_opdef", 1, adv_by(9), True)
+    opdef("lap", "linear_opdef", 1, shifted, False)
+    opdef("plap", "linear_opdef", 1, shifted, True)
+    return verify_and_annotate(b.module)
+
+
+def grad_data(n=32):
+    """The seeded global inputs of the gradient cases: x, up, w, b (n x n)
+    and theta (a scalar)."""
+    rng = np.random.default_rng(21)
+    x, up, w, b = rng.standard_normal((4, n, n))
+    return {"x": x, "up": up, "w": w, "b": b, "theta": np.float64(0.7)}
+
+
+# the gradient cases: kind -> (what is differentiated, opdef); each runs on
+# every mesh of GRAD_MESHES. "opdef": loss = sum(w f(x, ...)), gradients in
+# x (and up); "solve": x* = A^-1 b with A v = op(v) + theta v by GMRES
+# (symmetric=False: the transposed solve goes through the reverse rule),
+# loss = sum(w x*), gradients in b and theta; "root": F(u) = op(u) + 0.1 u^3
+# - theta b = 0, loss = sum(w u*), gradients in b and theta
+GRADS = {
+    "opdef_bounded": ("opdef", "cubic"),
+    "opdef_periodic": ("opdef", "adv"),
+    "opdef_deep_bounded": ("opdef", "deep"),
+    "opdef_deep_periodic": ("opdef", "pdeep"),
+    "solve_bounded": ("solve", "lap"),
+    "solve_periodic": ("solve", "plap"),
+    "root_bounded": ("root", "lap"),
+    "root_periodic": ("root", "plap"),
+}
+GRAD_MESHES = ((2, 2), (4, 1))
+GRAD_SOLVE = dict(tol=1e-13, maxiter=400)
+GRAD_ROOT = dict(tol=1e-13, krylov_tol=1e-13, krylov_iters=400)

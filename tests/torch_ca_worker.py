@@ -8,8 +8,8 @@ avoiding solvers (FIXED, CONVERGED, ORACLE, COMM); MODE "function" runs
 its FUNCTIONS through `sharded_function` (the Allen-Cahn program's IR text
 comes from OUT_DIR/allen_cahn.mlir, printed by the parent); MODE "mg" runs
 the mesh-aware multigrid, the CA smoothers and Newton over a sharded
-residual (`run_mg`). Each process
-joins a gloo group on localhost, runs on its own blocks on the CPU, gathers
+residual (`run_mg`); MODE "grad" the reverse-mode cases (`run_grad`).
+Each process joins a gloo group on localhost, runs on its own blocks on the CPU, gathers
 the results, and rank 0 writes OUT_DIR/results.npz (arrays) and
 OUT_DIR/info.json (iterations, residual norms, call counts). Imports the
 port only, never JAX.
@@ -141,18 +141,30 @@ def run_functions(meshes, results, infos, out_dir: Path):
         else:
             module, fname, args = cases.function_module(kind)
             cm = CompiledModule(module, device="cpu")
-        gm.shifts = gm.reductions = 0
+        gm.shifts = gm.reductions = gm.gathers = 0
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             out = sharded_function(cm, fname, gm)(*[gm.shard(a) for a in args])
         outs = out if isinstance(out, tuple) else (out,)
+        counts = {"shifts": gm.shifts, "reductions": gm.reductions, "gathers": gm.gathers}
         for i, o in enumerate(outs):
             if o.dim():
                 results[f"fn/{name}/{i}"] = gm.gather(o).numpy()
             else:
                 results[f"fn/{name}/{i}"] = o.numpy()
-        infos[name] = {"shifts": gm.shifts, "reductions": gm.reductions,
-                       "snes_iters": cases.snes_iters(log.getvalue())}
+        infos[name] = dict(counts, snes_iters=cases.snes_iters(log.getvalue()),
+                           ksp=cases.ksp_counts(log.getvalue()))
+
+    # what raises on the mesh: every process raises at the same op
+    for name, (kind, mesh, *_) in cases.RAISING.items():
+        gm = meshes[mesh]
+        module, fname, args = cases.function_module(kind)
+        try:
+            sharded_function(CompiledModule(module, device="cpu"), fname, gm)(
+                *[gm.shard(a) for a in args])
+            infos[name] = {"error": None}
+        except Exception as e:  # noqa: BLE001 -- the test names the expected type
+            infos[name] = {"error": type(e).__name__, "message": str(e)}
 
 
 def run_mg(meshes, results, infos):
@@ -281,6 +293,48 @@ def run_mg(meshes, results, infos):
     results["wide5_inv_diag"] = gm.gather(lw[0].inv_diag).numpy()
 
 
+def run_grad(meshes, results, infos):
+    """Reverse mode over a mesh: every case of `cases.GRADS` on every mesh of
+    `cases.GRAD_MESHES` (see test_torch_mesh_grad.py)."""
+    from neptune_tpu_torch.lowering.executor import rule_counter
+    from neptune_tpu_torch.solvers.diff import differentiable_root, differentiable_solve
+
+    cm = CompiledModule(cases.grad_module(), device="cpu")
+    data = cases.grad_data()
+    for mesh in cases.GRAD_MESHES:
+        gm = meshes[mesh]
+        group = gm.sum_group(2)
+        tag = "x".join(map(str, mesh))
+        for name, (kind, opdef) in cases.GRADS.items():
+            op = shardmap_opdef(cm, opdef, gm)
+            blk = {k: gm.shard(v) for k, v in data.items() if np.ndim(v)}
+            theta = torch.tensor(data["theta"], dtype=torch.float64, requires_grad=True)
+            before = rule_counter.count
+            if kind == "opdef":
+                leaves = {"x": blk["x"].clone().requires_grad_(True)}
+                if opdef == "cubic":
+                    leaves["up"] = blk["up"].clone().requires_grad_(True)
+                y = op(*leaves.values())
+            else:
+                leaves = {"b": blk["b"].clone().requires_grad_(True), "theta": theta}
+                if kind == "solve":
+                    y = differentiable_solve(
+                        lambda v: op(v) + theta * v, leaves["b"], solver="gmres", group=group,
+                        **cases.GRAD_SOLVE)
+                else:
+                    y = differentiable_root(
+                        lambda u: op(u) + 0.1 * u * u * u - theta * leaves["b"],
+                        torch.zeros_like(blk["b"]), group=group, **cases.GRAD_ROOT)
+            # each process's part of the loss; their sum is the loss
+            (blk["w"] * y).sum().backward()
+            for k, leaf in leaves.items():
+                g = leaf.grad
+                # a scalar's gradient is the sum of every process's part
+                g = gm.allreduce(g, 2) if g.dim() == 0 else gm.gather(g)
+                results[f"{name}/{tag}/{k}"] = g.numpy()
+            infos[f"{name}/{tag}"] = {"rule": rule_counter.count - before}
+
+
 def main() -> int:
     mode, rank, world, port, out_dir = sys.argv[1:6]
     rank, world, out_dir = int(rank), int(world), Path(out_dir)
@@ -293,6 +347,8 @@ def main() -> int:
         run_ca(meshes, results, infos)
     elif mode == "mg":
         run_mg(meshes, results, infos)
+    elif mode == "grad":
+        run_grad(meshes, results, infos)
     else:
         run_functions(meshes, results, infos, out_dir)
     if rank == 0:
