@@ -90,19 +90,44 @@ line, the card's nvidia-smi line, and the result line):
      within 1e-5 relative); (e) (a) at 512^2, (b), and (d) at 1024^2 in
      phase 9's four processes on (2,2), held to the one-process runs, with
      ring shifts, bytes and reductions per PCG iteration.
+ 14. the rest of sharded_function, reverse mode and the dry run, each case
+     on the kernel route against the kernels-off route: (a) SSOR-CG 512^2;
+     (b) mixed refinement (to the end at 512^2 on one process and at 32^2
+     on (2,2), one capped round at 512^2 on (2,2)); (c) 64^2 f64 dense SSOR
+     and direct against the whole grid; (d) a 512^2 differentiable_solve
+     gradient, one process and (2,2); (e) dryrun_multichip(4) on the card.
+ 15. (a) precond="mg" where the blocks turn odd above the coarsest level:
+     1800^2 f32 CG + precond="mg" (levels 1800..225) in phase 9's four
+     processes, on (2,2) (whole grid from level 2) and (4,1) (from level
+     1), kernel route against kernels-off route (equal iterations,
+     bitwise-equal x) and against the one-process whole grid (iterations
+     within 1, x within 1e-5 relative), kernel A's window form on the
+     sharded levels and kernel A on the replicated ones, with ms, gathers
+     and ring shifts per PCG iteration; (b) SimulationDriver over entry()'s
+     implicit heat step, 40 steps with a checkpoint every 10, a run stopped
+     by its walltime budget and resumed bitwise the uninterrupted one, one
+     kernel-B launch per step; (c) bench.py's f64_*_vs_native rows, the
+     port in f64 on the card against its native C++ runtime, and the 5-pt
+     Jacobi 1024^2 f32 apply on kernel A against the native f64 apply;
+     (d) profiling.trace around two driver steps (kernel B and an annotate
+     span in the trace), and neptune-opt-torch --run (the in-process
+     checksum) and --plan 2x2 (kernel A named), each in a process of its
+     own (chip_smoke.py --phase15-trace DIR runs the first).
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
 (bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
 over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
 PyTorch call that computes the same function where there is one. Kernel
-A's launches are phase 4's and phase 11's; its window form's phase 8's,
-phase 12a's and phase 13a's.
+A's launches are phase 4's, phase 11's and phase 15's (15a rank 0's
+replicated levels, 15c); its window form's phase 8's, 12a's, 13a's, 14's
+and 15a rank 0's; kernel B's phase 4's and 15b's.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -690,6 +715,7 @@ def phase9_rank(argv) -> int:
     report["phase12"] = phase12_rank(rank, dev, sync)
     report["phase13"] = phase13_rank(rank, dev)
     report["phase14"] = phase14_rank(rank, dev)
+    report["phase15"] = phase15_rank(rank, dev)
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
@@ -1321,7 +1347,12 @@ def phase11_sources(ntt) -> list:
 
 class ShapeLaunches:
     """Kernel-A launches by output shape while in a `with` block: wraps
-    `cuda_backend.stencil_apply`, whose own count stays the kernel's."""
+    `cuda_backend.stencil_apply`, whose own count stays the kernel's. With
+    forms=True the key is "window N" for the window form (a block at a
+    global start) or "whole N" for the whole grid, N the global extent."""
+
+    def __init__(self, forms: bool = False):
+        self.forms = forms
 
     def __enter__(self):
         from neptune_tpu_torch.lowering import cuda_backend
@@ -1330,8 +1361,11 @@ class ShapeLaunches:
 
         def counting(op, *a, **k):
             out = real(op, *a, **k)
-            shape = op.results[0].type.bounds.shape
-            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+            key = shape = op.results[0].type.bounds.shape
+            if self.forms:
+                window = (a[3] if len(a) > 3 else k.get("global_start")) is not None
+                key = f"{'window' if window else 'whole'} {shape[0]}"
+            self.by_shape[key] = self.by_shape.get(key, 0) + 1
             return out
 
         self.real, cuda_backend.stencil_apply = real, counting
@@ -2618,9 +2652,295 @@ def phase14(dev, reports) -> int:
     return launches
 
 
+# ---- phase 15: odd blocks, the driver, the native oracle, profiling, the CLI -
+# (a) precond="mg" where the blocks turn odd above the coarsest level, in
+# phase 9's four processes: 1800^2 has levels 1800..225; on (2,2) the blocks
+# of level 2 are 225 rows, on (4,1) those of level 1, so from there on every
+# level runs on the whole grid, replicated on every process
+P15_N, P15_TOL, P15_MAXIT, P15_X_TOL = 1800, 1e-3, 200, 1e-5
+P15_MESHES = {(2, 2): 2, (4, 1): 1}  # mesh -> the first whole-grid level
+P15_LEVELS = 4
+# (b) the driver over entry()'s step
+P15_STEPS, P15_EVERY = 40, 10
+# (c) bench.py's native-oracle rows: (row, builder, inputs, bench.py's bound)
+P15_NATIVE_ROWS = [
+    ("f64_accuracy_vs_native", "heat_gmres_f64",
+     lambda: [np.zeros((48, 48)), np.sin(np.linspace(0, np.pi, 48))[:, None]
+              * np.cos(np.linspace(0, np.pi, 48))[None, :]], 1e-10),
+    ("f64_bs_vs_native", "black_scholes",
+     lambda: [np.zeros(32), np.maximum(np.linspace(0, 3.1, 32) - 1.0, 0.0)], 1e-10),
+    ("f64_jfnk_vs_native", "allen_cahn_jfnk",
+     lambda: [np.zeros(16), 0.9 * np.sin(np.linspace(0, 2 * np.pi, 16))], 1e-10),
+]
+P15_HEADLINE_N, P15_HEADLINE_TOL = 1024, 1e-6
+# (d) the annotate span around the traced driver steps
+P15_SPAN = "neptune_driver_two_steps"
+
+
+def phase15_trace(argv) -> int:
+    """chip_smoke.py --phase15-trace DIR: profiling.trace around two
+    SimulationDriver steps of entry()'s step, after one warm-up step,
+    writing DIR/trace/trace.json and kernel B's launches in the two steps
+    to DIR/launches.json. Phase 15d runs it in a process of its own: late
+    in a long process torch.profiler can miss launches (PERF.md, open
+    questions)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from neptune_tpu_torch import entry
+    from neptune_tpu_torch.solvers import fused
+    from neptune_tpu_torch.utils import profiling
+    from neptune_tpu_torch.utils.driver import SimulationDriver
+
+    out = Path(argv[0])
+    dev = torch.device("cuda")
+    fn = entry.build_step(256, "float32", device=dev).function("step")
+    u0 = torch.from_numpy(entry.gaussian(256)).to(dev)
+
+    def step(s):
+        return {"u": fn(s["u"])}
+
+    fn(u0)
+    before = fused.counter.count
+    with profiling.trace(out / "trace"):
+        with profiling.annotate(P15_SPAN):
+            SimulationDriver(step, out / "c.npz", 2).run({"u": u0}, 2)
+        torch.cuda.synchronize()
+    (out / "launches.json").write_text(json.dumps(fused.counter.count - before))
+    return 0
+
+
+def p15_module():
+    from neptune_tpu_torch import stencils
+
+    return stencils.with_solve(stencils.poisson5(P15_N), "poisson", solver="cg", tol=P15_TOL,
+                               max_iters=P15_MAXIT, precond="mg")
+
+
+def phase15_rank(rank: int, dev) -> dict:
+    """Phase 15a on one of phase 9's four processes: the 1800^2 MG-PCG
+    through sharded_function on each mesh of P15_MESHES, the kernel route
+    (a first solve builds the hierarchy, a second is timed) and the
+    kernels-off route; rank 0 also solves on the whole grid in one process
+    and compares the gathered x."""
+    import torch
+    import torch.distributed as dist
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import GridMesh, sharded_function
+    from neptune_tpu_torch.solvers import krylov
+
+    module = p15_module()
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (P15_N, P15_N), dtype=np.float32))
+    out = {"whole": None, "meshes": []}
+    with Recorded(krylov, "solve") as solves, ShapeLaunches(forms=True) as forms, \
+            TreeReductions() as reductions:
+        if rank == 0:
+            f = CompiledModule(module, "auto", dev).function("solve")
+            f(b.to(dev))
+            x_whole, ms = timed(lambda: f(b.to(dev)))
+            out["whole"] = {"iters": solves.infos[-1].iters, "ms": ms}
+        dist.barrier()
+        for mesh in P15_MESHES:
+            gm = GridMesh(mesh, ("x", "y"), device=dev)
+            bl = gm.shard(b)
+            row, xs = {"mesh": list(mesh)}, {}
+            for route in ("auto", "torch"):
+                dist.barrier()
+                f = sharded_function(CompiledModule(module, route, dev), "solve", gm)
+                _, first_ms = timed(lambda: f(bl)) if route == "auto" else (None, None)
+                forms.take()
+                gm.shifts = gm.gathers = reductions.count = 0
+                xs[route], ms = timed(lambda: f(bl))
+                row[route] = {
+                    "iters": solves.infos[-1].iters, "ms": ms, "first_ms": first_ms,
+                    "launches": forms.take(), "shifts": gm.shifts, "gathers": gm.gathers,
+                    "reductions": reductions.count, "device": str(xs[route].device),
+                }
+            row["bitwise"] = bool(torch.equal(xs["auto"], xs["torch"]))
+            xg = gm.gather(xs["auto"])
+            if rank == 0:
+                row["rel_whole"] = float(torch.linalg.vector_norm(xg - x_whole)
+                                         / torch.linalg.vector_norm(x_whole))
+                row["true_rel"] = p13_true_rel(module, xg, b.to(dev), dev)
+            out["meshes"].append(row)
+            del xg, xs
+            dist.barrier()
+    return out
+
+
+def phase15(dev, reports, heat_cm, step_ms: float) -> dict:
+    """Phase 15: (a) from phase 9's four processes (`phase15_rank`); (b) the
+    simulation driver; (c) the native oracle; (d) profiling and the CLI.
+    Returns the kernels' launches in (a) rank 0, (b) and (c)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from neptune_tpu_torch import entry, stencils
+    from neptune_tpu_torch.ir import print_module
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.passes import compile_ir
+    from neptune_tpu_torch.runtime import compile_native
+    from neptune_tpu_torch.solvers import fused
+    from neptune_tpu_torch.utils.driver import SimulationDriver
+
+    t15 = time.perf_counter()
+    launches = {"stencil_apply": 0, "stencil_apply_window": 0, "fused_cg": 0}
+
+    # ---- (a): odd blocks, four processes
+    rows = [r["phase15"] for r in reports]
+    whole = rows[0]["whole"]
+    for i, (mesh, first_whole) in enumerate(P15_MESHES.items()):
+        r = [row["meshes"][i] for row in rows]
+        m = r[0]
+        on, off = m["auto"], m["torch"]
+        sharded = {f"window {P15_N >> lvl}" for lvl in range(first_whole)}
+        replicated = {f"whole {P15_N >> lvl}" for lvl in range(first_whole, P15_LEVELS)}
+        for x in r:
+            require(x["bitwise"] and x["auto"]["iters"] == x["torch"]["iters"] == on["iters"],
+                    f"15a {mesh}: routes or ranks disagree: {r}")
+            require(x["auto"]["device"].startswith("cuda") and not x["torch"]["launches"],
+                    f"15a {mesh}: {x}")
+            require(set(x["auto"]["launches"]) == sharded | replicated,
+                    f"15a {mesh}: kernel A's forms by level {x['auto']['launches']}, want "
+                    f"the window form on {sorted(sharded)} and the whole grid on "
+                    f"{sorted(replicated)}")
+        require(abs(on["iters"] - whole["iters"]) <= 1 and m["rel_whole"] <= P15_X_TOL
+                and m["true_rel"] <= 1.01 * P15_TOL,
+                f"15a {mesh}: {on['iters']} PCG iterations against the whole grid's "
+                f"{whole['iters']}, x within {m['rel_whole']!r}, true relative residual "
+                f"{m['true_rel']!r}")
+        launches["stencil_apply_window"] += sum(
+            v for k, v in on["launches"].items() if k.startswith("window"))
+        launches["stencil_apply"] += sum(
+            v for k, v in on["launches"].items() if k.startswith("whole"))
+        its = on["iters"]
+        say(f"phase 15a sharded_function {P15_N}^2 f32 CG + precond=mg, tol {P15_TOL}, four "
+            f"processes {mesh}, whole grid from level {first_whole}: {its} PCG iterations "
+            f"(= kernels-off route, bitwise, on every rank; one process, whole grid: "
+            f"{whole['iters']}), x within {m['rel_whole']!r} of the whole grid's, true "
+            f"relative residual {m['true_rel']!r}; {on['ms']:.1f} ms per solve (rank 0), "
+            f"{on['ms'] / its:.2f} ms per PCG iteration (kernels-off {off['ms'] / its:.2f}; "
+            f"whole grid {whole['ms'] / whole['iters']:.2f}); per PCG iteration "
+            f"{on['gathers'] / its:.2f} gathers, {on['shifts'] / its:.1f} ring shifts, "
+            f"{on['reductions'] / its:.1f} reductions; kernel A per level (rank 0) "
+            f"{json.dumps(on['launches'], sort_keys=True)}; first solve with the hierarchy "
+            f"build {on['first_ms']:.1f} ms")
+
+    work = Path(tempfile.mkdtemp(prefix="nt_phase15_"))
+    try:
+        # ---- (b): the driver over entry()'s implicit heat step
+        fn = heat_cm.function("step")
+        u0 = torch.from_numpy(entry.gaussian(256)).to(dev)
+
+        def step(s):
+            return {"u": fn(s["u"])}
+
+        fn(u0)
+        before = fused.counter.count
+        (whole_run, n), ms = timed(lambda: SimulationDriver(step, work / "a.npz", P15_EVERY).run(
+            {"u": u0}, P15_STEPS))
+        b_launches = fused.counter.count - before
+        _, stopped = SimulationDriver(step, work / "b.npz", P15_EVERY).run(
+            {"u": u0}, P15_STEPS, walltime_budget_s=1e-9)
+        resumed, n2 = SimulationDriver(step, work / "b.npz", P15_EVERY).run({"u": u0}, P15_STEPS)
+        require(n == n2 == P15_STEPS and stopped == P15_EVERY and b_launches == P15_STEPS,
+                f"15b: steps {n}, {stopped} then {n2}; kernel B launched {b_launches} times")
+        require(resumed["u"].is_cuda and torch.equal(resumed["u"], whole_run["u"]),
+                "15b: the resumed run is not bitwise the uninterrupted one")
+        launches["fused_cg"] += b_launches
+        say(f"phase 15b SimulationDriver over entry()'s step (256^2 f32): {P15_STEPS} steps, a "
+            f"checkpoint every {P15_EVERY}; kernel B {b_launches} launches; {ms / n:.3f} ms per "
+            f"step with checkpoints (entry() step, phase 4: {step_ms:.3f} ms); stopped by "
+            f"walltime_budget_s after step {stopped}, resumed to {n2}: bitwise the "
+            "uninterrupted run")
+
+        # ---- (c): the native oracle
+        for row, builder, inputs, bound in P15_NATIVE_ROWS:
+            module = getattr(stencils, builder)()
+            args = inputs()
+            f = compile_ir(module, device=dev).function("entry")
+            got, card_ms = timed(lambda: f(*[torch.from_numpy(a).to(dev) for a in args]))
+            t0 = time.perf_counter()
+            native = compile_native(module)
+            build_s = time.perf_counter() - t0
+            want = native.function("entry")(*args)
+            d = float((got.cpu() - want).abs().max())
+            require(got.is_cuda and got.dtype == torch.float64 and d <= bound,
+                    f"15c {row}: max |diff| {d!r} against the native runtime")
+            say(f"phase 15c {row}: the port in f64 on the card (eager) against compile_native, "
+                f"max |diff| {d!r} (bound {bound}); card {card_ms:.1f} ms, native build "
+                f"{build_s:.1f} s")
+        n = P15_HEADLINE_N
+        m32 = stencils.with_entry(stencils.jacobi5((n, n)), "jacobi")
+        m64 = stencils.with_entry(stencils.jacobi5((n, n), "float64"), "jacobi")
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (n, n), dtype=np.float32)).to(dev)
+        before = cuda_backend.counter.count
+        y = CompiledModule(m32, "auto", dev).function("entry")(x)
+        a_launches = cuda_backend.counter.count - before
+        ref = compile_native(m64).function("entry")(x)
+        rel = float((y.cpu().double() - ref).abs().max() / ref.abs().max())
+        require(a_launches == 1 and rel <= P15_HEADLINE_TOL,
+                f"15c headline: {a_launches} kernel-A launches, relative error {rel!r}")
+        launches["stencil_apply"] += a_launches
+        say(f"phase 15c headline 5-pt Jacobi {n}^2 f32 on kernel A against the native f64 "
+            f"apply: max relative error {rel!r} (bound {P15_HEADLINE_TOL})")
+
+        # ---- (d): profiling and the CLI, each in a process of its own
+        t0 = time.perf_counter()
+        traced = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--phase15-trace", str(work)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        trace_s = time.perf_counter() - t0
+        require(traced.returncode == 0, f"15d trace process exited {traced.returncode}:\n"
+                f"{traced.stderr[-3000:]}")
+        events = json.loads((work / "trace" / "trace.json").read_text())["traceEvents"]
+        names = {str(e.get("name", "")) for e in events}
+        kernel_b = [nm for nm in names if "nt_fused_cg_kernel" in nm]
+        b_traced = json.loads((work / "launches.json").read_text())
+        require(b_traced == 2 and kernel_b and P15_SPAN in names,
+                f"15d: kernel B launched {b_traced} times; the trace holds {len(events)} "
+                f"events, kernel B's {kernel_b}, the span: {P15_SPAN in names}")
+        say(f"phase 15d profiling.trace around two driver steps (a process of its own, "
+            f"{trace_s:.1f} s): {len(events)} events, kernel B as {kernel_b[0]!r}, the "
+            "annotate span present")
+        ntir, xin = work / "jacobi5.ntir", work / "x.npy"
+        ntir.write_text(print_module(m32))
+        np.save(xin, x.cpu().numpy())
+        want = f"checksum={float(y.cpu().numpy().sum()):.10g}"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "neptune_tpu_torch.tools.opt", str(ntir), "--run", "entry",
+             "--inputs", str(xin), "--plan", "2x2"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        )
+        cli_s = time.perf_counter() - t0
+        require(cli.returncode == 0, f"15d neptune-opt-torch exited {cli.returncode}:\n"
+                f"{cli.stderr[-3000:]}")
+        got = [ln.split()[-1] for ln in cli.stdout.splitlines() if "checksum=" in ln]
+        require(got == [want] and "kernels on the whole grid: kernel A (stencil_apply)"
+                in cli.stdout and "local block=512x512" in cli.stdout,
+                f"15d neptune-opt-torch: {got} against the in-process {want}:\n"
+                f"{cli.stdout[-2000:]}")
+        say(f"phase 15d neptune-opt-torch --run entry (5-pt {n}^2 f32, on the card) --plan 2x2: "
+            f"{got[0]} (= the in-process call's), the plan names kernel A; {cli_s:.1f} s "
+            "with the process start")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"phase 15 launches {json.dumps(launches)}; phase wall {time.perf_counter() - t15:.1f} s")
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase15-trace":
+        return phase15_trace(sys.argv[2:])
     t_start = time.perf_counter()
     try:
         import torch
@@ -2633,6 +2953,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the native runtime's cache beside the kernels' builds, in the checkout
+    os.environ.setdefault("NEPTUNE_TORCH_CACHE_DIR",
+                          str(ROOT / "neptune_tpu_torch" / "_build" / "native"))
 
     import neptune_tpu_torch as ntt
     from neptune_tpu_torch import entry, stencils
@@ -3124,6 +3447,9 @@ def main() -> int:
     # ---- phase 14: the rest of sharded_function, reverse mode, the dry run -
     ca_launches += phase14(dev, reports)
 
+    # ---- phase 15: odd blocks, the driver, the native oracle, profiling, CLI -
+    p15 = phase15(dev, reports, heat_cm, step_ms)
+
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if also:
@@ -3137,12 +3463,13 @@ def main() -> int:
     kernels = [
         entry_of("stencil_apply", "neptune_tpu_torch/csrc/nt_apply.cuh",
                  "neptune_tpu/lowering/pallas_backend.py:332",
-                 launches["stencil_apply"] + mg_launches, a_err,
+                 launches["stencil_apply"] + mg_launches + p15["stencil_apply"], a_err,
                  a_ms, a_plain_ms, a_bound, a_lib, "jacobi5 4096^2 f32",
                  ["neptune_tpu/lowering/pallas_backend.py:845",
                   "neptune_tpu/lowering/pallas_backend.py:1094"]),
         entry_of("fused_cg", "neptune_tpu_torch/csrc/nt_fused_cg.cuh",
-                 "neptune_tpu/solvers/fused.py:201", launches["fused_cg"], b_err, b_ms,
+                 "neptune_tpu/solvers/fused.py:201", launches["fused_cg"] + p15["fused_cg"],
+                 b_err, b_ms,
                  b_plain_ms, b_bound, None, "poisson 512^2 jacobi tol 1e-4") | b_extra,
         entry_of("stencil_sweeps", "neptune_tpu_torch/csrc/nt_sweeps.cuh",
                  "neptune_tpu/lowering/pallas_multisweep.py:406", dsl_launches["stencil_sweeps"],
@@ -3166,7 +3493,7 @@ def main() -> int:
          "neptune_tpu/lowering/pallas_chain.py:516 (global_start)", None),
     ):
         k_ms, p_ms, bnd, lib, shape, err = forms[name]
-        n = sh_launches[name] + (ca_launches if name == "stencil_apply_window" else 0)
+        n = sh_launches[name] + (ca_launches + p15[name] if name == "stencil_apply_window" else 0)
         kernels.append(entry_of(name, source, replaces, n, err, k_ms, p_ms, bnd, lib, shape, also))
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s, builds included")
     say(json.dumps({"kernels": kernels}))

@@ -32,6 +32,7 @@ from ..solvers import krylov
 from ..solvers.assemble import MatrixHandle
 from ..solvers.newton import newton_krylov, picard
 from ..solvers.precond import make_preconditioner
+from ..utils.profiling import verbose_default
 from ..utils.options import (
     LINEAR_OPTION_KEYS,
     NONLINEAR_OPTION_KEYS,
@@ -467,7 +468,7 @@ def solve_linear(
     if precision == "mixed":
         return get_context().compiled().solve_mixed(
             matrix, b_arr, solver=solver, tol=tol, max_iters=max_iters, precond=precond,
-            options=options, verbose=verbose,
+            options=options, verbose=verbose or verbose_default(),
         )
     M = None
     if precond == "mg":
@@ -504,7 +505,7 @@ def solve_linear(
         )
         if lift is not None:
             x = x + lift
-    if verbose:
+    if verbose or verbose_default():
         report_solve(f"KSP({solver})", matrix.symbol, info)
     return x
 
@@ -623,7 +624,7 @@ def solve_nonlinear(
         x, info = picard(F, state_arrays, tol=tol, max_iters=max_iters, **okw)
     else:
         x, info = newton_krylov(F, state_arrays, **nkw, **okw)
-    if verbose:
+    if verbose or verbose_default():
         report_solve(f"SNES({method})", sym, info)
     return x[0] if single else tuple(x)
 

@@ -57,6 +57,7 @@ from ..utils.options import (
     nonlinear_option_kwargs,
     split_precond_options,
 )
+from ..utils.profiling import report_solve, verbose_default
 from . import chain, cuda_backend, sweeps, torch_backend
 
 _BACKENDS = ("auto", "torch", "cuda")
@@ -66,15 +67,9 @@ rule_counter = LaunchCounter("opdef_rule")
 
 
 def _verbose(op: Operation) -> bool:
-    return bool(op.attrs.get("verbose"))
-
-
-def report_solve(kind: str, name: str, info) -> None:
-    """One KSP/SNES-style convergence line, as the JAX package prints it."""
-    print(
-        f"[neptune] {kind} {name}: iters={info.iters} resnorm={info.resnorm:.3e} "
-        f"converged={info.converged}"
-    )
+    """Whether a solve op prints its convergence line: its `verbose`
+    attribute, or NEPTUNE_TORCH_VERBOSE=1 for every solve."""
+    return bool(op.attrs.get("verbose")) or verbose_default()
 
 
 class _OpdefRule(torch.autograd.Function):
@@ -905,11 +900,15 @@ def auto_mg_preconditioner(
     handle's matvec is then the mesh's sharded opdef): each coarse level
     is `parallel.shardmap_opdef` of its coarsened module, and M takes and
     returns this process's blocks. The level count follows the global
-    grid; a level whose block turns odd above the coarsest raises
-    ValueError (`solvers.multigrid.build_levels`).
+    grid. From the first level whose block turns odd above the coarsest
+    (`solvers.multigrid.first_whole_level`) every level is `opdef` of its
+    module on the whole grid, replicated on every process: the restricted
+    residual is gathered once on the way down, and each process takes its
+    block of the correction on the way up. Where the finest block is odd
+    already, M gathers r, runs a whole-grid cycle and returns its block.
     """
     from ..passes.coarsen import coarsen_opdef
-    from ..solvers.multigrid import mg_preconditioner
+    from ..solvers.multigrid import first_whole_level, mg_preconditioner
 
     shape = handle.grid_shape
     if mg_levels is None:
@@ -926,26 +925,41 @@ def auto_mg_preconditioner(
             f"mg_levels={mg_levels}; extents must be even and >= 32 to "
             "coarsen, or pass mg_levels explicitly)"
         )
+    # levels below `sharded` run on the mesh's blocks, the rest whole
+    sharded = 0
+    if gmesh is not None:
+        gmesh.check_divisible(shape)
+        sharded = first_whole_level(shape, gmesh, mg_levels)
     ops: list = [handle]
+    if gmesh is not None and sharded == 0:
+        whole = CompiledModule(module, backend, device).opdef(handle.symbol)
+        ops = [_CoarseOp(whole, handle.halo)]
     mod = module
     for lvl in range(1, mg_levels):
         mod = coarsen_opdef(mod, handle.symbol)
         cm = CompiledModule(mod, backend, device)
-        if gmesh is None:
-            mv = cm.opdef(handle.symbol)
+        if lvl >= sharded:
+            mv, mesh = cm.opdef(handle.symbol), None
         else:
             from ..parallel.sharded_apply import shardmap_opdef
 
-            mv = shardmap_opdef(cm, handle.symbol, gmesh, cm.backend)
+            mv, mesh = shardmap_opdef(cm, handle.symbol, gmesh, cm.backend), gmesh
         scale = 0.25**lvl  # rediscretization damping (see the docstring)
-        ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo, gmesh))
-    if gmesh is not None:
-        gmesh.check_divisible(shape)
+        ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo, mesh))
+    if sharded > 0:
         shape = tuple(
             n // gmesh.shape[d] if d < len(gmesh.shape) else n for d, n in enumerate(shape)
         )
     like = torch.zeros(shape, dtype=handle.dtype, device=default_device(device))
-    return mg_preconditioner(ops, like, smoother=mg_smoother)
+    M = mg_preconditioner(ops, like, smoother=mg_smoother)
+    if gmesh is None or sharded > 0:
+        return M
+
+    def M_gathered(r):
+        e = M(gmesh.gather(r))
+        return e[gmesh.block_slices(tuple(e.shape))].contiguous()
+
+    return M_gathered
 
 
 def compile_module(module: Module, backend: Optional[str] = None, device=None) -> CompiledModule:

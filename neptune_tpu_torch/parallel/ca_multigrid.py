@@ -195,35 +195,51 @@ def build_ca_levels(
     per 1-2 exchange rounds. A level whose fused plan is ineligible (k·reach
     exceeding a small coarse block) gets ca_smooth=None, and `v_cycle`
     smooths there with its per-matvec "cheb" smoother, as the JAX package
-    routes it.
+    routes it. From the first level whose block turns odd above the
+    coarsest (`solvers.multigrid.first_whole_level`) the levels run on the
+    whole grid, replicated on every process: their matvec is `opdef` of
+    the whole grid (`matvecs`' entries there must be whole-grid callables)
+    and they smooth per matvec.
     """
-    from ..solvers.multigrid import build_levels
+    from ..solvers.multigrid import _geometry, build_levels, first_whole_level
 
-    def _with_halo(mv, halo):
+    def _with_halo(mv, halo, mesh):
         """A user callable without `.halo` would be probed at period (1, 1),
         which aliases taps of reach > 1 into the diagonal: a fresh wrapper
-        with the verifier's halo (and the mesh) probes exactly, without
-        touching the caller's callable."""
+        with the verifier's halo (and the mesh, None on a whole-grid level)
+        probes exactly, without touching the caller's callable."""
 
         def shim(v, _mv=mv):
             return _mv(v)
 
-        shim.halo, shim.gmesh = halo, gmesh
+        shim.halo, shim.gmesh = halo, mesh
         return shim
 
+    sharded = first_whole_level(_geometry(gmesh, tuple(like.shape))[0], gmesh, len(names))
+    if sharded == 0:
+        raise ValueError(
+            f"the finest block {tuple(like.shape)} on mesh {gmesh.shape} is odd: no level "
+            "can smooth on blocks (precond='mg' gathers r and runs a whole-grid cycle)"
+        )
     mvs = (
         list(matvecs)
         if matvecs is not None
-        else [shardmap_opdef(cm, nm, gmesh) for nm in names]
+        else [
+            shardmap_opdef(cm, nm, gmesh) if i < sharded else cm.opdef(nm)
+            for i, nm in enumerate(names)
+        ]
     )
     mvs = [
-        mv if getattr(mv, "halo", None) and getattr(mv, "gmesh", None) is gmesh
-        else _with_halo(mv, cm.module.lookup(nm).attrs["halo"])
-        for mv, nm in zip(mvs, names)
+        mv if i < sharded and getattr(mv, "halo", None) and getattr(mv, "gmesh", None) is gmesh
+        else _with_halo(mv, cm.module.lookup(nm).attrs["halo"], gmesh if i < sharded else None)
+        for i, (mv, nm) in enumerate(zip(mvs, names))
     ]
     levels = build_levels(mvs, like)
     out = []
     for lvl, nm in zip(levels, names):
+        if lvl.mesh is None:
+            out.append(lvl)
+            continue
         lmax = float(lvl.cheb_lmax)
         try:
             sm, sm0 = ca_smoother(

@@ -36,7 +36,9 @@ op that the JAX package's `sharded_function` runs, this one runs:
   * `precond="mg"` builds `auto_mg_preconditioner` over the mesh: every
     level's matvec is `shardmap_opdef` of the coarsened module, and the
     V-cycle runs on blocks (`solvers.multigrid`), its hierarchy cached per
-    solve site and mesh;
+    solve site and mesh; from the first level whose block turns odd above
+    the coarsest, the levels run on the whole grid, replicated on every
+    process, where the JAX package's GSPMD reshards;
   * `solve_nonlinear` and implicit-nonlinear `time_advance` run
     `newton_krylov` (or `picard`) over the sharded residual with the
     mesh's group: J·v is `torch.func.jvp` through the sharded opdef's

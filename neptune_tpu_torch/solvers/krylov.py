@@ -26,7 +26,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..utils.tree import allreduce, taxpy, tdot, tnorm, tscale, tsub, tzeros_like, vdot, vnorm
+from ..utils.tree import (
+    allreduce, taxpy, tdot, tdot_f64, tnorm, tscale, tsub, tzeros_like, vdot, vnorm,
+)
 
 
 class SolveInfo(NamedTuple):
@@ -35,8 +37,8 @@ class SolveInfo(NamedTuple):
     converged: bool
 
 
-def _tolerances(b, tol, atol, group=None):
-    bnorm = tnorm(b, group)
+def _tolerances(b, tol, atol, group=None, norm=None):
+    bnorm = (norm or tnorm)(b, group)
     # guard ||b|| = 0: converge to x = 0 via the atol floor
     return torch.clamp(tol * bnorm, min=atol), bnorm
 
@@ -48,6 +50,10 @@ def _divergence_bound(bnorm, divtol):
     if divtol is None:
         return torch.full_like(bnorm, big)
     return torch.clamp(divtol * torch.clamp(bnorm, min=1.0), max=big)
+
+
+def _norm_f64(a, group=None):
+    return torch.sqrt(tdot_f64(a, a, group))
 
 
 def _identity(x):
@@ -81,31 +87,33 @@ def cg(
     divtol: Optional[float] = None,
     group=None,
 ):
-    """Preconditioned conjugate gradient for SPD operators."""
+    """Preconditioned conjugate gradient for SPD operators. Its inner
+    products sum in float64 (`tdot_f64`), as kernel B's do: the iterates
+    over a mesh are the whole grid's."""
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
-    target, bnorm = _tolerances(b, tol, atol, group)
+    target, bnorm = _tolerances(b, tol, atol, group, norm=_norm_f64)
     divbound = _divergence_bound(bnorm, divtol)
 
     r = tsub(b, matvec(x))
     z = M(r)
     p = z
-    rz = tdot(r, z, group)
+    rz = tdot_f64(r, z, group)
     k = 0
-    rnorm = tnorm(r, group)
+    rnorm = _norm_f64(r, group)
     while _running(k, maxiter, rnorm, target, divbound):
         Ap = matvec(p)
-        pAp = tdot(p, Ap, group)
+        pAp = tdot_f64(p, Ap, group)
         alpha = rz / _safe(pAp)
         x = taxpy(alpha, p, x)
         r = taxpy(-alpha, Ap, r)
         z = M(r)
-        rz_new = tdot(r, z, group)
+        rz_new = tdot_f64(r, z, group)
         beta = rz_new / _safe(rz)
         p = taxpy(beta, p, z)
         rz = rz_new
         k += 1
-        rnorm = tnorm(r, group)
+        rnorm = _norm_f64(r, group)
     return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
 
 

@@ -27,9 +27,18 @@ blocks: when the finest operator carries a `gmesh` (a
 diagonal probes, the boundary-ring mask, the red-black parity and the
 power iteration's seed follow the global grid; every norm, and the
 coarsest CG's, reduces over the mesh's group; `restrict` is block-local
-(each level above the coarsest needs even block extents); `prolong`
-exchanges a one-cell coarse halo with the neighbours and replicates the
-edge cell at the domain edge, as the whole-grid interpolation clamps.
+(each sharded level above the coarsest needs even block extents);
+`prolong` exchanges a one-cell coarse halo with the neighbours and
+replicates the edge cell at the domain edge, as the whole-grid
+interpolation clamps.
+
+A hierarchy may end in whole-grid levels: operators without a `gmesh`
+after sharded ones (`executor.auto_mg_preconditioner` builds them from
+the first level whose block turns odd). Those levels are replicated on
+every process and reduce over no group. On the way down the restricted
+residual's blocks are joined once (`GridMesh.gather`); on the way up each
+process interpolates its own block of the correction, its one-cell coarse
+halo read from the replicated grid (`prolong_block`), as `prolong` does.
 """
 
 from __future__ import annotations
@@ -103,6 +112,18 @@ def _group(mesh, rank: int):
     return None if mesh is None else mesh.sum_group(rank)
 
 
+def first_whole_level(gshape, mesh, n_levels: int) -> int:
+    """The first level of an `n_levels` hierarchy on the global grid
+    `gshape` whose block on `mesh` has an odd extent above the coarsest
+    level (block-local restriction needs even blocks): that level and the
+    coarser ones run on the whole grid. n_levels when there is none."""
+    for lvl in range(n_levels - 1):
+        g = [s >> lvl for s in gshape]
+        if any((n // mesh.shape[d] if d < len(mesh.shape) else n) % 2 for d, n in enumerate(g)):
+            return lvl
+    return n_levels
+
+
 def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) -> list[MGLevel]:
     """Per-level smoother data, on `like`'s device and in its dtype.
 
@@ -112,21 +133,34 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
     process's block). Each coarser level halves every dimension. rings:
     per-level boundary-ring width of the correction mask; by default each
     operator's largest halo (1 if unknown).
+
+    On a mesh, operators without a `gmesh` after sharded ones are
+    whole-grid levels, replicated on every process; a sharded level may
+    not follow a whole-grid one.
     """
     like = _as_tensor(like)
     dtype, device, rank = like.dtype, like.device, like.ndim
-    mesh = _mesh_of(ops[0])
+    mesh0 = _mesh_of(ops[0])
     levels = []
     shape = tuple(like.shape)
+    gshape = _geometry(mesh0, shape)[0]
     for i, op in enumerate(ops):
-        gshape, origin = _geometry(mesh, shape)
+        mesh = _mesh_of(op) if mesh0 is not None else None
+        if mesh is not None and levels and levels[-1].mesh is None:
+            raise ValueError(
+                f"multigrid level {i} is sharded on mesh {mesh.shape} below a whole-grid "
+                "level: whole-grid levels must be the coarsest ones"
+            )
+        if mesh is None:
+            shape = gshape
+        origin = _geometry(mesh, shape)[1]
         if i + 1 < len(ops) and any(s % 2 for s in shape):
             if mesh is not None:
                 raise ValueError(
                     f"multigrid level {i} grid {gshape} on mesh {mesh.shape}: block {shape} "
-                    "is not 2:1-coarsenable (every block extent must be even above the "
-                    "coarsest level; gathering such a level to fewer processes is ROADMAP.md, "
-                    "queue 1, item 9)"
+                    "is not 2:1-coarsenable (every sharded block extent must be even above "
+                    "the coarsest level): use precond='mg', which runs such levels on the "
+                    f"whole grid, or pass whole-grid operators from level {i} on"
                 )
             raise ValueError(
                 f"multigrid level {i} grid {shape} is not 2:1-coarsenable "
@@ -158,6 +192,7 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
             MGLevel(mv, inv_diag, torch.from_numpy(idx).to(device), float(lmax), mesh=mesh)
         )
         shape = tuple(s // 2 for s in shape)
+        gshape = tuple(s // 2 for s in gshape)
     return levels
 
 
@@ -188,7 +223,10 @@ def prolong(e: torch.Tensor, fine_shape, mesh=None) -> torch.Tensor:
     cell arrives), the extended block is interpolated and its centre
     carved out. At the domain edge nothing is added: the interpolation's
     own clamp replicates the edge cell there, as on the whole grid, so the
-    blocks are bitwise those of the whole-grid result."""
+    blocks are those of the whole-grid result: bitwise on the card, whose
+    kernel computes each cell alone; on the CPU, whose kernel orders its
+    passes by the input's size, within a rounding where a block's coarse
+    extent is odd."""
     if mesh is None:
         return _interpolate(e, fine_shape)
     lows = []
@@ -203,6 +241,47 @@ def prolong(e: torch.Tensor, fine_shape, mesh=None) -> torch.Tensor:
         lows.append(int(idx > 0))
     out = _interpolate(e, [2 * s for s in e.shape])
     return out[tuple(slice(2 * lo, 2 * lo + f) for lo, f in zip(lows, fine_shape))]
+
+
+def prolong_block(e: torch.Tensor, fine_shape, mesh) -> torch.Tensor:
+    """This process's block (of shape fine_shape) of the interpolation of
+    the whole coarse grid `e`, which every process holds: the coarse block
+    with its one-cell halo (none at the domain edge) is sliced from `e`,
+    interpolated and carved out as `prolong` does on a mesh, so the block is
+    that of the whole-grid result (bitwise on the card; see `prolong`) and
+    nothing is exchanged."""
+    sl, lows = [], []
+    for d in range(e.ndim):
+        if d >= len(mesh.shape):
+            sl.append(slice(None))
+            lows.append(0)
+            continue
+        n, idx, cb = mesh.shape[d], mesh.coords[d], fine_shape[d] // 2
+        lo = idx * cb - int(idx > 0)
+        hi = (idx + 1) * cb + int(idx < n - 1)
+        sl.append(slice(lo, hi))
+        lows.append(int(idx > 0))
+    ext = e[tuple(sl)]
+    out = _interpolate(ext, [2 * s for s in ext.shape])
+    return out[tuple(slice(2 * lo, 2 * lo + f) for lo, f in zip(lows, fine_shape))]
+
+
+def _down(r: torch.Tensor, L: MGLevel, Lc: MGLevel) -> torch.Tensor:
+    """The restriction of L's residual r to Lc's grid, its ring zeroed:
+    joined once into the whole grid where Lc is the first whole-grid
+    level."""
+    rc = restrict(r)
+    if L.mesh is not None and Lc.mesh is None:
+        rc = L.mesh.gather(rc)
+    return torch.where(Lc.interior, rc, 0.0)
+
+
+def _up(ec: torch.Tensor, fine_shape, L: MGLevel, Lc: MGLevel) -> torch.Tensor:
+    """Lc's correction ec interpolated onto L's grid (L's block on a
+    mesh)."""
+    if L.mesh is not None and Lc.mesh is None:
+        return prolong_block(ec, fine_shape, L.mesh)
+    return prolong(ec, fine_shape, L.mesh)
 
 
 def _check_smoother(smoother: str) -> None:
@@ -309,7 +388,7 @@ def v_cycle(
     # restricted boundary-layer residual as boundary values, which interior
     # rows coupled at O(1/h^2) amplify once per level)
     Lc = levels[_lvl + 1]
-    rc = torch.where(Lc.interior, restrict(r), 0.0)
+    rc = _down(r, L, Lc)
     ec = v_cycle(
         levels,
         rc,
@@ -326,7 +405,7 @@ def v_cycle(
     # zero the correction's ring too before interpolating: keeps any
     # coarsest-level ring drift out of fine interior cells
     ec = torch.where(Lc.interior, ec, 0.0)
-    e = prolong(ec, x.shape, L.mesh)
+    e = _up(ec, x.shape, L, Lc)
     x = x + torch.where(L.interior, e, 0.0)
     if L.ca_smooth is not None:
         x, _ = L.ca_smooth(b, x)
@@ -398,14 +477,14 @@ def fmg_start(
     b = _as_tensor(b)
     # restrict the rhs down (ring zeroed: correction-equation data)
     rhs = [b]
-    for L in levels[1:]:
-        rhs.append(torch.where(L.interior, restrict(rhs[-1]), 0.0))
+    for L, Lc in zip(levels, levels[1:]):
+        rhs.append(_down(rhs[-1], L, Lc))
     x = torch.zeros_like(rhs[-1])
     kw = dict(pre=pre, post=post, omega=omega, coarse_iters=coarse_iters, smoother=smoother)
     for lvl in range(len(levels) - 1, -1, -1):
         bl = rhs[lvl] if lvl > 0 else b
         if lvl < len(levels) - 1:
-            x = prolong(x, bl.shape, levels[lvl].mesh)
+            x = _up(x, bl.shape, levels[lvl], levels[lvl + 1])
             # the finest level takes the true boundary values (see
             # multigrid_solve); coarser levels carry zero-ring data
             x = torch.where(levels[lvl].interior, x, bl if lvl == 0 else 0.0)

@@ -122,6 +122,21 @@ def with_solve(module: Module, name: str, **solve) -> Module:
     return verify_and_annotate(b.module)
 
 
+def with_entry(module: Module, name: str) -> Module:
+    """`module` with the function @entry(x) = apply_linear @name(x) added:
+    one application of the opdef through the executor, as the CLI's --run
+    drives it."""
+    b = NeptuneBuilder(module)
+    tt = module.lookup(name).ftype.inputs[0]
+    tensor = TensorType(tt.element, tt.bounds.shape)
+    fn = b.make_function("entry", "func", [tensor], [tensor])
+    b.push_block(fn.body)
+    x = b.load(b.wrap(fn.body.args[0], FieldType(tt.element, tt.bounds)))
+    b.return_([b.apply_linear(name, [x])])
+    b.pop_block()
+    return verify_and_annotate(b.module)
+
+
 def shifted_laplacian(shape, periodic=False, reach=1) -> Module:
     """@shifted: u + 0.1 * (4 u - u[-h,0] - u[h,0] - u[0,-h] - u[0,h]) with
     h = reach, an SPD rank-2 f32 system, on the interior of any rectangle (a
@@ -357,6 +372,113 @@ def graded_chain(shape, lb=(0, 0)) -> Module:
     x = fn.body.args[0]
     lap = b.apply_linear("lap", [b.apply_nonlinear("graded", [x])])
     return _finish_wrapped(b, x, lap, _inner(outer))
+
+
+# ---- the f64 programs of bench.py's native-oracle rows ------------------------
+
+
+def _time_step_entry(b: NeptuneBuilder, n, dt, method, **kw) -> None:
+    """@entry(out, in) = unwrap(store(time_advance(load(in)), out)), the
+    entry of the reference's smoke programs."""
+    shape = n if isinstance(n, tuple) else (n,)
+    bounds = Bounds.of([0] * len(shape), list(shape))
+    ft = FieldType("float64", bounds)
+    entry = b.make_function(
+        "entry", "func", [TensorType("float64", shape)] * 2, [TensorType("float64", shape)]
+    )
+    b.push_block(entry.body)
+    fout = b.wrap(entry.body.args[0], ft)
+    fin = b.wrap(entry.body.args[1], ft)
+    b.store(b.time_advance(b.load(fin), dt, method, **kw), fout)
+    b.return_([b.unwrap(fout)])
+    b.pop_block()
+
+
+def heat_gmres_f64(n: int = 48) -> Module:
+    """bench.py's f64_accuracy_vs_native program: one implicit heat step
+    on an n^2 f64 grid, @heatA64 = I - 0.1 lap on the interior, by GMRES to
+    1e-12."""
+    b = NeptuneBuilder()
+    bounds = Bounds.of([0, 0], [n, n])
+    tt = TempType("float64", bounds)
+    fn = b.make_opdef("heatA64", "linear_opdef", [tt], [tt])
+    b.push_block(fn.body)
+    op, body = b.start_apply([fn.body.args[0]], Bounds.of([1, 1], [n - 1, n - 1]))
+    b.push_block(body)
+    u = body.args[2]
+    c = b.access(u, [0, 0])
+    s = b.access(u, [-1, 0])
+    for o in ([1, 0], [0, -1], [0, 1]):
+        s = b.add(s, b.access(u, o))
+    lap = b.sub(s, b.mul(b.constant(4.0, F64), c))
+    b.yield_(b.sub(c, b.mul(b.constant(0.1, F64), lap)))
+    b.pop_block()
+    b.return_([b.finish_apply(op)])
+    b.pop_block()
+    _time_step_entry(b, (n, n), 0.1, 2, system="heatA64", solver="gmres", tol=1e-12,
+                     max_iters=500)
+    return b.module
+
+
+def black_scholes(n: int = 32) -> Module:
+    """bench.py's f64_bs_vs_native program (the reference's
+    smoke_time_advance_bs.mlir): one implicit Black-Scholes step, A(v) = v -
+    dt (a v_xx + b v_x + c v), by GMRES to 1e-10."""
+    b = NeptuneBuilder()
+    tt = TempType("float64", Bounds.of([0], [n]))
+    fn = b.make_opdef("bs_A", "linear_opdef", [tt], [tt])
+    b.push_block(fn.body)
+    op, body = b.start_apply([fn.body.args[0]], Bounds.of([1], [n - 1]))
+    b.push_block(body)
+    vm1 = b.access(body.args[1], [-1])
+    v0 = b.access(body.args[1], [0])
+    vp1 = b.access(body.args[1], [1])
+    vxx = b.mul(b.constant(100.0, F64), b.add(b.sub(vm1, b.mul(b.constant(2.0, F64), v0)), vp1))
+    vx = b.mul(b.constant(5.0, F64), b.sub(vp1, vm1))
+    L = b.add(
+        b.add(b.mul(b.constant(2.0e-2, F64), vxx), b.mul(b.constant(3.0e-2, F64), vx)),
+        b.mul(b.constant(-5.0e-2, F64), v0),
+    )
+    b.yield_(b.sub(v0, b.mul(b.constant(1e-2, F64), L)))
+    b.pop_block()
+    b.return_([b.finish_apply(op)])
+    b.pop_block()
+    _time_step_entry(b, n, 1e-2, 2, system="bs_A", solver="gmres", tol=1e-10, max_iters=500)
+    return b.module
+
+
+def allen_cahn_jfnk(n: int = 16) -> Module:
+    """bench.py's f64_jfnk_vs_native program (the reference's
+    smoke_time_advance_nonlinear.mlir): one fully implicit Allen-Cahn step
+    by Newton on F(u_next; u_prev), boundary rows u_next - u_prev."""
+    b = NeptuneBuilder()
+    bounds = Bounds.of([0], [n])
+    tt = TempType("float64", bounds)
+    fn = b.make_opdef("ac_residual", "nonlinear_opdef", [tt, tt], [tt])
+    b.push_block(fn.body)
+    op, body = b.start_apply([fn.body.args[0], fn.body.args[1]], bounds)
+    b.push_block(body)
+    i = body.args[0]
+    un, up = body.args[1], body.args[2]
+    is_left = b.cmp("eq", i, b.constant(0, i.type))
+    is_right = b.cmp("eq", i, b.constant(n - 1, i.type))
+    is_boundary = b.logical_or(is_left, is_right)
+    un0 = b.access(un, [0])
+    up0 = b.access(up, [0])
+    f_boundary = b.sub(un0, up0)
+    um1 = b.access(un, [-1])
+    up1 = b.access(un, [1])
+    lap = b.mul(b.constant(100.0, F64), b.add(b.sub(um1, b.mul(b.constant(2.0, F64), un0)), up1))
+    react = b.sub(un0, b.mul(b.mul(un0, un0), un0))
+    rhs = b.add(b.mul(b.constant(1e-2, F64), lap), react)
+    f_interior = b.sub(b.sub(un0, up0), b.mul(b.constant(1e-2, F64), rhs))
+    b.yield_(b.select(is_boundary, f_boundary, f_interior))
+    b.pop_block()
+    b.return_([b.finish_apply(op)])
+    b.pop_block()
+    _time_step_entry(b, n, 1e-2, 1, residual="ac_residual", solver="newton", tol=1e-10,
+                     max_iters=20)
+    return b.module
 
 
 def the_apply(module: Module) -> Operation:

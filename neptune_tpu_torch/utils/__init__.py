@@ -1,1 +1,2 @@
-"""Utilities: option parsing (copied from the JAX package) and tensor algebra."""
+"""Utilities: option parsing (copied from the JAX package), tensor algebra,
+checkpoints, the long-simulation driver and profiling."""

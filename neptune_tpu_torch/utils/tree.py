@@ -67,6 +67,21 @@ def tdot(a, b, group=None) -> torch.Tensor:
     return allreduce(acc, group)
 
 
+def tdot_f64(a, b, group=None) -> torch.Tensor:
+    """`tdot` with the products summed in float64 and the total, over
+    `group` too, rounded once to the leaves' dtype, as kernel B sums its
+    dot products (f64 leaves sum as in `tdot`). A block's partial sum
+    keeps no low-precision rounding of its own, so CG over a mesh takes
+    the whole grid's scalars, but for f64 rounding ties, whatever the
+    mesh."""
+    acc, dtype = None, None
+    for x, y in zip(_leaves(a), _leaves(b)):
+        d = torch.sum(x * y, dtype=torch.float64)
+        acc = d if acc is None else acc + d
+        dtype = x.dtype if dtype is None else torch.promote_types(dtype, x.dtype)
+    return allreduce(acc, group).to(dtype)
+
+
 def tnorm(a, group=None) -> torch.Tensor:
     return torch.sqrt(tdot(a, a, group))
 

@@ -24,7 +24,9 @@ its `sharded_opdef`. Compared:
   * the wide stencil's probed diagonal;
   * `prolong` on blocks, at block corners and the domain edge, against the
     whole-grid `prolong`, bitwise;
-  * Newton-Krylov on F = A u + 0.1 u^3 - b: Newton iterations equal.
+  * Newton-Krylov on F = A u + 0.1 u^3 - b: Newton iterations equal;
+  * CA smoothing above the whole-grid levels of a hierarchy whose (4,1)
+    blocks turn odd (72..9) against the JAX package's whole-grid cycle.
 """
 
 import jax
@@ -112,6 +114,11 @@ def _jax_references() -> dict:
             M = jmg.mg_preconditioner([None], bs, smoother="cheb", levels=ca2)
             x, info = jax.jit(lambda bb: jax_cg(mvs[0], bb, M=M, tol=1e-8, maxiter=200))(bs)
             refs["ca_pcg"] = (np.asarray(x), _info(info))
+    handles = cases.poisson_hierarchy(ntp, cases.MG_ODD_SIZES)
+    b = cases.rhs(ntp.get_context().compiled().module, f"poisson{cases.MG_ODD_SIZES[0]}", 3)
+    x, info = jmg.multigrid_solve(handles, jnp.asarray(b), tol=1e-9, maxiter=60,
+                                  smoother="cheb")
+    refs["ca_odd"] = (np.asarray(x), _info(info))
     return refs
 
 
@@ -230,6 +237,22 @@ def test_wide_stencil_diagonal_probe(ranks):
     np.testing.assert_allclose(d[2:-2, 2:-2], 1.0 / 6.0, atol=1e-12)
     np.testing.assert_allclose(d[:2, :], 1.0, atol=1e-12)
     np.testing.assert_allclose(d[:, -2:], 1.0, atol=1e-12)
+
+
+def test_ca_levels_above_the_whole_grid_levels(ranks):
+    """build_ca_levels on a hierarchy whose (4,1) blocks turn odd at level
+    1: CA smoothing on level 0's blocks, levels 1-3 on the whole grid
+    (per-matvec "cheb"), joined by one gather per V-cycle (and one per
+    residual check's cycle), converging as the JAX package's whole-grid
+    "cheb" multigrid_solve does."""
+    results, infos, refs = ranks
+    info, (ref, rinfo) = infos["ca_odd"], refs["ca_odd"]
+    assert info["eligible"] == [True, False, False, False]
+    assert info["whole"] == [False, True, True, True]
+    assert info["converged"] and rinfo["converged"]
+    assert abs(info["iters"] - rinfo["iters"]) <= 1, (info, rinfo)
+    assert info["gathers"] >= info["iters"]
+    assert _rel(results["ca_odd"], ref) <= 1e-8
 
 
 @pytest.mark.parametrize("mesh", [pytest.param(m, id=_tag(m)) for m in cases.MG_MESHES])

@@ -1139,3 +1139,112 @@ def test_sharded_reverse_rule_on_the_card(cuda):
         grads.append((xg.grad, upg.grad))
     assert all(torch.equal(g, r) for g, r in zip(*grads))
     assert bool(grads[0][0].abs().max() > 0)
+
+
+def _mixed_levels(route, device, whole_from, sizes=(256, 128, 64, 32)):
+    """The rediscretized f32 Poisson hierarchy on a one-process mesh:
+    sharded levels (kernel A's window form) above `whole_from`, whole-grid
+    opdefs (kernel A) from it on."""
+    from neptune_tpu_torch.lowering.executor import _CoarseOp
+    from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
+    from neptune_tpu_torch.solvers import multigrid
+
+    gm = single_device_mesh(device)
+    ops = []
+    for lvl, n in enumerate(sizes):
+        cm = CompiledModule(stencils.poisson5(n), route, device)
+        sharded = lvl < whole_from
+        mv = shardmap_opdef(cm, "poisson", gm, route) if sharded else cm.opdef("poisson")
+        ops.append(_CoarseOp(lambda x, f=mv, s=0.25**lvl: s * f(x), ((1, 1), (1, 1)),
+                             gm if sharded else None))
+    like = torch.zeros(sizes[0], sizes[0], device=device)
+    return gm, multigrid.build_levels(ops, like)
+
+
+@pytest.mark.gpu
+def test_mixed_hierarchy_on_the_card(cuda):
+    """A multigrid hierarchy of sharded levels then whole-grid levels on a
+    one-process mesh: one preconditioner cycle launches kernel A's window
+    form on the sharded levels and kernel A on the whole-grid ones, gathers
+    once, and equals the kernels-off route bitwise."""
+    from neptune_tpu_torch.solvers import multigrid
+
+    r = torch.randn(256, 256, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+    out = {}
+    for route in ("auto", "torch"):
+        gm, levels = _mixed_levels(route, cuda, 2)
+        assert [lv.mesh is None for lv in levels] == [False, False, True, True]
+        M = multigrid.mg_preconditioner(None, r, smoother="cheb", levels=levels)
+        gm.gathers = 0
+        before = (cuda_backend.window_counter.count, cuda_backend.counter.count)
+        out[route] = M(r)
+        launched = (cuda_backend.window_counter.count - before[0],
+                    cuda_backend.counter.count - before[1])
+        assert gm.gathers == 1
+        if route == "auto":
+            assert launched[0] > 0 and launched[1] > 0, launched
+        else:
+            assert launched == (0, 0)
+    assert out["auto"].is_cuda and torch.equal(out["auto"], out["torch"])
+
+
+@pytest.mark.gpu
+def test_driver_round_trip_on_the_card(cuda, tmp_path):
+    """SimulationDriver over the implicit heat step on the card: one kernel-B
+    launch per step, the state stays on the card, and a run stopped after
+    its first checkpoint and resumed is bitwise the uninterrupted one."""
+    from neptune_tpu_torch.utils.driver import SimulationDriver
+
+    cm = entry.build_step(64, "float32", device=cuda)
+    fn = cm.function("step")
+    u0 = torch.from_numpy(entry.gaussian(64)).to(cuda)
+
+    def step(s):
+        return {"u": fn(s["u"])}
+
+    before = fused.counter.count
+    whole, n = SimulationDriver(step, tmp_path / "a.npz", 3).run({"u": u0}, 9)
+    assert n == 9 and fused.counter.count - before == 9
+    assert whole["u"].is_cuda
+    _, stopped = SimulationDriver(step, tmp_path / "b.npz", 3).run(
+        {"u": u0}, 9, walltime_budget_s=1e-9)
+    assert stopped == 3
+    resumed, n = SimulationDriver(step, tmp_path / "b.npz", 3).run({"u": u0}, 9)
+    assert n == 9 and resumed["u"].is_cuda and torch.equal(resumed["u"], whole["u"])
+
+
+@pytest.mark.gpu
+def test_native_runtime_takes_card_tensors(cuda, tmp_path, monkeypatch):
+    """The native runtime copies tensors on the card to host f64 and returns
+    CPU f64 tensors: the 5-pt apply of a card tensor equals kernel A's
+    within f32 rounding."""
+    from neptune_tpu_torch.runtime import compile_native
+
+    monkeypatch.setenv("NEPTUNE_TORCH_CACHE_DIR", str(tmp_path))
+    m32 = stencils.with_entry(stencils.jacobi5((64, 64)), "jacobi")
+    m64 = stencils.with_entry(stencils.jacobi5((64, 64), "float64"), "jacobi")
+    x = torch.randn(64, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    y = compile_native(m64).function("entry")(x)
+    assert y.device.type == "cpu" and y.dtype == torch.float64
+    ref = CompiledModule(m32, "auto", cuda).function("entry")(x)
+    assert float((y - ref.cpu().double()).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_prolong_block_on_the_card(cuda):
+    """On the card each block of the interpolation, taken from the whole
+    coarse grid with its one-cell halo, is bitwise that block of the
+    whole-grid interpolation, odd coarse blocks included: 34^2 on (2,2)
+    (blocks of 17) and 450^2, phase 15a's (2,2) transition (blocks of
+    225)."""
+    from types import SimpleNamespace
+
+    from neptune_tpu_torch.solvers.multigrid import prolong, prolong_block
+
+    for n in (34, 450):
+        e = torch.randn(n, n, device=cuda, generator=torch.Generator(cuda).manual_seed(n))
+        ref = prolong(e, (2 * n, 2 * n))
+        for i in range(2):
+            for j in range(2):
+                got = prolong_block(e, (n, n), SimpleNamespace(shape=(2, 2), coords=(i, j)))
+                assert torch.equal(got, ref[i * n:(i + 1) * n, j * n:(j + 1) * n]), (n, i, j)

@@ -65,6 +65,8 @@ def test_import_loads_no_jax():
         "import neptune_tpu_torch, neptune_tpu_torch.entry, neptune_tpu_torch.interop\n"
         "import neptune_tpu_torch.stencils, neptune_tpu_torch.solvers.fused\n"
         "import neptune_tpu_torch.lowering.cuda_backend, neptune_tpu_torch.kernels.codegen\n"
+        "import neptune_tpu_torch.runtime, neptune_tpu_torch.tools.opt\n"
+        "import neptune_tpu_torch.utils.driver, neptune_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'neptune_tpu.')) or m == 'neptune_tpu')\n"
         "assert not bad, bad\n"
     )

@@ -215,8 +215,10 @@ def test_shardmap_opdef_carries_its_mesh_and_a_jvp_rule():
 
 
 def test_odd_blocks_name_the_level_and_the_mesh():
-    """Above the coarsest level every block extent must be even: the
-    V-cycle restricts block-locally (the JAX package reshards instead)."""
+    """Above the coarsest level every sharded block extent must be even:
+    the V-cycle restricts block-locally. The message names the remedies:
+    precond="mg", which runs such levels on the whole grid, or whole-grid
+    operators from that level on."""
     from neptune_tpu_torch.parallel import shardmap_opdef, single_device_mesh
     from neptune_tpu_torch.solvers.multigrid import build_levels
 
@@ -225,8 +227,115 @@ def test_odd_blocks_name_the_level_and_the_mesh():
         shardmap_opdef(CompiledModule(stencils.poisson5(n, "float64")), "poisson", gm)
         for n in (20, 10, 5)
     ]
-    with pytest.raises(ValueError, match=r"level 2 grid \(5, 5\) on mesh \(1,\)"):
+    with pytest.raises(ValueError, match=r"level 2 grid \(5, 5\) on mesh \(1,\)") as e:
         build_levels(mvs + [None], torch.zeros(20, 20, dtype=torch.float64))
+    assert "precond='mg'" in str(e.value) and "whole-grid operators from level 2" in str(e.value)
+
+
+def _mg_ops(sizes, gm, whole_from):
+    """The rediscretized Poisson hierarchy (f64, eager, level l scaled by
+    4^-l): sharded on `gm` above level `whole_from`, whole-grid opdefs from
+    it on."""
+    from neptune_tpu_torch.lowering.executor import _CoarseOp
+    from neptune_tpu_torch.parallel import shardmap_opdef
+
+    ops = []
+    for lvl, n in enumerate(sizes):
+        cm = CompiledModule(stencils.poisson5(n, "float64"), "torch", "cpu")
+        sharded = lvl < whole_from
+        mv = shardmap_opdef(cm, "poisson", gm, "torch") if sharded else cm.opdef("poisson")
+        ops.append(_CoarseOp(lambda x, f=mv, s=0.25**lvl: s * f(x), ((1, 1), (1, 1)),
+                             gm if sharded else None))
+    return ops
+
+
+@pytest.mark.parametrize("whole_from", [1, 2, 3])
+def test_mixed_hierarchy_equals_the_whole_grid(whole_from):
+    """Sharded levels, then whole-grid ones replicated on every process, on
+    a mesh of one process: one preconditioner cycle and a red-black
+    multigrid_solve bitwise those of the whole-grid hierarchy, with one
+    gather per transition crossed."""
+    from neptune_tpu_torch.parallel import single_device_mesh
+    from neptune_tpu_torch.solvers import multigrid
+
+    sizes, gm = (64, 32, 16, 8), single_device_mesh("cpu")
+    like = torch.zeros(64, 64, dtype=torch.float64)
+    mixed = multigrid.build_levels(_mg_ops(sizes, gm, whole_from), like)
+    whole = multigrid.build_levels(_mg_ops(sizes, gm, 0), like)
+    assert [lv.mesh for lv in mixed] == [gm] * whole_from + [None] * (4 - whole_from)
+    for a, b in zip(mixed, whole):
+        assert torch.equal(a.inv_diag, b.inv_diag) and a.cheb_lmax == b.cheb_lmax
+    r = torch.from_numpy(np.random.default_rng(7).standard_normal((64, 64)))
+    gm.gathers = 0
+    y = multigrid.mg_preconditioner(None, like, levels=mixed)(r)
+    assert gm.gathers == 1
+    assert torch.equal(y, multigrid.mg_preconditioner(None, like, levels=whole)(r))
+    x, info = multigrid.multigrid_solve(None, r, levels=mixed, tol=1e-8)
+    x_ref, info_ref = multigrid.multigrid_solve(None, r, levels=whole, tol=1e-8)
+    assert info.converged and info.iters == info_ref.iters and torch.equal(x, x_ref)
+    x0 = multigrid.fmg_start(mixed, r)
+    assert torch.equal(x0, multigrid.fmg_start(whole, r))
+
+
+def test_sharded_level_below_a_whole_one_raises():
+    from neptune_tpu_torch.parallel import single_device_mesh
+    from neptune_tpu_torch.solvers import multigrid
+
+    gm = single_device_mesh("cpu")
+    ops = _mg_ops((32, 16, 8), gm, 3)
+    ops[1] = _mg_ops((32, 16, 8), gm, 0)[1]
+    with pytest.raises(ValueError, match="level 2 is sharded .* below a whole-grid level"):
+        multigrid.build_levels(ops, torch.zeros(32, 32, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("mesh, coarse", [
+    ((2, 2), (12, 16)), ((4, 1), (12, 16)), ((1, 4), (12, 16)), ((2, 2), (34, 34)),
+])
+def test_prolong_block_is_a_block_of_the_whole_interpolation(mesh, coarse):
+    """Each process's block of the interpolated correction, taken from the
+    replicated coarse grid with its one-cell halo, is that block of the
+    whole-grid interpolation (no exchange: the mesh needs only its shape
+    and coordinates here). On the CPU, whose interpolation kernel orders
+    its passes by the input's size, within a rounding where a coarse block
+    is odd (34^2 on (2,2)); bitwise on the card
+    (test_torch_gpu.py::test_prolong_block_on_the_card)."""
+    from types import SimpleNamespace
+
+    from neptune_tpu_torch.solvers.multigrid import prolong, prolong_block
+
+    e = torch.from_numpy(np.random.default_rng(8).standard_normal(coarse))
+    fine = tuple(2 * n for n in coarse)
+    ref = prolong(e, fine)
+    block = (fine[0] // mesh[0], fine[1] // mesh[1])
+    odd = any((b // 2) % 2 and m > 1 for b, m in zip(block, mesh))
+    for i in range(mesh[0]):
+        for j in range(mesh[1]):
+            gm = SimpleNamespace(shape=mesh, coords=(i, j))
+            got = prolong_block(e, block, gm)
+            want = ref[i * block[0]:(i + 1) * block[0], j * block[1]:(j + 1) * block[1]]
+            if odd:
+                assert float((got - want).abs().max()) <= 4e-16 * float(e.abs().max()), (i, j)
+            else:
+                assert torch.equal(got, want), (i, j)
+
+
+def test_first_whole_level():
+    """The level from which a hierarchy runs on the whole grid: the first
+    whose block is odd above the coarsest (the mesh cases: 36^2 in 3 levels,
+    1800^2 in 4)."""
+    from types import SimpleNamespace
+
+    from neptune_tpu_torch.solvers.multigrid import first_whole_level
+
+    def mesh(shape):
+        return SimpleNamespace(shape=shape)
+
+    assert first_whole_level((36, 36), mesh((2, 2)), 3) == 1
+    assert first_whole_level((36, 36), mesh((4, 1)), 3) == 0
+    assert first_whole_level((1800, 1800), mesh((2, 2)), 4) == 2
+    assert first_whole_level((1800, 1800), mesh((4, 1)), 4) == 1
+    assert first_whole_level((512, 512), mesh((2, 2)), 6) == 6
+    assert first_whole_level((64, 64), mesh((4, 1)), 3) == 3
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,10 @@ through an interpreted implicit-nonlinear `time_advance`; CG with
 equal, read from both packages' KSP lines; the mixed solution's true
 residual under tol); an apply with no field input, an apply whose reach
 exceeds a block (bounded and periodic), and a bounded store between
-different bounds. What the JAX package refuses, the port refuses with the
-same kind of error; odd multigrid blocks, which the JAX package's GSPMD
-reshards, raise naming the ROADMAP item.
+different bounds; CG with `precond="mg"` on a 36^2 grid whose blocks turn
+odd above the coarsest level (from level 1 on (2,2), at level 0 on (4,1)),
+where those levels run on the whole grid, replicated on every process. What
+the JAX package refuses, the port refuses with the same kind of error.
 """
 
 import contextlib
@@ -152,28 +153,21 @@ def test_sharded_function_matches_jax(ranks, name):
         x = results[f"fn/{name}/0"]
         rel = np.linalg.norm(b - A(torch.from_numpy(x)).numpy()) / np.linalg.norm(b)
         assert rel <= cases.SOLVE_PROGRAMS[kind].get("tol", 1e-12), rel
+    if kind == "mg_odd36":
+        # the whole-grid levels were joined by gathers: once per V-cycle on
+        # (2,2), on (4,1) r is gathered at level 0
+        assert info["gathers"] > 0
     if kind in ("far32", "far32_periodic", "stores32"):
         # the reach took two hops on (4,1); the blocks of the stored temp
         # did not line up with the field's
         assert info["gathers"] == (1 if kind == "stores32" else 0)
 
 
-@pytest.mark.parametrize("name", [n for n, c in cases.RAISING.items() if c[4]])
+@pytest.mark.parametrize("name", cases.RAISING)
 def test_refused_as_the_jax_package_refuses(ranks, name):
     _, infos, refs = ranks
-    _, _, error, pattern, _ = cases.RAISING[name]
+    _, _, error, pattern = cases.RAISING[name]
     assert infos[name]["error"] == error == refs[name]
-    assert pattern in infos[name]["message"]
-
-
-@pytest.mark.parametrize("name", [n for n, c in cases.RAISING.items() if not c[4]])
-def test_unsharded_ops_raise_naming_the_roadmap_item(ranks, name):
-    """What the port still refuses where the JAX package runs: every
-    process raises, and the message names the ROADMAP item."""
-    _, infos, refs = ranks
-    _, _, error, pattern, _ = cases.RAISING[name]
-    assert refs[name] is None
-    assert infos[name]["error"] == error
     assert pattern in infos[name]["message"]
 
 

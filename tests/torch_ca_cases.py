@@ -269,9 +269,11 @@ SOLVE_PROGRAMS = {
     "mixed32": dict(solver="cg", tol=1e-13, max_iters=200, precision="mixed", verbose=True),
     "mixed_ssor36": dict(n=36, solver="cg", tol=1e-13, max_iters=200, precision="mixed",
                          precond="ssor", verbose=True),
-    # three levels of a 36^2 grid: level 1 is 18^2, in blocks of 9 on (2,2)
+    # three levels of a 36^2 grid: level 1 is 18^2, in blocks of 9 on (2,2),
+    # so levels 1-2 run on the whole grid; on (4,1) level 0's blocks are 9
+    # rows already, so the whole cycle does
     "mg_odd36": dict(n=36, solver="cg", tol=1e-10, max_iters=50, precond="mg",
-                     options={"mg_levels": 3}),
+                     options={"mg_levels": 3}, verbose=True),
 }
 
 
@@ -385,19 +387,17 @@ FUNCTIONS = {
     "far_periodic_41": ("far32_periodic", (4, 1)),
     "stores_22": ("stores32", (2, 2)),
     "stores_14": ("stores32", (1, 4)),
+    "mg_odd_22": ("mg_odd36", (2, 2)),
+    "mg_odd_41": ("mg_odd36", (4, 1)),
 }
 
-# programs that raise on the mesh: name -> (program, mesh, the exception's
-# type, a pattern of its message, whether the JAX package's GSPMD
-# sharded_function raises too). A 30^2 grid does not split over 4 rows and
-# an apply cannot read inputs of another shape: both packages raise. Odd
-# blocks above the coarsest multigrid level: the port raises, naming the
-# ROADMAP item, where the JAX package's GSPMD reshards the level.
+# programs that raise on the mesh, as the JAX package's GSPMD
+# sharded_function does: name -> (program, mesh, the exception's type, a
+# pattern of its message). A 30^2 grid does not split over 4 rows and an
+# apply cannot read inputs of another shape.
 RAISING = {
-    "reshape_22": ("reshape36", (2, 2), "ValueError", "differ from the result", True),
-    "far30_41": ("far30", (4, 1), "ValueError", "not divisible", True),
-    "mg_odd_22": ("mg_odd36", (2, 2), "ValueError", "queue 1, item 9", False),
-    "mg_odd_41": ("mg_odd36", (4, 1), "ValueError", "queue 1, item 9", False),
+    "reshape_22": ("reshape36", (2, 2), "ValueError", "differ from the result"),
+    "far30_41": ("far30", (4, 1), "ValueError", "not divisible"),
 }
 
 
@@ -433,6 +433,11 @@ def wide5(n=64):
     terms = [((-2, 0), 1.0), ((2, 0), 1.0), ((0, -2), 1.0), ((0, 2), 1.0)]
     return stencil_op("wide5", (n, n), 6.0, terms, ring=2)
 
+
+# a hierarchy whose blocks on (4,1) turn odd above the coarsest level (18,
+# then 9 rows): build_ca_levels smooths level 0 on blocks and runs levels
+# 1-3 on the whole grid, replicated on every process
+MG_ODD_SIZES = (72, 36, 18, 9)
 
 # the meshes each solve runs on: every solve costs seconds of gloo round
 # trips (~1 ms per ring shift or reduction among four CPU processes), so

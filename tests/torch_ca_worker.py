@@ -292,6 +292,21 @@ def run_mg(meshes, results, infos):
                          dtype=torch.float64), k=2)
     results["wide5_inv_diag"] = gm.gather(lw[0].inv_diag).numpy()
 
+    # CA smoothing above the whole-grid levels of an odd hierarchy on (4,1)
+    gm = meshes[(4, 1)]
+    cases.poisson_hierarchy(ntt, cases.MG_ODD_SIZES)
+    cm = ntt.get_context().compiled()
+    names = [f"poisson{n}" for n in cases.MG_ODD_SIZES]
+    bs = gm.shard(cases.rhs(cm.module, names[0], 3))
+    lv = build_ca_levels(cm, names, gm, torch.zeros_like(bs), k=2)
+    gm.gathers = 0
+    x, info = multigrid.multigrid_solve([None] * 4, bs, tol=1e-9, maxiter=60, levels=lv,
+                                        smoother="cheb")
+    results["ca_odd"] = gm.gather(x).numpy()
+    infos["ca_odd"] = dict(_info(info), gathers=gm.gathers,
+                           eligible=[lvl.ca_smooth is not None for lvl in lv],
+                           whole=[lvl.mesh is None for lvl in lv])
+
 
 def run_grad(meshes, results, infos):
     """Reverse mode over a mesh: every case of `cases.GRADS` on every mesh of
