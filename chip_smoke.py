@@ -113,15 +113,32 @@ line, the card's nvidia-smi line, and the result line):
      span in the trace), and neptune-opt-torch --run (the in-process
      checksum) and --plan 2x2 (kernel A named), each in a process of its
      own (chip_smoke.py --phase15-trace DIR runs the first).
+ 16. pinned arithmetic (config.pinned_arithmetic) on the card: (a)
+     tests/test_scale_stability.py's 256^2 f64 Poisson CG to 1e-8 over
+     sharded_opdef with the mesh's layout, on the whole grid, a mesh of one
+     process, and (2,2) and (4,1) in phase 9's four processes: equal
+     iterations and bitwise-equal x everywhere, the default-arithmetic
+     solves and their max |diff| beside them; (b) its f32 adv4 operator at
+     4096^2, 50 applies, bitwise on the same meshes and on the kernel route
+     against the kernels-off route, kernel A's forms counted; (c) the cost:
+     1024^2 f32 Poisson CG, 300 iterations, ms per iteration default
+     against pinned, CUDA kernels per dot product, and 16a's gathers and ms
+     per iteration on (2,2);
+ 17. random programs (tests/torch_fuzz_programs.py) through kernels A, C
+     and D at working sizes, half in pinned arithmetic, each built in
+     parallel and held bitwise against eager PyTorch (within 2 ulps where
+     its body has tanh), with the number of programs and nvcc seconds.
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
 (bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
 over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
 PyTorch call that computes the same function where there is one. Kernel
-A's launches are phase 4's, phase 11's and phase 15's (15a rank 0's
-replicated levels, 15c); its window form's phase 8's, 12a's, 13a's, 14's
-and 15a rank 0's; kernel B's phase 4's and 15b's.
+A's launches are phase 4's, phase 11's, phase 15's (15a rank 0's
+replicated levels, 15c) and phase 16's (16b, 16c); its window form's phase
+8's, 12a's, 13a's, 14's, 15a rank 0's and 16b's (one process and rank 0);
+kernel B's phase 4's and 15b's. Phase 17's launches compare kernels with
+their plain versions and are not counted.
 """
 
 from __future__ import annotations
@@ -716,6 +733,7 @@ def phase9_rank(argv) -> int:
     report["phase13"] = phase13_rank(rank, dev)
     report["phase14"] = phase14_rank(rank, dev)
     report["phase15"] = phase15_rank(rank, dev)
+    report["phase16"] = phase16_rank(rank, dev)
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
@@ -2936,11 +2954,497 @@ def phase15(dev, reports, heat_cm, step_ms: float) -> dict:
     return launches
 
 
+# ---- phase 16: pinned arithmetic on the card --------------------------------
+# (a) tests/test_scale_stability.py's system, 256^2 f64 5-pt Poisson, CG to
+# 1e-8 over sharded_opdef with the mesh's layout (GridMesh.mesh_group), in
+# pinned arithmetic: on the whole grid in one process, on a mesh of one
+# process, and on (2,2) and (4,1) in phase 9's four processes; the same
+# solves in default arithmetic beside them. (b) its f32 adv4 operator at
+# 4096^2, 50 applies, on the same meshes, and on the kernel route against
+# the kernels-off route. (c) the cost: 1024^2 f32 Poisson CG, 300 iterations
+# (tol 0), default against pinned, in one process.
+P16_N, P16_TOL, P16_MAXIT = 256, 1e-8, 3000
+P16_MESHES = ((2, 2), (4, 1))
+P16_ADV_N, P16_STEPS = 4096, 50
+P16_COST_N, P16_COST_ITERS = 1024, 300
+
+
+def p16_rhs(n: int):
+    """test_scale_stability._rhs: standard normal, zero on the ring."""
+    b = np.random.default_rng(7).standard_normal((n, n))
+    b[0, :] = b[-1, :] = b[:, 0] = b[:, -1] = 0.0
+    return b
+
+
+def digest(t) -> str:
+    """A short hash of a tensor's bytes: equal digests, equal bits."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+class Arithmetic:
+    """`config.pinned_arithmetic` set to `pinned` while in a `with` block."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+
+    def __enter__(self):
+        from neptune_tpu_torch.config import config
+
+        self.config, self.old = config, config.pinned_arithmetic
+        config.pinned_arithmetic = self.pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.config.pinned_arithmetic = self.old
+
+
+def p16_cg(dev, gm, pinned: bool) -> tuple:
+    """(16a's x, gathered whole, and its row) on mesh gm (None: the whole
+    grid in this process) in pinned or default arithmetic."""
+    import torch
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import sharded_opdef
+    from neptune_tpu_torch.solvers import krylov
+
+    cm = CompiledModule(stencils.poisson5(P16_N, "float64"), "auto", dev)
+    b = torch.from_numpy(p16_rhs(P16_N)).to(dev)
+    with Arithmetic(pinned):
+        if gm is None:
+            (x, info), ms = timed(lambda: krylov.cg(cm.opdef("poisson"), b, tol=P16_TOL,
+                                                    maxiter=P16_MAXIT))
+            gathers = 0
+        else:
+            mv, bl = sharded_opdef(cm, "poisson", gm), gm.shard(b)
+            gm.gathers = 0
+            (x, info), ms = timed(lambda: krylov.cg(mv, bl, tol=P16_TOL, maxiter=P16_MAXIT,
+                                                    group=gm.mesh_group(2)))
+            gathers = gm.gathers
+            x = gm.gather(x)
+    return x, {"iters": info.iters, "converged": info.converged, "ms": ms, "gathers": gathers,
+               "digest": digest(x), "device": str(x.device)}
+
+
+def p16_adv(dev, gm, route: str = "auto") -> tuple:
+    """(16b's result after P16_STEPS pinned applies, and its row with kernel
+    A's launches by form) on mesh gm (None: the whole grid). On a mesh the
+    result is this process's block, its digest the block's."""
+    import torch
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import sharded_opdef
+
+    n = P16_ADV_N
+    cm = CompiledModule(stencils.advection4((n, n)), route, dev)
+    u = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    with Arithmetic(True):
+        f = cm.opdef("adv4") if gm is None else sharded_opdef(cm, "adv4", gm)
+        if gm is not None:
+            u = gm.shard(u)
+        f(u)  # warm-up: builds or loads the kernel
+        before = (cuda_backend.counter.count, cuda_backend.window_counter.count)
+
+        def run(v=u):
+            for _ in range(P16_STEPS):
+                v = f(v)
+            return v
+
+        u, ms = timed(run)
+        launches = {"stencil_apply": cuda_backend.counter.count - before[0],
+                    "stencil_apply_window": cuda_backend.window_counter.count - before[1]}
+    return u, {"digest": digest(u), "ms": ms, "launches": launches, "device": str(u.device)}
+
+
+def phase16_rank(rank: int, dev) -> dict:
+    """Phase 16 (a) and (b) on one of phase 9's four processes, on each mesh
+    of P16_MESHES; rank 0 also solves on the whole grid in default
+    arithmetic, for the default solutions' difference across meshes."""
+    import torch
+    import torch.distributed as dist
+    from neptune_tpu_torch.parallel import GridMesh
+
+    out = {"meshes": []}
+    xd_whole = p16_cg(dev, None, False)[0] if rank == 0 else None
+    # the adv4 result on the whole grid, whose block each mesh's must equal
+    u_whole, adv_whole = p16_adv(dev, None)
+    for mesh in P16_MESHES:
+        gm = GridMesh(mesh, ("x", "y"), device=dev)
+        walls = {}
+        dist.barrier()
+        t0 = time.perf_counter()
+        _, pinned = p16_cg(dev, gm, True)
+        walls["pinned"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        x_def, default = p16_cg(dev, gm, False)
+        walls["default"] = time.perf_counter() - t0
+        if rank == 0:
+            default["diff_whole"] = float((x_def - xd_whole).abs().max())
+        dist.barrier()
+        t0 = time.perf_counter()
+        u, adv = p16_adv(dev, gm)
+        adv["whole_digest"] = adv_whole["digest"]
+        adv["bitwise"] = bool(torch.equal(u, u_whole[gm.block_slices(tuple(u_whole.shape))]))
+        walls["adv4"] = time.perf_counter() - t0
+        out["meshes"].append({"mesh": list(mesh), "pinned": pinned, "default": default,
+                              "adv4": adv, "walls": walls})
+        dist.barrier()
+    return out
+
+
+def phase16_dots(argv) -> int:
+    """chip_smoke.py --phase16-dots: print `pinned_dot_launches` as JSON.
+    Phase 16c runs it in a process of its own: late in a long process
+    torch.profiler can miss launches (PERF.md, open questions)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    print(json.dumps(pinned_dot_launches(torch.device("cuda"))))
+    return 0
+
+
+def pinned_dot_launches(dev) -> dict:
+    """CUDA kernels one 1024^2 f32 `tdot` launches, default and pinned, from
+    a torch.profiler trace (None where the trace holds no device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neptune_tpu_torch.utils import tree
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(P16_COST_N, P16_COST_N, device=dev, generator=g)
+    b = torch.randn(P16_COST_N, P16_COST_N, device=dev, generator=g)
+    out = {}
+    for pinned in (False, True):
+        with Arithmetic(pinned):
+            tree.tdot_f64(a, b)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tree.tdot_f64(a, b)
+                torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["pinned" if pinned else "default"] = n or None
+    return out
+
+
+def phase16(dev, reports) -> dict:
+    """Phase 16: (a) and (b) in this process and from phase 9's four
+    (`phase16_rank`), (c) in this process. Returns kernel A's launches by
+    form on the main path's runs (this process and rank 0)."""
+    import torch
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import GridMesh
+    from neptune_tpu_torch.solvers import krylov
+
+    t16 = time.perf_counter()
+    launches = {"stencil_apply": 0, "stencil_apply_window": 0}
+    rows = [r["phase16"] for r in reports]
+    one = GridMesh((1, 1), ("x", "y"), device=dev)
+
+    # ---- (a): CG, pinned and default, on every mesh
+    x_whole, whole = p16_cg(dev, None, True)
+    x_one, on_one = p16_cg(dev, one, True)
+    xd_whole, whole_d = p16_cg(dev, None, False)
+    xd_one, one_d = p16_cg(dev, one, False)
+    runs = {"whole grid": whole, "(1,1)": on_one}
+    for i, mesh in enumerate(P16_MESHES):
+        for r, row in enumerate(rows):
+            m = row["meshes"][i]
+            runs[f"{tuple(mesh)} rank {r}"] = m["pinned"]
+    for label, run in runs.items():
+        require(run["converged"] and run["iters"] == whole["iters"]
+                and run["digest"] == whole["digest"] and run["device"].startswith("cuda"),
+                f"16a {label}: {run['iters']} iterations, x {run['digest']} against the whole "
+                f"grid's {whole['iters']}, {whole['digest']}")
+    d_diff = max([float((xd_whole - xd_one).abs().max())]
+                 + [m["default"]["diff_whole"] for m in rows[0]["meshes"]])
+    d_iters = [whole_d["iters"], one_d["iters"]] + [
+        rows[0]["meshes"][i]["default"]["iters"] for i in range(len(P16_MESHES))]
+    m22 = rows[0]["meshes"][0]
+    p22, d22 = m22["pinned"], m22["default"]
+    say(f"phase 16a pinned CG 256^2 f64 Poisson, tol {P16_TOL}: {whole['iters']} iterations and "
+        f"x bitwise equal (sha256 {whole['digest']}) on the whole grid, on a mesh of one "
+        f"process and on {', '.join(map(str, P16_MESHES))} on every rank; default arithmetic "
+        f"beside it: iterations {d_iters} (whole, (1,1), then the meshes), max |x diff| against "
+        f"the whole grid {d_diff!r}; whole grid {whole['ms']:.1f} ms pinned, "
+        f"{whole_d['ms']:.1f} ms default ({whole['ms'] / whole['iters']:.3f} and "
+        f"{whole_d['ms'] / whole_d['iters']:.3f} ms per iteration); (2,2) rank 0 "
+        f"{p22['ms'] / p22['iters']:.2f} ms per iteration pinned with "
+        f"{p22['gathers'] / p22['iters']:.2f} gathers per iteration, "
+        f"{d22['ms'] / d22['iters']:.2f} ms default; rank 0's wall per mesh (s) "
+        + ", ".join(f"{tuple(m['mesh'])}: {json.dumps({k: round(v, 1) for k, v in m['walls'].items()})}"
+                    for m in rows[0]["meshes"]))
+
+    # ---- (b): 50 pinned applies of adv4 at 4096^2
+    u_whole, adv_whole = p16_adv(dev, None)
+    u_off, adv_off = p16_adv(dev, None, "torch")
+    u_one, adv_one = p16_adv(dev, one)
+    require(torch.equal(u_whole, u_off) and adv_off["launches"] == {
+        "stencil_apply": 0, "stencil_apply_window": 0},
+        f"16b: kernel route != kernels-off route, or the kernels-off route launched {adv_off}")
+    require(adv_whole["launches"]["stencil_apply"] == P16_STEPS
+            and adv_one["launches"]["stencil_apply_window"] == P16_STEPS
+            and adv_one["digest"] == adv_whole["digest"],
+            f"16b: whole grid {adv_whole}, mesh of one {adv_one}")
+    launches["stencil_apply"] += P16_STEPS
+    launches["stencil_apply_window"] += P16_STEPS
+    for i, mesh in enumerate(P16_MESHES):
+        for r, row in enumerate(rows):
+            a = row["meshes"][i]["adv4"]
+            require(a["bitwise"] and a["whole_digest"] == adv_whole["digest"]
+                    and a["launches"]["stencil_apply_window"] > 0,
+                    f"16b {mesh} rank {r}: {a}, the whole grid here {adv_whole['digest']}")
+        launches["stencil_apply_window"] += rows[0]["meshes"][i]["adv4"]["launches"][
+            "stencil_apply_window"]
+    say(f"phase 16b pinned adv4 {P16_ADV_N}^2 f32, {P16_STEPS} applies: bitwise equal (sha256 "
+        f"{adv_whole['digest']}) on the kernel route, the kernels-off route, a mesh of one "
+        f"process and {', '.join(map(str, P16_MESHES))} (every rank's block against the whole "
+        f"grid's, which every rank computed to this digest too); kernel A "
+        f"{adv_whole['launches']['stencil_apply']} launches on the whole grid, its window form "
+        f"{adv_one['launches']['stencil_apply_window']} on the mesh of one and per rank "
+        + ", ".join(f"{tuple(m)}: {[r['meshes'][i]['adv4']['launches']['stencil_apply_window'] for r in rows]}"
+                    for i, m in enumerate(P16_MESHES))
+        + f"; {adv_whole['ms'] / P16_STEPS:.4f} ms per apply on the kernel route, "
+        f"{adv_off['ms'] / P16_STEPS:.4f} kernels off, (2,2) rank 0 "
+        f"{rows[0]['meshes'][0]['adv4']['ms'] / P16_STEPS:.3f}")
+
+    # ---- (c): the cost of pinned CG in one process
+    n = P16_COST_N
+    cm = CompiledModule(stencils.poisson5(n), "auto", dev)
+    mv = cm.opdef("poisson")
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+
+    def solve(pinned):
+        with Arithmetic(pinned):
+            return krylov.cg(mv, b, tol=0.0, maxiter=P16_COST_ITERS)
+
+    ms = {False: [], True: []}
+    for pinned in (False, True):
+        solve(pinned)  # warm-up: builds or loads the kernels of the mode
+    for pinned in (False, True, True, False):
+        before = cuda_backend.counter.count
+        (x, info), t = timed(lambda: solve(pinned))
+        require(info.iters == P16_COST_ITERS
+                and cuda_backend.counter.count - before == P16_COST_ITERS + 1,
+                f"16c: {info.iters} iterations, {cuda_backend.counter.count - before} kernel-A "
+                "launches")
+        launches["stencil_apply"] += P16_COST_ITERS + 1
+        ms[pinned].append(t / P16_COST_ITERS)
+    counted = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase16-dots"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+    require(counted.returncode == 0, f"16c dot-product process exited {counted.returncode}:\n"
+            f"{counted.stderr[-3000:]}")
+    dots = json.loads(counted.stdout.strip().splitlines()[-1])
+    rounds = (n * n - 1).bit_length()
+    say(f"phase 16c cost: {n}^2 f32 Poisson CG, {P16_COST_ITERS} iterations, one process: "
+        f"{np.mean(ms[False]):.4f} ms per iteration default ({ms[False]}), "
+        f"{np.mean(ms[True]):.4f} pinned ({ms[True]}), x{np.mean(ms[True]) / np.mean(ms[False]):.2f}; "
+        f"CUDA kernels per dot product (torch.profiler, a process of its own) default "
+        f"{dots['default']}, pinned {dots['pinned']} ({rounds} pairwise rounds); 16a on (2,2): "
+        f"{p22['gathers'] / p22['iters']:.2f} gathers and {p22['ms'] / p22['iters']:.2f} ms per "
+        f"iteration pinned, {d22['ms'] / d22['iters']:.2f} ms default")
+    say(f"phase 16 launches {json.dumps(launches)}; phase wall {time.perf_counter() - t16:.1f} s")
+    return launches
+
+
+# ---- phase 17: random programs through kernels A, C and D ------------------
+# tests/torch_fuzz_programs.py's generators at working sizes, each program
+# from its own seed: kernel A (rank 2 at 1024^2 to 4096^2 and rank 3 at
+# 128^3; bounded and periodic; dim-0 reach 0-2; one or two inputs; whole
+# grid and window form), kernel C (bounded bodies, 2-9 sweeps, whole grid
+# and local form; and test_fuzz.py's two-level programs), kernel D
+# (two-stage chains, whole grid and origin form); every other program in
+# pinned arithmetic. Each is held bitwise against eager PyTorch on the card,
+# or within P17_TANH_ULPS where its body has tanh.
+P17_SEED = 17000
+P17_COUNTS = {"A": 16, "C": 10, "C2": 4, "D": 10}
+P17_TANH_ULPS = 2
+
+
+def p17_programs() -> list:
+    """Phase 17's programs: dicts of the seed, the kernel, the module, the
+    opdef, the sweeps, the block's global start (None: the whole grid), the
+    arithmetic and whether the body has tanh."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_fuzz_programs as fp
+    from neptune_tpu_torch import ir
+
+    progs = []
+
+    def shape_of(rng, rank):
+        if rank == 3:
+            return (128, 128, 128)
+        return tuple(int(rng.choice([1024, 2048, 4096])) for _ in range(2))
+
+    def start_of(shape, on):
+        return tuple(n // 4 for n in shape) if on else None
+
+    for i in range(P17_COUNTS["A"]):
+        seed = P17_SEED + i
+        rng = np.random.default_rng(seed)
+        shape = shape_of(rng, 3 if i % 4 == 3 else 2)
+        window, tanh = i % 4 == 2, i % 5 == 4
+        m = fp.kernel_opdef(ir, rng, shape, periodic=i % 4 == 1, h0=i % 3,
+                            n_in=1 + (i // 2) % 2, tanh=tanh)
+        progs.append(dict(seed=seed, kernel="A", module=m, name="kf", k=None,
+                          start=start_of(shape, window), pinned=i % 2 == 1, tanh=tanh))
+    for i in range(P17_COUNTS["C"]):
+        seed = P17_SEED + 100 + i
+        rng = np.random.default_rng(seed)
+        shape = shape_of(rng, 3 if i % 5 == 3 else 2)
+        local, tanh = i % 4 == 2, i % 3 == 0
+        m = fp.kernel_opdef(ir, rng, shape, periodic=i % 4 == 1, h0=1 + i % 2, tanh=tanh,
+                            bounded=True)
+        progs.append(dict(seed=seed, kernel="C", module=m, name="kf",
+                          k=int(rng.integers(2, 10)), start=start_of(shape, local),
+                          pinned=i % 2 == 1, tanh=tanh))
+    for i in range(P17_COUNTS["C2"]):
+        seed = 5000 + i  # test_fuzz.py's two-level programs
+        m, shape, k, _, _ = fp.two_level_opdef(ir, np.random.default_rng(seed))
+        progs.append(dict(seed=seed, kernel="C", module=m, name="tl", k=k, start=None,
+                          pinned=i % 2 == 1, tanh=True))
+    for i in range(P17_COUNTS["D"]):
+        seed = P17_SEED + 200 + i
+        rng = np.random.default_rng(seed)
+        shape = (128, 128, 128) if i % 5 == 3 else (2048, 2048)
+        origin, tanh = i % 4 == 2, i % 3 == 0
+        m = fp.chain_opdef(ir, rng, shape, n_in=1 + i % 2, tanh=tanh)
+        progs.append(dict(seed=seed, kernel="D", module=m, name="kd", k=None,
+                          start=start_of(shape, origin), pinned=i % 2 == 1, tanh=tanh))
+    return progs
+
+
+def p17_plan(prog):
+    """(the program's plan or apply op, the block shape it runs on, its
+    kernel's generated source)."""
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.kernels import codegen
+    from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps
+
+    module, name, start = prog["module"], prog["name"], prog["start"]
+    shape = tuple(module.lookup(name).ftype.inputs[0].bounds.shape)
+    block = shape if start is None else tuple(n // 2 for n in shape)
+    if prog["kernel"] == "A":
+        op = stencils.the_apply(module)
+        return op, block, cuda_backend.source(op)
+    if prog["kernel"] == "C":
+        k = prog["k"]
+        if start is None:
+            plan = sweeps.sweep_plan(module, name, k) or sweeps.sweep_plan(module, name, k, depth=2)
+        else:
+            plan = sweeps.local_sweep_plan(stencils.the_apply(module), block, k)
+        require(plan is not None, f"17 seed {prog['seed']}: kernel C takes no plan")
+        return plan, block, sweeps.source(plan)
+    plan = chain.chain_plan(module, name, None if start is None else block)
+    require(plan is not None, f"17 seed {prog['seed']}: kernel D takes no plan")
+    return plan, block, codegen.chain_source(plan)
+
+
+def ulps(a, b) -> int:
+    """Largest distance in f32 steps between a and b (NaN where both are)."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return 1 << 31
+    return int((ordered(a[~nan]) - ordered(b[~nan])).abs().max()) if (~nan).any() else 0
+
+
+def p17_run(prog, plan, block, dev) -> tuple:
+    """(kernel result, eager result, kernel launches) of one program."""
+    import torch
+    from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps, torch_backend
+
+    g = torch.Generator(device=dev).manual_seed(prog["seed"])
+    start = prog["start"]
+    if prog["kernel"] == "A":
+        op = plan
+        xs = [torch.randn(block, device=dev, generator=g) for _ in range(op.attrs["num_inputs"])]
+        counter = cuda_backend.counter if start is None else cuda_backend.window_counter
+        before = counter.count
+        if start is None:
+            got = cuda_backend.try_execute_apply(op, xs)
+            ref = torch_backend.execute_apply(op, xs)
+        else:
+            got = cuda_backend.apply_window(op, xs, [], start)
+            ref = torch_backend.execute_apply_window(op, xs, [], start)
+        return got, ref, counter.count - before
+    if prog["kernel"] == "C":
+        x = torch.randn(block, device=dev, generator=g)
+        counter = sweeps.counter if start is None else sweeps.local_counter
+        before = counter.count
+        got = sweeps.run_sweeps(plan, x, [], start)
+        return got, sweeps.sweeps_plain(plan, x, [], start), counter.count - before
+    fields = [torch.randn(block, device=dev, generator=g) for _ in range(plan.n_fields)]
+    counter = chain.counter if start is None else chain.origin_counter
+    before = counter.count
+    got = chain.run_chain(plan, fields, [], start)
+    return got, chain.chain_plain(plan, fields, [], start), counter.count - before
+
+
+def phase17(dev) -> None:
+    """Phase 17: every program of `p17_programs`, its kernel built in
+    parallel and held against eager PyTorch on the card."""
+    import torch
+    from neptune_tpu_torch.kernels.build import builder
+
+    t17 = time.perf_counter()
+    progs = p17_programs()
+    plans = []
+    for prog in progs:
+        with Arithmetic(prog["pinned"]):
+            plans.append(p17_plan(prog))
+    built_before = set(builder.build_seconds)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        jobs = [pool.submit(builder.load, src, f"fuzz_{p['kernel']}")
+                for p, (_, _, src) in zip(progs, plans)]
+        for j in jobs:
+            j.result()
+    nvcc = {k: v for k, v in builder.build_seconds.items() if k not in built_before}
+    build_wall = time.perf_counter() - t0
+    failed, tanh_ulps, by_kernel = [], {}, {}
+    for prog, (plan, block, _) in zip(progs, plans):
+        with Arithmetic(prog["pinned"]):
+            got, ref, launched = p17_run(prog, plan, block, dev)
+        torch.cuda.synchronize()
+        d = ulps(got, ref)
+        ok = launched == 1 and got.is_cuda and (
+            d <= P17_TANH_ULPS if prog["tanh"] else d == 0)
+        if prog["tanh"] and d:
+            tanh_ulps[prog["seed"]] = d
+        if not ok:
+            failed.append((prog["seed"], prog["kernel"], launched, d))
+        by_kernel[prog["kernel"]] = by_kernel.get(prog["kernel"], 0) + 1
+        del got, ref
+    require(not failed, f"17: programs that failed (seed, kernel, launches, ulps): {failed}")
+    say(f"phase 17 random programs: {len(progs)} ({json.dumps(by_kernel)}; "
+        f"{sum(p['pinned'] for p in progs)} in pinned arithmetic, {sum(p['tanh'] for p in progs)} "
+        f"with tanh), each bitwise equal to eager PyTorch on the card"
+        f"{'' if not tanh_ulps else f' but tanh programs within {P17_TANH_ULPS} ulps'}; "
+        f"ulp differences found {json.dumps(tanh_ulps) if tanh_ulps else 'none'}; "
+        f"{len(nvcc)} libraries, {sum(nvcc.values()):.1f} nvcc seconds, {build_wall:.1f} s "
+        f"wall; phase wall {time.perf_counter() - t17:.1f} s")
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--phase15-trace":
         return phase15_trace(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase16-dots":
+        return phase16_dots(sys.argv[2:])
     t_start = time.perf_counter()
     try:
         import torch
@@ -2953,9 +3457,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the native runtime's cache beside the kernels' builds, in the checkout
-    os.environ.setdefault("NEPTUNE_TORCH_CACHE_DIR",
-                          str(ROOT / "neptune_tpu_torch" / "_build" / "native"))
+    # one cache directory in the checkout (config.cache_dir): the kernels
+    # build into its kernels/, the native runtime into it; the child
+    # processes inherit it
+    os.environ.setdefault("NEPTUNE_TORCH_CACHE_DIR", str(ROOT / "neptune_tpu_torch" / "_build"))
 
     import neptune_tpu_torch as ntt
     from neptune_tpu_torch import entry, stencils
@@ -3018,6 +3523,12 @@ def main() -> int:
     sources += phase10_sources(ntt)
     sources += phase11_sources(ntt)
     sources.append(cuda_backend.source(stencils.the_apply(ca_system()[0])))
+    # phase 16: 1024^2 Poisson in both arithmetics, adv4 4096^2 pinned
+    p16_ops = [stencils.the_apply(stencils.poisson5(P16_COST_N)),
+               stencils.the_apply(stencils.advection4((P16_ADV_N, P16_ADV_N)))]
+    sources.append(cuda_backend.source(p16_ops[0]))
+    with Arithmetic(True):
+        sources += [cuda_backend.source(op) for op in p16_ops]
     cg_sources = [codegen.fused_cg_source(fused.cg_plan(m, n)) for _, m, n, *_ in B_CASES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -3401,7 +3912,7 @@ def main() -> int:
 
     # ---- phase 9: four processes on the one card --------------------------
     t9 = time.perf_counter()
-    reports = phase9("cuda:0", 4096, 256, timeout=480)["reports"]
+    reports = phase9("cuda:0", 4096, 256, timeout=600)["reports"]
     for i, (label, _, _, mesh, k, form) in enumerate(PHASE9):
         rows = [r["rows"][i] for r in reports]
         require(all(row["device"].startswith("cuda") for row in rows),
@@ -3450,6 +3961,12 @@ def main() -> int:
     # ---- phase 15: odd blocks, the driver, the native oracle, profiling, CLI -
     p15 = phase15(dev, reports, heat_cm, step_ms)
 
+    # ---- phase 16: pinned arithmetic on the card -----------------------------
+    p16 = phase16(dev, reports)
+
+    # ---- phase 17: random programs through kernels A, C and D --------------
+    phase17(dev)
+
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if also:
@@ -3463,7 +3980,8 @@ def main() -> int:
     kernels = [
         entry_of("stencil_apply", "neptune_tpu_torch/csrc/nt_apply.cuh",
                  "neptune_tpu/lowering/pallas_backend.py:332",
-                 launches["stencil_apply"] + mg_launches + p15["stencil_apply"], a_err,
+                 launches["stencil_apply"] + mg_launches + p15["stencil_apply"]
+                 + p16["stencil_apply"], a_err,
                  a_ms, a_plain_ms, a_bound, a_lib, "jacobi5 4096^2 f32",
                  ["neptune_tpu/lowering/pallas_backend.py:845",
                   "neptune_tpu/lowering/pallas_backend.py:1094"]),
@@ -3493,7 +4011,8 @@ def main() -> int:
          "neptune_tpu/lowering/pallas_chain.py:516 (global_start)", None),
     ):
         k_ms, p_ms, bnd, lib, shape, err = forms[name]
-        n = sh_launches[name] + (ca_launches + p15[name] if name == "stencil_apply_window" else 0)
+        n = sh_launches[name] + (
+            ca_launches + p15[name] + p16[name] if name == "stencil_apply_window" else 0)
         kernels.append(entry_of(name, source, replaces, n, err, k_ms, p_ms, bnd, lib, shape, also))
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s, builds included")
     say(json.dumps({"kernels": kernels}))

@@ -11,6 +11,12 @@ Environment variables:
                             (default "float64")
   NEPTUNE_TORCH_DEVICE      where inputs that are not tensors go
                             (default "cuda"; "cpu" to run on the CPU)
+  NEPTUNE_TORCH_PINNED      "1" for pinned arithmetic (bitwise the same
+                            solve on every mesh shape; default off)
+  NEPTUNE_TORCH_CACHE_DIR   one directory for both build caches: the CUDA
+                            kernels under its `kernels/`, the native runtime
+                            in it (default: `neptune_tpu_torch/_build/` and
+                            `~/.neptune_tpu_torch/cache`)
 """
 
 from __future__ import annotations
@@ -47,8 +53,42 @@ class Config:
     # inputs on its default device. Tensors stay on their own device.
     device: str = os.environ.get("NEPTUNE_TORCH_DEVICE", "cuda")
 
+    # Pinned-arithmetic reproducibility mode: make sharded solves BITWISE
+    # identical across mesh shapes (BASELINE.md "bit-stable convergence").
+    # Two layout-dependent freedoms are removed:
+    #   * FMA contraction -- every arith.mul in an apply body (and the axpy
+    #     updates inside the Krylov iterations) is fenced with
+    #     `utils.tree._fma_fence`, and affine folding is off, so each cell is
+    #     computed by the traced op order wherever it lies (a block's core on
+    #     a kernel, its edge bands in eager PyTorch);
+    #   * reduction association -- tdot/tnorm sum through a fixed
+    #     pairwise-halving tree over the flat global vector (log2 N
+    #     elementwise adds), so the association order is a function of the
+    #     global element order only, never of the block layout; on a mesh
+    #     the products are gathered whole and every process runs the tree.
+    # Off by default: the tree costs log2(N) launches per dot product
+    # against one, and a gather per dot on a mesh. Unlike the JAX package,
+    # whose Pallas kernels keep default arithmetic, kernels A, C and D
+    # follow the mode (the mesh path runs a block's core on kernel A and its
+    # bands eagerly, so both must compute alike); kernel B and the CA
+    # solvers' Gram reductions keep default arithmetic, as there.
+    pinned_arithmetic: bool = os.environ.get("NEPTUNE_TORCH_PINNED", "0") == "1"
+
+    # One directory for both build caches (None: each cache's default). Read
+    # when a build happens: the CUDA kernels go to `cache_dir/kernels`, the
+    # native runtime's libraries to `cache_dir` itself.
+    cache_dir: str | None = os.environ.get("NEPTUNE_TORCH_CACHE_DIR") or None
+
 
 config = Config()
+
+
+def arithmetic() -> tuple[bool, bool]:
+    """The effective (fold, pinned) of the generated bodies: pinned mode
+    keeps the traced op order, so it turns folding off. The launch-data
+    caches of the kernels that follow the mode are keyed on it."""
+    pinned = config.pinned_arithmetic
+    return config.fold_affine and not pinned, pinned
 
 
 def default_device(device=None) -> torch.device:

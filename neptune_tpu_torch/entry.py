@@ -167,7 +167,7 @@ def _part_3d_gmres(gm, dev, rng, ctx):
     assert _close(mv(u3), ref, 1e-4), "sharded matvec (kernels) != whole grid"
     two = shardmap_sweeps(cm3, "heat3d_A", gm, 2)(u3)
     assert _close(two, mv_off(mv_off(u3)), 1e-4), "shardmap_sweeps(k=2) != two matvecs"
-    x3, info = krylov.gmres(mv, u3, tol=1e-5, maxiter=60, restart=20, group=gm.sum_group(3))
+    x3, info = krylov.gmres(mv, u3, tol=1e-5, maxiter=60, restart=20, group=gm.mesh_group(3))
     assert info.converged, f"sharded GMRES did not converge: {info}"
     assert bool(torch.isfinite(x3).all())
 
@@ -313,7 +313,7 @@ def _dryrun_rank(rank: int, n: int, port: str, device: str, backend: str, out: s
     report = {"rank": rank, "device": str(dev), "seconds": {}, "failed": None}
     n2 = 8 * max(gm.shape)
     cm2 = build_step(n2, "float32", device=dev)
-    ctx = {"cm2": cm2, "u2": gm.shard(gaussian(n2)), "group": gm.sum_group(2),
+    ctx = {"cm2": cm2, "u2": gm.shard(gaussian(n2)), "group": gm.mesh_group(2),
            "mv2": shardmap_opdef(cm2, "heat_A", gm)}
     for i, (name, run) in enumerate(_PARTS, 1):
         t0 = time.perf_counter()

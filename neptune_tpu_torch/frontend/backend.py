@@ -3,9 +3,14 @@
 The port of `neptune_tpu/frontend/backend.py`: run the lowering pipeline
 and return a library object whose attributes are the module's functions.
 PyTorch runs eagerly, so a function is the port's `CompiledModule.function`
-itself, with no `jax.jit` around it. The persistent compilation cache is not
-ported yet (ROADMAP.md, queue 1, item 1); the CUDA kernels keep their own
-build cache (`kernels/build.py`).
+itself, with no `jax.jit` around it. The JAX package's `jit_compile` points
+XLA's persistent compilation cache at `config.cache_dir`; the port compiles
+nothing here, and routing its two build caches is the whole counterpart:
+with `config.cache_dir` (NEPTUNE_TORCH_CACHE_DIR) set, the CUDA kernels
+build into `cache_dir/kernels` (`kernels/build.py`) and the native runtime
+into `cache_dir` (`runtime/aot.py`), each read when a build happens;
+unset, they go to `neptune_tpu_torch/_build/` and
+`~/.neptune_tpu_torch/cache`.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ class CompiledLibrary:
 
 
 def jit_compile(compiler_instance: GlobalContext | None = None) -> CompiledLibrary:
-    """Compile the context's module; returns a library of its functions."""
+    """Compile the context's module; returns a library of its functions.
+    Its kernels build at first use, into `config.cache_dir`/kernels when
+    that is set (the native runtime into `config.cache_dir`), else into
+    `neptune_tpu_torch/_build/`."""
     ctx = compiler_instance or get_context()
     return CompiledLibrary(ctx.compiled())

@@ -6,9 +6,10 @@ compiled by `nvcc` into a shared library and loaded with `ctypes`; device
 pointers and the stream go across as `c_void_p`, and every C entry returns
 the CUDA status of its launch, which the caller turns into an exception.
 
-Libraries land in `neptune_tpu_torch/_build/`, keyed by a hash of the
-generated source, the headers and the flags, so a checkout builds what it
-needs at first use. Nothing here runs when the module is imported.
+Libraries land in `neptune_tpu_torch/_build/`, or in `kernels/` under
+`config.cache_dir` when that is set (read at each build), keyed by a hash
+of the generated source, the headers and the flags, so a checkout builds
+what it needs at first use. Nothing here runs when the module is imported.
 
 `--fmad=false` keeps every f32 multiply and add separately rounded, so an f32
 kernel is bitwise equal to the eager PyTorch version of the same IR.
@@ -24,6 +25,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from ..config import config
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -67,6 +70,12 @@ def nvcc_path() -> str:
     )
 
 
+def kernel_dir() -> Path:
+    """Where the kernels' libraries go: `config.cache_dir`/kernels when the
+    setting is given, the package's `_build/` otherwise."""
+    return Path(config.cache_dir) / "kernels" if config.cache_dir else BUILD_DIR
+
+
 def _headers_digest() -> bytes:
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")):
@@ -76,13 +85,18 @@ def _headers_digest() -> bytes:
 
 
 class Builder:
-    """Compiles generated sources once per process and per checkout."""
+    """Compiles generated sources once per process and per checkout, into
+`build_dir`, or `kernel_dir()` at each build when that is None."""
 
-    def __init__(self, build_dir: Path = BUILD_DIR):
-        self.build_dir = Path(build_dir)
+    def __init__(self, build_dir: Path | None = None):
+        self._build_dir = None if build_dir is None else Path(build_dir)
         self._libs: dict[str, ctypes.CDLL] = {}
         # library file name -> nvcc seconds, for libraries built by this process
         self.build_seconds: dict[str, float] = {}
+
+    @property
+    def build_dir(self) -> Path:
+        return self._build_dir or kernel_dir()
 
     def load(self, source: str, stem: str) -> ctypes.CDLL:
         key = hashlib.sha256(
@@ -99,10 +113,10 @@ class Builder:
 
     def _compile(self, source: str, so: Path) -> None:
         nvcc = nvcc_path()
-        self.build_dir.mkdir(parents=True, exist_ok=True)
+        so.parent.mkdir(parents=True, exist_ok=True)
         cu = so.with_suffix(".cu")
         cu.write_text(source)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
         os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(cu)]
         t0 = time.perf_counter()

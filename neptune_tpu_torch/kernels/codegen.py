@@ -105,6 +105,10 @@ class COps:
     def cast(self, v, tname):
         return self.emit(f"static_cast<{_CTYPE[tname]}>({v})", tname)
 
+    def fence(self, v, tname):
+        """Pinned mode's product fence, as `TorchOps.fence`."""
+        return self.emit(f"(isfinite({v}) ? {v} : {c_literal(math.nan, tname)})", tname)
+
     def add(self, a, b, tname):
         return self.binop("arith.add", a, b, tname)
 
@@ -118,7 +122,7 @@ class COps:
         return self.binop("arith.add", a, c_literal(c, tname), tname)
 
 
-def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
+def body_struct(op: Operation, name: str, scalar_exprs=None, pinned=None) -> str:
     """A C++ struct holding one apply's generated body (see csrc/nt_apply.cuh).
 
     `eval(a, s, y)` reads input k at an offset through the accessor `a`
@@ -126,7 +130,8 @@ def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
     `s`. scalar_exprs: C expressions for the apply's scalar operands; by
     default they are fields of the struct's `Scalars`, passed by value at
     launch. An input whose logical lower bound differs from the output's
-    reads at a shifted position.
+    reads at a shifted position. pinned: as `eval_scalar_dag`'s (None
+    follows `config.pinned_arithmetic`).
     """
     out_type: TempType = op.results[0].type
     rank = out_type.bounds.rank
@@ -148,7 +153,7 @@ def body_struct(op: Operation, name: str, scalar_exprs=None) -> str:
     def index_fn(d):
         return ops.emit(f"a.c{d + pad}", "index")
 
-    yields = eval_scalar_dag(body, rank, n_in, access_fn, index_fn, scalar_exprs, ops)
+    yields = eval_scalar_dag(body, rank, n_in, access_fn, index_fn, scalar_exprs, ops, pinned)
 
     stmts = "\n".join(f"    {line}" for line in ops.lines)
     outs = "\n".join(
@@ -260,7 +265,9 @@ def fused_cg_source(plan) -> str:
     last = len(plan.stages) - 1
     for i, st in enumerate(plan.stages):
         scalars = [c_literal(v, "float32") for v in st.scalars]
-        structs.append(body_struct(st.op, f"NtStage{i}", scalar_exprs=scalars))
+        # kernel B keeps default arithmetic in pinned mode, as the JAX
+        # package's fused CG does
+        structs.append(body_struct(st.op, f"NtStage{i}", scalar_exprs=scalars, pinned=False))
         sl = st.op.attrs["bounds"].rel_slices(st.op.results[0].type.bounds)
         box = (
             f"NtBox{{{{{_ints([0] + [s.start for s in sl])}}}, "

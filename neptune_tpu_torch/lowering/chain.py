@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import arithmetic
 from ..ir.core import Function, Module, Operation
 from ..ir.types import Bounds, ScalarType, StencilShape, TempType
 from ..kernels import codegen
@@ -88,7 +88,7 @@ MAX_FIELDS = 8
 # floats per 16-byte copy: the column halo is widened to whole vectors
 VEC = 4
 
-# (id(plan), config.fold_affine) -> the plan's launch data
+# (id(plan), (fold, pinned)) -> the plan's launch data (`config.arithmetic`)
 _kernels: dict[tuple, "_Launch"] = {}
 
 
@@ -505,7 +505,7 @@ class _Launch:
 
 
 def _launcher(plan: ChainPlan) -> _Launch:
-    key = (id(plan), config.fold_affine)
+    key = (id(plan), arithmetic())
     hit = _kernels.get(key)
     if hit is None:
         hit = _kernels[key] = _Launch(plan)

@@ -44,7 +44,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config, default_device
+from ..config import arithmetic, default_device
 from ..ir.core import Operation
 from ..ir.types import Bounds, TempType
 from ..kernels import codegen
@@ -56,8 +56,8 @@ _SUPPORTED_DTYPES = ("float32", "bfloat16")
 counter = LaunchCounter("stencil_apply")
 window_counter = LaunchCounter("stencil_apply_window")
 
-# (id(op), config.fold_affine, plan) -> its launch data (which holds the op);
-# the generated body depends on the fold setting
+# (id(op), (fold, pinned), plan) -> its launch data (which holds the op);
+# the generated body depends on the effective arithmetic (`config.arithmetic`)
 _kernels: dict[tuple, "_Launch"] = {}
 
 # Tiles of the tiled design, preferred first: (rows kT1, columns kT2, cells
@@ -189,7 +189,7 @@ class _Launch:
 
 
 def _launcher(op: Operation, plan="auto") -> _Launch:
-    key = (id(op), config.fold_affine, plan)
+    key = (id(op), arithmetic(), plan)
     hit = _kernels.get(key)
     if hit is None:
         hit = _kernels[key] = _Launch(op, plan)

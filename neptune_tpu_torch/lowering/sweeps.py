@@ -36,7 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import arithmetic
 from ..ir.core import Module, Operation
 from ..ir.types import StencilShape, TempType
 from ..kernels import codegen
@@ -74,7 +74,8 @@ SMEM_PAIR = SMEM_MAX // 2
 # (1.60x) than at 4 (2.01x).
 MAX_RECOMPUTE = 1.75
 
-# (plan, config.fold_affine) -> its launch data (the plan holds its op)
+# (plan, (fold, pinned)) -> its launch data (the plan holds its op;
+# `config.arithmetic`)
 _kernels: dict[tuple, "_Launch"] = {}
 
 
@@ -327,7 +328,7 @@ class _Launch:
 
 
 def _entry(plan: SweepPlan) -> _Launch:
-    key = (plan, config.fold_affine)
+    key = (plan, arithmetic())
     hit = _kernels.get(key)
     if hit is None:
         hit = _kernels[key] = _Launch(plan)

@@ -166,7 +166,10 @@ class TorchOps:
                 # integer division truncates toward zero (C / MLIR arith.divsi)
                 return torch.div(a, b, rounding_mode="trunc")
             return torch.div(a, b)
-        if name in _TENSOR_ONLY or not isinstance(b, torch.Tensor):
+        if name in _TENSOR_ONLY:
+            # torch.minimum and friends take no Python number on either side
+            a, b = self._t(a, tname), self._t(b, tname)
+        elif not isinstance(b, torch.Tensor):
             a = self._t(a, tname)
         return _BINOPS[name](a, b)
 
@@ -183,6 +186,11 @@ class TorchOps:
 
     def cast(self, v, tname):
         return v.to(DTYPES[tname]) if isinstance(v, torch.Tensor) else round_to(v, tname)
+
+    def fence(self, v, tname):
+        """Pinned mode's product fence: NaN where not finite."""
+        v = self._t(v, tname)
+        return torch.where(torch.isfinite(v), v, float("nan"))
 
     # affine materialization: coefficients arrive as exact Python floats
     def add(self, a, b, tname):
@@ -244,6 +252,7 @@ def eval_scalar_dag(
     index_fn,
     scalar_args: Sequence,
     ops,
+    pinned: bool | None = None,
 ) -> list:
     """Evaluate an apply region's scalar DAG through the op table `ops`.
 
@@ -251,8 +260,15 @@ def eval_scalar_dag(
     index_fn(dim) -> logical coordinates along `dim`
     ops: `TorchOps` for eager tensors, or the C-emitting table of the kernel
     generator — both see the same folding, rounding and operation order.
+    pinned: the reproducibility mode (`config.pinned_arithmetic`): no
+    folding, the traced op order is the contract, and every float
+    `arith.mul` passes `ops.fence`. None follows the config, as the eager
+    path and kernels A, C and D do; kernel B and its plain version pass
+    False (a whole-grid performance path, exempt as in the JAX package).
     """
-    fold = config.fold_affine
+    if pinned is None:
+        pinned = config.pinned_arithmetic
+    fold = config.fold_affine and not pinned
     env: dict[int, object] = {}
     arg_of_input: dict[int, int] = {}
 
@@ -374,7 +390,10 @@ def eval_scalar_dag(
             env[op.results[0].uid] = ops.constant(op.attrs["value"], tname)
         elif op.name in _BINOPS:
             a, b = (lookup(o) for o in op.operands)
-            env[op.results[0].uid] = ops.binop(op.name, a, b, tname)
+            r = ops.binop(op.name, a, b, tname)
+            if pinned and op.name == "arith.mul" and tname in _FLOATS:
+                r = ops.fence(r, tname)
+            env[op.results[0].uid] = r
         elif op.name in _UNARY:
             env[op.results[0].uid] = ops.unary(op.name, lookup(op.operands[0]), tname)
         elif op.name == "arith.cmp":
@@ -412,11 +431,13 @@ def eval_apply_body(
     input_lbs: Sequence[tuple] = (),
     periodic: bool = False,
     device=None,
+    pinned: bool | None = None,
 ) -> list[torch.Tensor]:
     """Vectorized whole-domain evaluation.
 
     input_lbs: logical lower bound per input temp; an input whose lb differs
-    from the output's reads at a shifted physical position.
+    from the output's reads at a shifted physical position. pinned: as
+    `eval_scalar_dag`'s.
     """
     shape = out_type.bounds.shape
     lb = out_type.bounds.lb
@@ -434,7 +455,7 @@ def eval_apply_body(
         return (torch.arange(shape[d], dtype=torch.int32, device=device) + lb[d]).view(view)
 
     yielded = eval_scalar_dag(
-        body, rank, num_inputs, access_fn, index_fn, scalar_args, TorchOps(device)
+        body, rank, num_inputs, access_fn, index_fn, scalar_args, TorchOps(device), pinned
     )
     out_dtype = DTYPES[out_type.element]
     return [
@@ -457,11 +478,11 @@ def interior_mask(bounds: Bounds, outer: Bounds, device) -> torch.Tensor:
     return mask.expand(outer.shape)
 
 
-def execute_apply(op: Operation, operand_arrays: Sequence, device=None):
+def execute_apply(op: Operation, operand_arrays: Sequence, device=None, pinned=None):
     """Full apply semantics: seed + interior overwrite. Returns one tensor,
     or a tuple for multi-result applies (output j seeds copy-through from
     input j when it exists, zeros otherwise). `device` places an apply that
-    has no tensor inputs."""
+    has no tensor inputs; pinned: as `eval_scalar_dag`'s."""
     out_type: TempType = op.results[0].type
     n_in = op.attrs.get("num_inputs", len(op.operands))
     inputs = operand_arrays[:n_in]
@@ -484,6 +505,7 @@ def execute_apply(op: Operation, operand_arrays: Sequence, device=None):
         input_lbs,
         periodic=bool(op.attrs.get("periodic")),
         device=device,
+        pinned=pinned,
     )
 
     out_dtype = DTYPES[out_type.element]

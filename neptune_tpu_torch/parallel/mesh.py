@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import default_device
+from ..utils.tree import MeshGroup
 
 
 def _default_device(rank: int) -> torch.device:
@@ -181,6 +182,12 @@ class GridMesh:
         """The process group over which a field of `grid_rank` dims is
         sharded (None: every process holds it whole)."""
         return self._sum_groups[min(grid_rank, len(self.shape))]
+
+    def mesh_group(self, grid_rank: int) -> MeshGroup:
+        """What the solvers' and `utils.tree`'s `group=` take for a field of
+        `grid_rank` dims: its `sum_group` with this mesh's layout, which
+        pinned arithmetic needs to sum over the global vector."""
+        return MeshGroup(self, grid_rank)
 
     # ------------------------------------------------------------------
     # data

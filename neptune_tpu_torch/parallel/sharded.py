@@ -271,7 +271,7 @@ class _MeshModule(CompiledModule):
 
     def _reduction_group(self, states):
         t = states[0] if isinstance(states, (tuple, list)) else states
-        return self.gm.sum_group(t.ndim) if t.ndim else None
+        return self.gm.mesh_group(t.ndim) if t.ndim else None
 
     def _on_whole(self, f: Callable, v: torch.Tensor) -> torch.Tensor:
         """f of the whole vector that `v` is this process's block of, cut
@@ -322,7 +322,7 @@ class _MeshModule(CompiledModule):
             b_eff = b if ring is None else b - handle.matvec(ring)
             x, info = krylov.solve(
                 handle.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters, M=M,
-                group=self.gm.sum_group(rank), **linear_option_kwargs(solver, opts),
+                group=self.gm.mesh_group(rank), **linear_option_kwargs(solver, opts),
             )
             if ring is not None:
                 x = x + ring

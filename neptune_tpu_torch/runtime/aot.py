@@ -5,7 +5,8 @@ pipeline (`python_frontend/neptune/backend.py:11-93`): hash the generated
 source → probe `~/.neptune_tpu_torch/cache/` → compile with the system C++
 compiler → link against the runtime library with an rpath → load via
 ctypes — with the same 7-day atime-based eviction policy
-(`backend.py:77-87`). Cache dir override: NEPTUNE_TORCH_CACHE_DIR.
+(`backend.py:77-87`). Cache dir override: `config.cache_dir`
+(NEPTUNE_TORCH_CACHE_DIR), which also routes the CUDA kernels' builds.
 
 The native runtime is the f64 host oracle by design: it is the one entry
 point of this package that runs on the CPU without being asked. Its
@@ -32,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..config import config
 from ..ir.core import Module
 from ..ir.types import FieldType, ScalarType, TempType, TensorType
 from .cgen import generate_cpp
@@ -40,8 +42,12 @@ _RUNTIME_SRC = Path(__file__).parent / "native" / "neptune_rt.cpp"
 
 
 def _cache_dir() -> Path:
-    env = os.environ.get("NEPTUNE_TORCH_CACHE_DIR")
-    d = Path(env) if env else Path.home() / ".neptune_tpu_torch" / "cache"
+    """`config.cache_dir` (NEPTUNE_TORCH_CACHE_DIR), read at each build, or
+    `~/.neptune_tpu_torch/cache`."""
+    if config.cache_dir:
+        d = Path(config.cache_dir)
+    else:
+        d = Path.home() / ".neptune_tpu_torch" / "cache"
     d.mkdir(parents=True, exist_ok=True)
     return d
 

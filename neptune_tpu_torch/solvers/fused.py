@@ -279,13 +279,16 @@ def supported(module: Module, name: str, tt: TempType) -> bool:
 
 
 def plain_matvec(stages: list[Stage]) -> Callable:
-    """The operator of a plan, applied eagerly stage by stage."""
+    """The operator of a plan, applied eagerly stage by stage, in default
+    arithmetic whatever the mode, as kernel B computes it."""
 
     def run(x):
         bufs = []
         for st in stages:
             arrays = [x if r == "x" else bufs[r] for r in st.inputs] + st.scalars
-            bufs.append(torch_backend.execute_apply(st.op, arrays, device=x.device))
+            bufs.append(
+                torch_backend.execute_apply(st.op, arrays, device=x.device, pinned=False)
+            )
         return bufs[-1]
 
     return run

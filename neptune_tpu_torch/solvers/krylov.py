@@ -12,10 +12,17 @@ All solvers:
   * stop at ||r|| <= max(tol * ||b||, atol), PETSc's default rtol test;
   * return (x, SolveInfo) with the iteration count, the residual norm and a
     convergence flag, as host values;
-  * take `group=`, the process group of a sharded grid: every process
-    passes its block of b and a matvec over blocks (`parallel.shardmap_opdef`),
-    and each inner product and norm is all-reduced over the group
-    (`utils.tree`). Without a group they reduce locally, as before.
+  * take `group=`, the process group of a sharded grid, or better the
+    mesh's `GridMesh.mesh_group(rank)`: every process passes its block of b
+    and a matvec over blocks (`parallel.shardmap_opdef`), and each inner
+    product and norm is all-reduced over the group (`utils.tree`). Without
+    a group they reduce locally, as before.
+
+Under `config.pinned_arithmetic` CG's and BiCGStab's inner products and
+norms sum through `utils.tree`'s pinned tree over the global vector (a
+mesh group gathers the products), and their axpys fence the product, so a
+solve is bitwise the same on every mesh shape. GMRES keeps `vdot`/`vnorm`
+for its Arnoldi products, as the JAX package's GMRES keeps `jnp.vdot`.
 """
 
 from __future__ import annotations
@@ -89,18 +96,25 @@ def cg(
 ):
     """Preconditioned conjugate gradient for SPD operators. Its inner
     products sum in float64 (`tdot_f64`), as kernel B's do: the iterates
-    over a mesh are the whole grid's."""
+    over a mesh are the whole grid's. Under pinned arithmetic they sum
+    through the global pairwise tree instead (`utils.tree`). Without M,
+    z is r, so ||r|| is the root of r.z: one reduction fewer a step, the
+    same value."""
+    plain = M is None
     M = M or _identity
     x = tzeros_like(b) if x0 is None else x0
     target, bnorm = _tolerances(b, tol, atol, group, norm=_norm_f64)
     divbound = _divergence_bound(bnorm, divtol)
+
+    def norm_r(r, rz):
+        return torch.sqrt(rz) if plain else _norm_f64(r, group)
 
     r = tsub(b, matvec(x))
     z = M(r)
     p = z
     rz = tdot_f64(r, z, group)
     k = 0
-    rnorm = _norm_f64(r, group)
+    rnorm = norm_r(r, rz)
     while _running(k, maxiter, rnorm, target, divbound):
         Ap = matvec(p)
         pAp = tdot_f64(p, Ap, group)
@@ -113,7 +127,7 @@ def cg(
         p = taxpy(beta, p, z)
         rz = rz_new
         k += 1
-        rnorm = _norm_f64(r, group)
+        rnorm = norm_r(r, rz)
     return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
 
 

@@ -108,8 +108,8 @@ def _geometry(mesh, shape) -> tuple:
 
 
 def _group(mesh, rank: int):
-    """The process group a field of `rank` dims reduces over (None: none)."""
-    return None if mesh is None else mesh.sum_group(rank)
+    """What a field of `rank` dims reduces over (None: nothing)."""
+    return None if mesh is None else mesh.mesh_group(rank)
 
 
 def first_whole_level(gshape, mesh, n_levels: int) -> int:

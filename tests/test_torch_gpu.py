@@ -1220,7 +1220,7 @@ def test_native_runtime_takes_card_tensors(cuda, tmp_path, monkeypatch):
     within f32 rounding."""
     from neptune_tpu_torch.runtime import compile_native
 
-    monkeypatch.setenv("NEPTUNE_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(config, "cache_dir", str(tmp_path))
     m32 = stencils.with_entry(stencils.jacobi5((64, 64)), "jacobi")
     m64 = stencils.with_entry(stencils.jacobi5((64, 64), "float64"), "jacobi")
     x = torch.randn(64, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
@@ -1248,3 +1248,91 @@ def test_prolong_block_on_the_card(cuda):
             for j in range(2):
                 got = prolong_block(e, (n, n), SimpleNamespace(shape=(2, 2), coords=(i, j)))
                 assert torch.equal(got, ref[i * n:(i + 1) * n, j * n:(j + 1) * n]), (n, i, j)
+
+
+# ---- random programs and pinned arithmetic -----------------------------------
+
+def _fuzz():
+    import torch_fuzz_programs  # tests/: imports neither package
+
+    from neptune_tpu_torch import ir
+
+    return torch_fuzz_programs, ir
+
+
+def _randn(shape, cuda, seed):
+    return torch.randn(shape, device=cuda, generator=torch.Generator(cuda).manual_seed(seed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pinned", [False, True], ids=["default", "pinned"])
+@pytest.mark.parametrize("case", range(4))
+def test_random_programs_through_kernel_a(case, pinned, cuda, monkeypatch):
+    """Random f32 bodies (tests/torch_fuzz_programs.py): kernel A bitwise
+    equal to eager PyTorch, in default and in pinned arithmetic."""
+    fp, ir = _fuzz()
+    monkeypatch.setattr(config, "pinned_arithmetic", pinned)
+    rank = 2 + case % 2
+    shape = (256, 512) if rank == 2 else (32, 48, 64)
+    n_in = 1 + case % 2
+    module = fp.kernel_opdef(ir, np.random.default_rng(9000 + case), shape,
+                             periodic=case % 3 == 1, h0=case % 3, n_in=n_in)
+    op = stencils.the_apply(module)
+    xs = [_randn(shape, cuda, 10 * case + k) for k in range(n_in)]
+    before = cuda_backend.counter.count
+    got = cuda_backend.try_execute_apply(op, xs)
+    assert cuda_backend.counter.count - before == 1
+    assert fp.same_bits(got, torch_backend.execute_apply(op, xs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pinned", [False, True], ids=["default", "pinned"])
+@pytest.mark.parametrize("case", range(3))
+def test_random_programs_through_kernel_c(case, pinned, cuda, monkeypatch):
+    fp, ir = _fuzz()
+    monkeypatch.setattr(config, "pinned_arithmetic", pinned)
+    rng = np.random.default_rng(9100 + case)
+    shape = (256, 512) if case % 2 == 0 else (32, 48, 64)
+    module = fp.kernel_opdef(ir, rng, shape, periodic=case == 1, h0=1 + case % 2, bounded=True)
+    k = int(rng.integers(2, 10))
+    plan = sweeps.sweep_plan(module, "kf", k) or sweeps.sweep_plan(module, "kf", k, depth=2)
+    x = _randn(shape, cuda, case)
+    before = sweeps.counter.count
+    got = sweeps.run_sweeps(plan, x, [])
+    assert sweeps.counter.count - before == 1
+    assert fp.same_bits(got, sweeps.sweeps_plain(plan, x, []))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pinned", [False, True], ids=["default", "pinned"])
+@pytest.mark.parametrize("case", range(3))
+def test_random_programs_through_kernel_d(case, pinned, cuda, monkeypatch):
+    fp, ir = _fuzz()
+    monkeypatch.setattr(config, "pinned_arithmetic", pinned)
+    shape = (256, 512) if case % 2 == 0 else (32, 48, 64)
+    module = fp.chain_opdef(ir, np.random.default_rng(9200 + case), shape, n_in=1 + case // 2)
+    plan = chain.chain_plan(module, "kd")
+    fields = [_randn(shape, cuda, 10 * case + k) for k in range(plan.n_fields)]
+    before = chain.counter.count
+    got = chain.run_chain(plan, fields, [])
+    assert chain.counter.count - before == 1
+    assert fp.same_bits(got, chain.chain_plain(plan, fields, []))
+
+
+@pytest.mark.gpu
+def test_pinned_cg_kernel_route_equals_kernels_off(cuda, monkeypatch):
+    """Pinned whole-grid CG (f32 5-pt Poisson): kernel A's fenced body and
+    the eager route take the same iterations to the same bits."""
+    from neptune_tpu_torch.solvers import krylov
+
+    monkeypatch.setattr(config, "pinned_arithmetic", True)
+    module = stencils.poisson5(256)
+    b = _randn((256, 256), cuda, 7)
+    runs = {}
+    for route in ("auto", "torch"):
+        before = cuda_backend.counter.count
+        x, info = krylov.cg(CompiledModule(module, route, cuda).opdef("poisson"), b, tol=1e-5,
+                            maxiter=2000)
+        runs[route] = (x, info.iters, cuda_backend.counter.count - before)
+    assert runs["auto"][1] == runs["torch"][1] and torch.equal(runs["auto"][0], runs["torch"][0])
+    assert runs["auto"][2] == runs["auto"][1] + 1 and runs["torch"][2] == 0

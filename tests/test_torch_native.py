@@ -48,6 +48,7 @@ def native_caches(tmp_path_factory):
     root = tmp_path_factory.mktemp("native_cache")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NEPTUNE_TORCH_CACHE_DIR", str(root / "torch"))
+        mp.setattr(torch_config, "cache_dir", str(root / "torch"))
         mp.setenv("NEPTUNE_TPU_CACHE_DIR", str(root / "jax"))
         yield root
 
@@ -292,7 +293,7 @@ def test_concurrent_builds_leave_whole_libraries(tmp_path, monkeypatch):
     each writes a temporary name and renames it into place."""
     from concurrent.futures import ThreadPoolExecutor
 
-    monkeypatch.setenv("NEPTUNE_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(torch_config, "cache_dir", str(tmp_path))
     m = _port(programs.build_bs_program())
     with ThreadPoolExecutor(2) as pool:
         nms = list(pool.map(lambda _: compile_native(m), range(2)))

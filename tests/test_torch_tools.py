@@ -24,6 +24,7 @@ from neptune_tpu.ir import print_module as jax_print  # noqa: E402
 from neptune_tpu.tools.opt import main as jax_opt_main  # noqa: E402
 
 from neptune_tpu_torch import stencils  # noqa: E402
+from neptune_tpu_torch.config import config as torch_config  # noqa: E402
 from neptune_tpu_torch.interop import module_from_reference  # noqa: E402
 from neptune_tpu_torch.ir import print_module, verify_and_annotate  # noqa: E402
 from neptune_tpu_torch.ir.parser import ParseError, parse_module  # noqa: E402
@@ -59,6 +60,7 @@ def native_cache(tmp_path_factory):
     root = tmp_path_factory.mktemp("native_cache")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NEPTUNE_TORCH_CACHE_DIR", str(root / "torch"))
+        mp.setattr(torch_config, "cache_dir", str(root / "torch"))
         mp.setenv("NEPTUNE_TPU_CACHE_DIR", str(root / "jax"))
         yield root
 

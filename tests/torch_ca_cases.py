@@ -451,6 +451,51 @@ MG_SOLVES = {"rb": ((2, 2),), "pcg": ((2, 2), (4, 1)), "ca": ((4, 1),), "newton"
 PROLONG = {"2d": (2, (32, 32)), "3d": (3, (16, 16, 8))}
 
 
+# ---- pinned arithmetic over a mesh (test_torch_pinned.py) ------------------
+# tests/test_scale_stability.py's systems: the 256^2 f64 5-pt Poisson
+# operator, CG to 1e-8 from its rhs, and the f32 4th-order advection
+# operator applied 50 times, under pinned arithmetic on each mesh
+
+PINNED_N, PINNED_TOL, PINNED_STEPS = 256, 1e-8, 50
+PINNED_MESHES = ((1, 1), (2, 2), (4, 1))
+
+
+def pinned_rhs(n=PINNED_N):
+    """test_scale_stability._rhs: standard normal, zero on the ring."""
+    b = np.random.default_rng(7).standard_normal((n, n))
+    b[0, :] = b[-1, :] = b[:, 0] = b[:, -1] = 0.0
+    return b
+
+
+def pinned_modules(n=PINNED_N):
+    """(the f64 Poisson module, @poisson; the f32 adv4 module, @adv4)."""
+    return stencils.poisson5(n, "float64"), stencils.advection4((n, n))
+
+
+def run_pinned(gm, results, infos):
+    """On mesh `gm`, under pinned arithmetic: CG over `sharded_opdef` with
+    the mesh's layout (`GridMesh.mesh_group`) and its gathers, and
+    PINNED_STEPS applies of adv4, gathered into results["cg/TAG"] and
+    results["adv4/TAG"] (TAG: the mesh shape as "2x2")."""
+    from neptune_tpu_torch.lowering.executor import CompiledModule
+    from neptune_tpu_torch.parallel import sharded_opdef
+    from neptune_tpu_torch.solvers import krylov
+
+    poisson, adv4 = (CompiledModule(m, device="cpu") for m in pinned_modules())
+    b = pinned_rhs()
+    tag = "x".join(map(str, gm.shape))
+    gm.gathers = 0
+    x, info = krylov.cg(sharded_opdef(poisson, "poisson", gm), gm.shard(b), tol=PINNED_TOL,
+                        maxiter=3000, group=gm.mesh_group(2))
+    infos[f"cg/{tag}"] = {"iters": int(info.iters), "converged": bool(info.converged),
+                          "gathers": gm.gathers}
+    results[f"cg/{tag}"] = gm.gather(x).numpy()
+    mv, u = sharded_opdef(adv4, "adv4", gm), gm.shard(b.astype(np.float32))
+    for _ in range(PINNED_STEPS):
+        u = mv(u)
+    results[f"adv4/{tag}"] = gm.gather(u).numpy()
+
+
 def snes_iters(text: str) -> list:
     """Newton's iteration counts from the verbose SNES lines in `text`, as
     either package prints them."""

@@ -8,7 +8,9 @@ avoiding solvers (FIXED, CONVERGED, ORACLE, COMM); MODE "function" runs
 its FUNCTIONS through `sharded_function` (the Allen-Cahn program's IR text
 comes from OUT_DIR/allen_cahn.mlir, printed by the parent); MODE "mg" runs
 the mesh-aware multigrid, the CA smoothers and Newton over a sharded
-residual (`run_mg`); MODE "grad" the reverse-mode cases (`run_grad`).
+residual (`run_mg`); MODE "grad" the reverse-mode cases (`run_grad`);
+MODE "pinned" CG and an apply chain under pinned arithmetic on the meshes
+of four positions in PINNED_MESHES (`run_pinned`).
 Each process joins a gloo group on localhost, runs on its own blocks on the CPU, gathers
 the results, and rank 0 writes OUT_DIR/results.npz (arrays) and
 OUT_DIR/info.json (iterations, residual norms, call counts). Imports the
@@ -350,6 +352,18 @@ def run_grad(meshes, results, infos):
             infos[f"{name}/{tag}"] = {"rule": rule_counter.count - before}
 
 
+def run_pinned(meshes, results, infos):
+    """test_scale_stability's pinned systems on each mesh of four positions
+    in `cases.PINNED_MESHES` (`cases.run_pinned`; the parent runs the mesh
+    of one position meanwhile)."""
+    from neptune_tpu_torch.config import config
+
+    config.pinned_arithmetic = True
+    for mesh in cases.PINNED_MESHES:
+        if mesh != (1, 1):
+            cases.run_pinned(meshes[mesh], results, infos)
+
+
 def main() -> int:
     mode, rank, world, port, out_dir = sys.argv[1:6]
     rank, world, out_dir = int(rank), int(world), Path(out_dir)
@@ -364,6 +378,8 @@ def main() -> int:
         run_mg(meshes, results, infos)
     elif mode == "grad":
         run_grad(meshes, results, infos)
+    elif mode == "pinned":
+        run_pinned(meshes, results, infos)
     else:
         run_functions(meshes, results, infos, out_dir)
     if rank == 0:
