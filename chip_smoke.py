@@ -91,11 +91,13 @@ line, the card's nvidia-smi line, and the result line):
      phase 9's four processes on (2,2), held to the one-process runs, with
      ring shifts, bytes and reductions per PCG iteration.
  14. the rest of sharded_function, reverse mode and the dry run, each case
-     on the kernel route against the kernels-off route: (a) SSOR-CG 512^2;
+     on the kernel route against the whole grid and the kernels-off route
+     (on (2,2), (a) and (b) on the kernel route only): (a) SSOR-CG 512^2;
      (b) mixed refinement (to the end at 512^2 on one process and at 32^2
-     on (2,2), one capped round at 512^2 on (2,2)); (c) 64^2 f64 dense SSOR
-     and direct against the whole grid; (d) a 512^2 differentiable_solve
-     gradient, one process and (2,2); (e) dryrun_multichip(4) on the card.
+     on (2,2), one round capped at P14_MIXED_CAP inner iterations at 512^2
+     on each, kernel route); (c) 64^2 f64 dense SSOR and direct; (d) a
+     512^2 differentiable_solve gradient, one process and (2,2); (e)
+     dryrun_multichip(4) on the card.
  15. (a) precond="mg" where the blocks turn odd above the coarsest level:
      1800^2 f32 CG + precond="mg" (levels 1800..225) in phase 9's four
      processes, on (2,2) (whole grid from level 2) and (4,1) (from level
@@ -118,7 +120,8 @@ line, the card's nvidia-smi line, and the result line):
      sharded_opdef with the mesh's layout, on the whole grid, a mesh of one
      process, and (2,2) and (4,1) in phase 9's four processes: equal
      iterations and bitwise-equal x everywhere, the default-arithmetic
-     solves and their max |diff| beside them; (b) its f32 adv4 operator at
+     solves (whole grid, one process, (2,2)) and their max |diff| beside
+     them; (b) its f32 adv4 operator at
      4096^2, 50 applies, bitwise on the same meshes and on the kernel route
      against the kernels-off route, kernel A's forms counted; (c) the cost:
      1024^2 f32 Poisson CG, 300 iterations, ms per iteration default
@@ -128,6 +131,19 @@ line, the card's nvidia-smi line, and the result line):
      and D at working sizes, half in pinned arithmetic, each built in
      parallel and held bitwise against eager PyTorch (within 2 ulps where
      its body has tanh), with the number of programs and nvcc seconds.
+ 18. the port's programs of examples/ (neptune_tpu_torch/examples/), each
+     in a process of its own (chip_smoke.py --phase18-example NAME PROCS
+     ROUTES OUT), P18_WORKERS host processes at a time: all fourteen on the kernel route
+     and then on the kernels-off route, each in a fresh context
+     (navier_stokes, inverse_problem and black_scholes at a quarter or less
+     of their steps, P18_MAIN_KWARGS; their own checks; results bitwise
+     equal; the kernels of the TPU-kernel table launched; wall seconds on
+     the card),
+     the five whose opdefs name no dtype again with NEPTUNE_TORCH_DTYPE=
+     float32 (main(), or where main() asserts an f64 tolerance the
+     program's functions, with the residual reached), and multichip_poisson
+     and comm_avoiding_jacobi on (2,2) in four processes sharing the card
+     over gloo, held to the one-process run.
 
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
@@ -135,10 +151,11 @@ version's at the main path's shape, the least time the card could take
 over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
 PyTorch call that computes the same function where there is one. Kernel
 A's launches are phase 4's, phase 11's, phase 15's (15a rank 0's
-replicated levels, 15c) and phase 16's (16b, 16c); its window form's phase
-8's, 12a's, 13a's, 14's, 15a rank 0's and 16b's (one process and rank 0);
-kernel B's phase 4's and 15b's. Phase 17's launches compare kernels with
-their plain versions and are not counted.
+replicated levels, 15c), phase 16's (16b, 16c) and phase 18's; its window
+form's phase 8's, 12a's, 13a's, 14's, 15a rank 0's, 16b's (one process and
+rank 0) and 18's; kernel B's phase 4's, 15b's and 18's; kernels C and D and
+their local forms add phase 18's kernel routes. Phase 17's launches compare
+kernels with their plain versions and are not counted.
 """
 
 from __future__ import annotations
@@ -2330,19 +2347,20 @@ def phase13(ntt, dev, reports, p11) -> int:
 # ---- phase 14: the rest of sharded_function, reverse mode and the dry run --
 # Through sharded_function, each case on the kernel route and the kernels-off
 # route, on a mesh of one process and (phase14_rank) on (2,2) in phase 9's
-# four processes: (a) phase 3's 512^2 f32 Poisson system with CG +
+# four processes, where (a) and (b) take the kernel route only (the script's
+# time budget): (a) phase 3's 512^2 f32 Poisson system with CG +
 # precond="ssor" (phase 10d's tolerance); (b) bench.py's
 # cg_poisson_512_mixed_1e10 (f64 Poisson, precision="mixed": f32 Jacobi-CG
 # inner solves on the twin's sharded matvec; (2,2) runs it to the end at
-# P14_MIXED_N4^2 on both routes, and at 512^2 one refinement round whose
-# inner CG stops at P14_MIXED_CAP iterations, on the kernel route, as the
-# gloo round trips (~15 ms per inner iteration) make the whole solve's 8070
-# take two minutes); (c) ssor_dense and direct at 64^2 f64, which
+# P14_MIXED_N4^2, and at 512^2 one refinement round whose inner CG stops at
+# P14_MIXED_CAP iterations, on the kernel route, as the gloo round trips
+# (15-26 ms per inner iteration) make the whole solve's 7929 take two
+# minutes; one process runs that round too); (c) ssor_dense and direct at 64^2 f64, which
 # the dense matrix limits; (d) the gradient of sum(w x) through
 # differentiable_solve of the entry's heat_A + theta I at 512^2 (CG, the
 # transposed solve through the sharded opdef's reverse rule); (e)
 # dryrun_multichip(4) on the card.
-P14_MIXED_N4, P14_MIXED_CAP, P14_DENSE_N, P14_DENSE_TOL = 32, 1000, 64, 1e-10
+P14_MIXED_N4, P14_MIXED_CAP, P14_DENSE_N, P14_DENSE_TOL = 32, 250, 64, 1e-10
 P14_GRAD_N, P14_GRAD_TOL, P14_THETA = 512, 1e-6, 0.25
 
 
@@ -2509,11 +2527,14 @@ def phase14_rank(rank: int, dev) -> dict:
                            ("c ssor_dense", "ssor_dense", P14_DENSE_N),
                            ("c direct", "direct", P14_DENSE_N)):
         dist.barrier()
-        runs, module, b = p14_solve_case(kind, n, dev, gm, warm=False)
-        (x, its, ms, sh, ga, red, win), off = runs["auto"], runs["torch"]
+        # (a) and (b) on the kernel route only: the one-process part holds
+        # their kernels-off routes (the script's time budget)
+        routes = ("auto",) if label in ("a", "b") else ("auto", "torch")
+        runs, module, b = p14_solve_case(kind, n, dev, gm, routes=routes, warm=False)
+        (x, its, ms, sh, ga, red, win), off = runs["auto"], runs.get("torch")
         row = {"iters": its, "ms": ms, "shifts": sh, "gathers": ga, "reductions": red,
-               "window": win, "off_iters": off[1], "off_ms": off[2],
-               "bitwise": bool(torch.equal(x, off[0])), "device": str(x.device), "n": n}
+               "window": win, "off_iters": off and off[1], "off_ms": off and off[2],
+               "bitwise": off and bool(torch.equal(x, off[0])), "device": str(x.device), "n": n}
         xg = gm.gather(x)
         if rank == 0:
             xw, w_its, w_ms = p14_whole(module, b, dev)
@@ -2615,8 +2636,9 @@ def phase14(dev, reports) -> int:
     for label in ("a", "b", "c ssor_dense", "c direct"):
         r = [row[label] for row in rows]
         m = r0[label]
-        require(all(x["iters"] == m["iters"] and x["bitwise"] and x["off_iters"] == m["iters"]
-                    and x["device"].startswith("cuda") for x in r),
+        require(all(x["iters"] == m["iters"] and x["device"].startswith("cuda")
+                    and (m["off_ms"] is None or x["bitwise"] and x["off_iters"] == m["iters"])
+                    for x in r),
                 f"14{label} (2,2): ranks or routes disagree: {r}")
         if label == "a":
             require(all(x["window"] > 0 for x in r), f"14a (2,2): window form {r}")
@@ -2627,12 +2649,15 @@ def phase14(dev, reports) -> int:
                     and m["true_rel"] <= MIXED_TOL, f"14b (2,2): {m}")
         else:
             require(m["rel_whole"] <= 1e-10, f"14{label} (2,2): {m}")
-        say(f"phase 14{label} four processes (2,2), {m['n']}^2: {m['iters']} (= kernels-off "
-            f"route, bitwise, every rank; whole grid {m['whole_iters']}), relative difference "
+        off_txt = ("kernel route only" if m["off_ms"] is None
+                   else "= kernels-off route, bitwise")
+        say(f"phase 14{label} four processes (2,2), {m['n']}^2: {m['iters']} ({off_txt}, every "
+            f"rank; whole grid {m['whole_iters']}), relative difference "
             f"from the whole grid {m['rel_whole']!r}"
             + (f", true f64 relative residual {m['true_rel']!r}" if "true_rel" in m else "")
-            + f"; {m['ms']:.1f} ms per solve (rank 0, one solve; kernels-off {m['off_ms']:.1f} "
-            f"ms; whole grid {m['whole_ms']:.1f} ms); per solve {m['shifts']} ring shifts, "
+            + f"; {m['ms']:.1f} ms per solve (rank 0, one solve"
+            + ("" if m["off_ms"] is None else f"; kernels-off {m['off_ms']:.1f} ms")
+            + f"; whole grid {m['whole_ms']:.1f} ms); per solve {m['shifts']} ring shifts, "
             f"{m['gathers']} gathers, {m['reductions']} reductions; window form per rank "
             f"{[x['window'] for x in r]}")
     r = [row["b capped"] for row in rows]
@@ -3078,20 +3103,21 @@ def phase16_rank(rank: int, dev) -> dict:
         t0 = time.perf_counter()
         _, pinned = p16_cg(dev, gm, True)
         walls["pinned"] = time.perf_counter() - t0
-        dist.barrier()
-        t0 = time.perf_counter()
-        x_def, default = p16_cg(dev, gm, False)
-        walls["default"] = time.perf_counter() - t0
-        if rank == 0:
-            default["diff_whole"] = float((x_def - xd_whole).abs().max())
+        rec = {"mesh": list(mesh)}
+        if mesh == P16_MESHES[0]:  # default arithmetic on one mesh (the time budget)
+            dist.barrier()
+            t0 = time.perf_counter()
+            x_def, rec["default"] = p16_cg(dev, gm, False)
+            walls["default"] = time.perf_counter() - t0
+            if rank == 0:
+                rec["default"]["diff_whole"] = float((x_def - xd_whole).abs().max())
         dist.barrier()
         t0 = time.perf_counter()
         u, adv = p16_adv(dev, gm)
         adv["whole_digest"] = adv_whole["digest"]
         adv["bitwise"] = bool(torch.equal(u, u_whole[gm.block_slices(tuple(u_whole.shape))]))
         walls["adv4"] = time.perf_counter() - t0
-        out["meshes"].append({"mesh": list(mesh), "pinned": pinned, "default": default,
-                              "adv4": adv, "walls": walls})
+        out["meshes"].append(rec | {"pinned": pinned, "adv4": adv, "walls": walls})
         dist.barrier()
     return out
 
@@ -3163,15 +3189,15 @@ def phase16(dev, reports) -> dict:
                 f"16a {label}: {run['iters']} iterations, x {run['digest']} against the whole "
                 f"grid's {whole['iters']}, {whole['digest']}")
     d_diff = max([float((xd_whole - xd_one).abs().max())]
-                 + [m["default"]["diff_whole"] for m in rows[0]["meshes"]])
+                 + [m["default"]["diff_whole"] for m in rows[0]["meshes"] if "default" in m])
     d_iters = [whole_d["iters"], one_d["iters"]] + [
-        rows[0]["meshes"][i]["default"]["iters"] for i in range(len(P16_MESHES))]
+        m["default"]["iters"] for m in rows[0]["meshes"] if "default" in m]
     m22 = rows[0]["meshes"][0]
     p22, d22 = m22["pinned"], m22["default"]
     say(f"phase 16a pinned CG 256^2 f64 Poisson, tol {P16_TOL}: {whole['iters']} iterations and "
         f"x bitwise equal (sha256 {whole['digest']}) on the whole grid, on a mesh of one "
         f"process and on {', '.join(map(str, P16_MESHES))} on every rank; default arithmetic "
-        f"beside it: iterations {d_iters} (whole, (1,1), then the meshes), max |x diff| against "
+        f"beside it: iterations {d_iters} (whole, (1,1), {P16_MESHES[0]}), max |x diff| against "
         f"the whole grid {d_diff!r}; whole grid {whole['ms']:.1f} ms pinned, "
         f"{whole_d['ms']:.1f} ms default ({whole['ms'] / whole['iters']:.3f} and "
         f"{whole_d['ms'] / whole_d['iters']:.3f} ms per iteration); (2,2) rank 0 "
@@ -3438,6 +3464,268 @@ def phase17(dev) -> None:
         f"wall; phase wall {time.perf_counter() - t17:.1f} s")
 
 
+
+# ---- phase 18: the examples on the card ---------------------------------------
+# Each of the port's programs of examples/ (neptune_tpu_torch/examples/) runs
+# in a process of its own (a fresh context) on each route: "auto" (the
+# kernels) and "torch" (config.backend = "torch", kernels off). name ->
+# the kernels its kernel route must launch (the TPU-kernel table's rows: A on
+# gray_scott's periodic lap_t and two-input react, wave_leapfrog, the rank-3
+# heat3d_explicit; A's window form on ca_krylov_poisson)
+P18_EXAMPLES = {
+    "allen_cahn": (), "black_scholes": (), "ca_krylov_poisson": ("stencil_apply_window",),
+    "comm_avoiding_jacobi": (), "gray_scott": ("stencil_apply",),
+    "heat3d_explicit": ("stencil_apply",), "heat_implicit": (), "inverse_problem": (),
+    "multichip_poisson": (), "multigrid_poisson": (), "navier_stokes": (),
+    "preconditioned_poisson": (), "swe_implicit": (), "wave_leapfrog": ("stencil_apply",),
+}
+# the five programs whose opdefs name no dtype also run with
+# NEPTUNE_TORCH_DTYPE=float32 (what the JAX examples compute on a TPU, x64
+# off): name -> the kernels that run must launch (A's window form and C's
+# local form on the mesh examples, A on inverse_problem's 48^2 operator and
+# preconditioned_poisson's matvecs: its eager solve_linear calls take generic
+# CG, as the JAX package's do, so kernel B is on no example's path)
+P18_F32 = {
+    "heat_implicit": (), "inverse_problem": ("stencil_apply",),
+    "multichip_poisson": ("stencil_apply_window",),
+    "comm_avoiding_jacobi": ("stencil_apply_window", "stencil_sweeps_local"),
+    "preconditioned_poisson": ("stencil_apply",),
+}
+# the mesh examples also run once on (2,2), four processes sharing the card
+# over gloo (`--procs 4`), held to the one-process run
+P18_FOUR = ("multichip_poisson", "comm_avoiding_jacobi")
+# roughly longest first, so that the pool's lanes finish together (wall on
+# the card beside the other runs: inverse_problem, navier_stokes and
+# black_scholes 45-62 s per route, the others 1-18 s)
+P18_ORDER = ("inverse_problem", "navier_stokes", "black_scholes", "multichip_poisson",
+             "preconditioned_poisson", "comm_avoiding_jacobi", "allen_cahn", "multigrid_poisson",
+             "swe_implicit", "ca_krylov_poisson", "heat_implicit", "wave_leapfrog",
+             "heat3d_explicit", "gray_scott")
+# depth cuts for the script's time budget, in the three programs whose runs
+# are longest (host-bound f64 loops that no kernel takes; on an H100 at
+# 700 W beside the other runs): navier_stokes's 1200 steps, each an f64 CG
+# solve of ~210 iterations, took 353.5 s per route (here 50 steps and a
+# resume to 60); inverse_problem's 200 gradient steps 65.9 s (here 50);
+# black_scholes's 100 Newton steps 52.9 s (here 25)
+P18_MAIN_KWARGS = {"navier_stokes": {"steps": 50, "resume_to": 60},
+                   "inverse_problem": {"iters": 50}, "black_scholes": {"steps": 25}}
+P18_WORKERS = 8
+P18_TIMEOUT = 600
+
+
+def p18_preconditioned_f32(ns) -> dict:
+    """preconditioned_poisson's four rows in f32: x, the true relative
+    residual reached and the iterations (the verbose KSP line); main()
+    asserts a true residual of 1e-10, which f32 cannot reach (its
+    recurrence residual does, so each row stops)."""
+    import contextlib
+    import io
+    import re
+
+    b, out = ns["rhs"](), {}
+    for pc, opts in ns["ROWS"]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            x, rel, _ = ns["solve"](b, pc, opts)
+        print(buf.getvalue(), end="")
+        out |= {pc: x, f"{pc}_rel": rel,
+                f"{pc}_iters": int(re.findall(r"iters=(\d+)", buf.getvalue())[-1])}
+    return out
+
+
+def p18_inverse_f32(ns) -> dict:
+    """inverse_problem's functions in f32: one gradient (a forward and an
+    adjoint CG solve to 1e-12, which f32 stops at its 3000 iterations) and
+    the relative residual the forward solve reaches; main()'s 200 steps
+    would take ~600 such solves."""
+    import torch
+
+    import neptune_tpu_torch as ntt
+
+    mv = ntt.get_context().compiled().opdef("A")
+    f_true = torch.as_tensor(ns["source"](), dtype=torch.float32, device="cuda")
+    u_obs = ns["observe"](mv, f_true)
+    g = ns["grad"](mv, torch.zeros_like(f_true), u_obs)
+    x = ns["forward"](mv, f_true).detach()
+    rel = float(torch.linalg.norm(mv(x) - f_true) / torch.linalg.norm(f_true))
+    return {"grad": g.cpu().numpy(), "u_obs": u_obs.cpu().numpy(), "forward_rel_residual": rel}
+
+
+P18_F32_FUNCTIONS = {"preconditioned_poisson": p18_preconditioned_f32,
+                     "inverse_problem": p18_inverse_f32}
+
+
+def phase18_example(argv) -> int:
+    """chip_smoke.py --phase18-example NAME PROCS ROUTES OUT: run one example
+    in the dtype of the environment (NEPTUNE_TORCH_DTYPE) once per route of
+    ROUTES ("auto,torch": config.backend), each in a fresh DSL context: its
+    main() or, in f32, the functions of P18_F32_FUNCTIONS; write
+    OUT-ROUTE.npz (its result) and OUT-ROUTE.json (wall seconds, nvcc
+    seconds, launches by kernel)."""
+    import runpy
+
+    import torch
+
+    name, procs, routes, out = argv
+    sys.path.insert(0, str(ROOT))
+    import neptune_tpu_torch as ntt
+    from neptune_tpu_torch.config import config
+    from neptune_tpu_torch.examples import _cli
+    from neptune_tpu_torch.kernels.build import builder
+
+    sys.argv = [name] + (["--procs", procs] if int(procs) > 1 else [])
+    for route in routes.split(","):
+        _cli.device()  # the card, as main() asks for it
+        config.backend = route
+        ntt.reset_context()
+        for c in counters().values():
+            c.reset()
+        built = sum(builder.build_seconds.values())
+        t0 = time.perf_counter()
+        ns = runpy.run_module(f"neptune_tpu_torch.examples.{name}")
+        run = P18_F32_FUNCTIONS.get(name) if config.default_dtype == "float32" else None
+        result = run(ns) if run else ns["main"](**P18_MAIN_KWARGS.get(name, {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _cli.save(result, f"{out}-{route}.npz")
+        Path(f"{out}-{route}.json").write_text(json.dumps({
+            "wall": wall, "nvcc": sum(builder.build_seconds.values()) - built,
+            "launches": {n: c.count for n, c in counters().items()},
+            "backend": config.backend, "dtype": config.default_dtype, "device": config.device,
+            "card": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+def p18_job(job, out_dir) -> dict:
+    """One example, each of its routes, in a process of its own: {"ok",
+    route: {"result", "info"} for each route, "log"}."""
+    from neptune_tpu_torch.examples import _cli
+
+    name, dtype, procs = job
+    routes = ("auto", "torch") if procs == 1 else ("auto",)
+    out = str(Path(out_dir, f"{name}-{dtype or 'default'}-{procs}"))
+    # one host thread each: the runs share the host's cores
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    if dtype:
+        env["NEPTUNE_TORCH_DTYPE"] = dtype
+    try:
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase18-example",
+                            name, str(procs), ",".join(routes), out], env=env,
+                           capture_output=True, text=True, timeout=P18_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        return {"ok": False, "log": f"timed out after {P18_TIMEOUT} s\n{e.stdout or ''}"}
+    if r.returncode:
+        return {"ok": False, "log": (r.stdout + r.stderr)[-3000:]}
+    got = {"ok": True, "log": r.stdout}
+    for route in routes:
+        got[route] = {"result": _cli.load(f"{out}-{route}.npz"),
+                      "info": json.loads(Path(f"{out}-{route}.json").read_text())}
+    return got
+
+
+def p18_mismatches(a: dict, b: dict) -> list:
+    """Where two routes' results differ, every entry held bitwise (kernel B,
+    whose f64 dot sums would allow less, is on no example's path): [(key,
+    kernel route's, kernels-off route's or the max |diff|)]."""
+    bad = []
+    for k, va in a.items():
+        vb = b[k]
+        if isinstance(va, np.ndarray) and va.dtype.kind == "f":
+            d = float(np.abs(va.astype(np.float64) - vb).max()) if va.shape == vb.shape else np.inf
+            if d > 0.0 or va.dtype != vb.dtype:
+                bad.append((k, "max |diff|", d))
+        elif not np.array_equal(va, vb):
+            bad.append((k, va, vb))
+    return bad
+
+
+def p18_scalars(result: dict) -> str:
+    return json.dumps({k: v for k, v in result.items() if not isinstance(v, np.ndarray)
+                       and (not isinstance(v, str) or len(v) < 80)})
+
+
+def phase18() -> dict:
+    """Phase 18: every run of P18_*, P18_WORKERS host processes at a time;
+    each example's routes held against each other, its kernels counted,
+    its wall seconds printed. Returns the kernel routes' launches by
+    kernel."""
+    import tempfile
+
+    import threading
+
+    t18 = time.perf_counter()
+    four = [(n, None, 4) for n in P18_FOUR]
+    jobs = [(n, None, 1) for n in P18_ORDER]
+    jobs += [(n, "float32", 1) for n in P18_ORDER if n in P18_F32]
+    # P18_WORKERS host processes at a time: the four-process runs one after
+    # the other, holding four of them, the one-process runs in the rest
+    # (gloo ranks that share cores with more runs than that slow down most)
+    free = threading.Semaphore(P18_WORKERS - 4)
+
+    def single(job, out_dir):
+        with free:
+            return p18_job(job, out_dir)
+
+    def four_then_release(out_dir):
+        try:
+            return {job: p18_job(job, out_dir) for job in four}
+        finally:
+            for _ in range(4):
+                free.release()
+
+    with tempfile.TemporaryDirectory(prefix="nt_phase18_") as out_dir, \
+            ThreadPoolExecutor(max_workers=P18_WORKERS + 1) as pool:
+        first = pool.submit(four_then_release, out_dir)
+        futures = {job: pool.submit(single, job, out_dir) for job in jobs}
+        res = {job: f.result() for job, f in futures.items()} | first.result()
+    jobs += four
+    failed = [(job, r["log"]) for job, r in res.items() if not r["ok"]]
+    require(not failed, "18: runs that failed:\n" + "\n".join(
+        f"{job}:\n{log}" for job, log in failed))
+    launches = {}
+    for dtype, table in ((None, P18_EXAMPLES), ("float32", P18_F32)):
+        for name in P18_ORDER:
+            if name not in table:
+                continue
+            k, p = res[(name, dtype, 1)]["auto"], res[(name, dtype, 1)]["torch"]
+            lk, lp = k["info"]["launches"], p["info"]["launches"]
+            require(k["info"]["device"] == "cuda" and p["info"]["backend"] == "torch",
+                    f"18 {name} {dtype}: {k['info']} {p['info']}")
+            require(not any(lp.values()), f"18 {name} {dtype}: the kernels-off route launched {lp}")
+            missing = [kn for kn in table[name] if not lk[kn]]
+            require(not missing, f"18 {name} {dtype or ''}: {missing} not launched ({lk})")
+            bad = p18_mismatches(k["result"], p["result"])
+            require(not bad, f"18 {name} {dtype or ''}: the routes differ: {bad}")
+            for kn, v in lk.items():
+                launches[kn] = launches.get(kn, 0) + v
+            say(f"phase 18 {name}{' f32' if dtype else ''}: kernel route {k['info']['wall']:.1f} s "
+                f"(nvcc {k['info']['nvcc']:.1f} s), kernels-off route {p['info']['wall']:.1f} s "
+                f"wall on the card; launches {json.dumps({n: v for n, v in lk.items() if v})}; "
+                f"bitwise equal; {p18_scalars(k['result'])}")
+    for name in P18_FOUR:
+        four, one = res[(name, None, 4)]["auto"], res[(name, None, 1)]["auto"]["result"]
+        wall, four = four["info"]["wall"], four["result"]
+        if name == "multichip_poisson":
+            rel = float(np.abs(four["x"] - one["x"]).max() / np.abs(one["x"]).max())
+            require(abs(four["iters"] - one["iters"]) <= 1 and rel <= 1e-8,
+                    f"18 {name} (2,2): {four['iters']} iterations against {one['iters']}, "
+                    f"x {rel!r}")
+            txt = f"{four['iters']} CG iterations (one process {one['iters']}), x within {rel!r}"
+        else:
+            rel = max(float(np.abs(four[k] - one[k]).max() / np.abs(one[k]).max())
+                      for k in ("naive", "ca", "xs"))
+            require(four["dev"] < 1e-10 and four["cheb_iters"] == one["cheb_iters"]
+                    and rel <= 1e-8, f"18 {name} (2,2): {p18_scalars(four)} {rel!r}")
+            txt = (f"|naive - comm-avoiding| {four['dev']!r} (< 1e-10), {four['cheb_iters']} "
+                   f"Chebyshev iterations, fields within {rel!r} of one process")
+        say(f"phase 18 {name} four processes (2,2) over gloo on the card: {txt}; "
+            f"{wall:.1f} s wall")
+    say(f"phase 18 kernel launches (kernel routes): {json.dumps(launches)}; {len(jobs)} "
+        f"runs (a process running both routes, or a four-process run), {P18_WORKERS} host "
+        f"processes at a time; phase wall {time.perf_counter() - t18:.1f} s")
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--phase9-rank":
         return phase9_rank(sys.argv[2:])
@@ -3445,6 +3733,8 @@ def main() -> int:
         return phase15_trace(sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--phase16-dots":
         return phase16_dots(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase18-example":
+        return phase18_example(sys.argv[2:])
     t_start = time.perf_counter()
     try:
         import torch
@@ -3967,6 +4257,9 @@ def main() -> int:
     # ---- phase 17: random programs through kernels A, C and D --------------
     phase17(dev)
 
+    # ---- phase 18: the examples on the card, each in a process of its own ---
+    p18 = phase18()
+
     def entry_of(name, source, replaces, launches_n, err, ms, plain_ms, bnd, lib, shape, also=None):
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         if also:
@@ -3981,21 +4274,24 @@ def main() -> int:
         entry_of("stencil_apply", "neptune_tpu_torch/csrc/nt_apply.cuh",
                  "neptune_tpu/lowering/pallas_backend.py:332",
                  launches["stencil_apply"] + mg_launches + p15["stencil_apply"]
-                 + p16["stencil_apply"], a_err,
+                 + p16["stencil_apply"] + p18["stencil_apply"], a_err,
                  a_ms, a_plain_ms, a_bound, a_lib, "jacobi5 4096^2 f32",
                  ["neptune_tpu/lowering/pallas_backend.py:845",
                   "neptune_tpu/lowering/pallas_backend.py:1094"]),
         entry_of("fused_cg", "neptune_tpu_torch/csrc/nt_fused_cg.cuh",
-                 "neptune_tpu/solvers/fused.py:201", launches["fused_cg"] + p15["fused_cg"],
+                 "neptune_tpu/solvers/fused.py:201",
+                 launches["fused_cg"] + p15["fused_cg"] + p18["fused_cg"],
                  b_err, b_ms,
                  b_plain_ms, b_bound, None, "poisson 512^2 jacobi tol 1e-4") | b_extra,
         entry_of("stencil_sweeps", "neptune_tpu_torch/csrc/nt_sweeps.cuh",
-                 "neptune_tpu/lowering/pallas_multisweep.py:406", dsl_launches["stencil_sweeps"],
+                 "neptune_tpu/lowering/pallas_multisweep.py:406",
+                 dsl_launches["stencil_sweeps"] + p18["stencil_sweeps"],
                  c_err, c_ms, c_plain_ms, c_bound, None, "jacobi5 4096^2 f32, 16 sweeps",
                  ["neptune_tpu/lowering/pallas_multisweep.py:676",
                   "neptune_tpu/lowering/pallas_multisweep.py:904"]),
         entry_of("stencil_chain", "neptune_tpu_torch/csrc/nt_chain.cuh",
-                 "neptune_tpu/lowering/pallas_chain.py:516", dsl_launches["stencil_chain"], d_err,
+                 "neptune_tpu/lowering/pallas_chain.py:516",
+                 dsl_launches["stencil_chain"] + p18["stencil_chain"], d_err,
                  d_ms, d_plain_ms, d_bound, d_lib, "u + 0.01 lap(lap u) 4096^2 f32"),
     ]
     for name, source, replaces, also in (
@@ -4011,7 +4307,7 @@ def main() -> int:
          "neptune_tpu/lowering/pallas_chain.py:516 (global_start)", None),
     ):
         k_ms, p_ms, bnd, lib, shape, err = forms[name]
-        n = sh_launches[name] + (
+        n = sh_launches[name] + p18[name] + (
             ca_launches + p15[name] + p16[name] if name == "stencil_apply_window" else 0)
         kernels.append(entry_of(name, source, replaces, n, err, k_ms, p_ms, bnd, lib, shape, also))
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s, builds included")

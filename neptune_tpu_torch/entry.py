@@ -13,8 +13,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
-import subprocess
 import sys
 import tempfile
 import time
@@ -27,6 +25,7 @@ import torch
 from .config import default_device
 from .ir import F32, F64, Bounds, NeptuneBuilder, TempType
 from .lowering.executor import CompiledModule
+from .parallel.distributed import local_ranks, mesh_shape_2d, spawn_ranks
 from .passes import compile_ir
 
 
@@ -130,16 +129,6 @@ def entry(device="cuda") -> tuple:
 
 
 # ---- the multi-process dry run -----------------------------------------------
-
-
-def _mesh_shape_2d(n_devices: int) -> tuple:
-    """Factor n_devices into the squarest 2-D mesh (a, b), a >= b."""
-    b = 1
-    for cand in range(int(n_devices**0.5), 0, -1):
-        if n_devices % cand == 0:
-            b = cand
-            break
-    return (n_devices // b, b)
 
 
 def _close(a, b, atol) -> bool:
@@ -307,7 +296,7 @@ def _dryrun_rank(rank: int, n: int, port: str, device: str, backend: str, out: s
     torch.set_num_threads(1)
     initialize_multihost(f"127.0.0.1:{port}", n, rank, backend=backend)
     dev = torch.device(device)
-    gm = GridMesh(_mesh_shape_2d(n), ("x", "y"), device=dev)
+    gm = GridMesh(mesh_shape_2d(n), ("x", "y"), device=dev)
     rng = np.random.default_rng(0)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     report = {"rank": rank, "device": str(dev), "seconds": {}, "failed": None}
@@ -350,74 +339,28 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     Returns {"mesh", "backend", "device", "wall_s", "seconds": per part,
     rank 0's}; raises RuntimeError naming the part when a process fails in
     one."""
-    dev = default_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() >= n_devices:
-        backend, devices = "cpu:gloo,cuda:nccl", [f"cuda:{r}" for r in range(n_devices)]
-    else:
-        backend = "gloo"
-        devices = [str(dev) if dev.type == "cpu" else "cuda:0"] * n_devices
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = str(sk.getsockname()[1])
-    root = str(Path(__file__).resolve().parents[1])
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = os.pathsep.join([root, env.get("PYTHONPATH", "")])
-    out = tempfile.mkdtemp(prefix="nt_dryrun_")
+    backend, devices = local_ranks(n_devices, default_device(device))
     t0 = time.perf_counter()
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-m", "neptune_tpu_torch.entry", "--dryrun-rank", str(r),
-             str(n_devices), port, devices[r], backend, out],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for r in range(n_devices)
-    ]
-    try:
-        logs = _wait(procs, DRYRUN_TIMEOUT)
+    with tempfile.TemporaryDirectory(prefix="nt_dryrun_") as out:
+        ranks = spawn_ranks(lambda r, port: [
+            "-m", "neptune_tpu_torch.entry", "--dryrun-rank", str(r), str(n_devices), port,
+            devices[r], backend, out], n_devices, DRYRUN_TIMEOUT)
         reports = [json.loads(Path(out, f"rank{r}.json").read_text())
                    if Path(out, f"rank{r}.json").exists() else None for r in range(n_devices)]
-    finally:
-        for pr in procs:
-            if pr.poll() is None:
-                pr.kill()
-                pr.wait()
-        for f in Path(out).iterdir():
-            f.unlink()
-        os.rmdir(out)
     wall = time.perf_counter() - t0
     failed = [(r, rep["failed"]) for r, rep in enumerate(reports) if rep and rep["failed"]]
     if failed:
         r, f = min(failed, key=lambda rf: rf[1]["part"])
         raise RuntimeError(
             f"dryrun_multichip({n_devices}) part {f['part']} ({f['name']}) failed on rank {r} "
-            f"of mesh {_mesh_shape_2d(n_devices)}:\n{f['error']}")
-    bad = [r for r, (pr, rep) in enumerate(zip(procs, reports)) if pr.returncode or rep is None]
+            f"of mesh {mesh_shape_2d(n_devices)}:\n{f['error']}")
+    bad = [r for r, ((code, _), rep) in enumerate(zip(ranks, reports)) if code or rep is None]
     if bad:
         raise RuntimeError(
             f"dryrun_multichip({n_devices}): ranks {bad} exited "
-            f"{[procs[r].returncode for r in bad]}:\n" + "\n".join(logs[r][-4000:] for r in bad))
-    return {"mesh": _mesh_shape_2d(n_devices), "backend": backend, "device": devices[0],
+            f"{[ranks[r][0] for r in bad]}:\n" + "\n".join(ranks[r][1][-4000:] for r in bad))
+    return {"mesh": mesh_shape_2d(n_devices), "backend": backend, "device": devices[0],
             "wall_s": wall, "seconds": reports[0]["seconds"]}
-
-
-def _wait(procs, timeout: float) -> list:
-    """Wait for every process; once one has reported a failure, give the
-    others a few seconds (their collectives may wait on it) and stop them."""
-    deadline = time.perf_counter() + timeout
-    failed_at = None
-    while any(pr.poll() is None for pr in procs):
-        now = time.perf_counter()
-        if now > deadline:
-            raise RuntimeError(f"dryrun_multichip: the processes did not finish in {timeout} s")
-        if failed_at is None and any(pr.poll() not in (None, 0) for pr in procs):
-            failed_at = now
-        if failed_at is not None and now - failed_at > 10:
-            break
-        time.sleep(0.1)
-    for pr in procs:
-        if pr.poll() is None:
-            pr.kill()
-    return [pr.communicate()[0] for pr in procs]
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--dryrun-rank"]:

@@ -37,7 +37,7 @@ this process's block of each result.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,6 +59,12 @@ def _check_backend(backend: str, allowed=_BACKENDS) -> None:
 def _kernels(backend: str) -> bool:
     """Whether the main sweeps go to the kernels' local forms."""
     return backend in ("auto", "cuda")
+
+
+def _module_backend(cm) -> str:
+    """The sharded backend a module's own backend implies: kernels off
+    ("torch") where the module has them off, "auto" otherwise."""
+    return "torch" if cm.backend == "torch" else "auto"
 
 
 class _ScalarArg(NamedTuple):
@@ -805,7 +811,7 @@ class _MeshRule:
         )
 
 
-def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Callable:
+def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: Optional[str] = None) -> Callable:
     """Explicit-communication sharded matvec for opdef @name: a function of
     this process's blocks (and the trailing scalars) returning its blocks
     of the results, on the route `plan_opdef` chooses.
@@ -815,6 +821,8 @@ def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Cal
     forms; "cuda" also sends every apply of the extended-block route to
     kernel A's window form (and keeps torus ops and composites off the
     fused routes, as the JAX package's "pallas"); "torch" runs eagerly.
+    Default: "torch" for a module compiled with backend "torch" (kernels
+    off), "auto" otherwise.
 
     The callable carries `gmesh` and the opdef's verified `halo` (what the
     solvers need to find the mesh and probe the diagonal exactly), and a
@@ -825,6 +833,7 @@ def shardmap_opdef(cm, name: str, gmesh: GridMesh, backend: str = "auto") -> Cal
     """
     from ..lowering.executor import rule_callable
 
+    backend = _module_backend(cm) if backend is None else backend
     rp = plan_opdef(cm, name, gmesh, backend)
     f = rule_callable(
         _MeshRule(cm, rp, gmesh, _route(cm, name, gmesh, rp, backend)), f"neptune_sharded_{name}"
@@ -869,15 +878,18 @@ def _route(cm, name: str, gmesh: GridMesh, rp: "RoutePlan", backend: str) -> Cal
     return local_fn
 
 
-def shardmap_sweeps(cm, name: str, gmesh: GridMesh, k: int, backend: str = "auto") -> Callable:
+def shardmap_sweeps(
+    cm, name: str, gmesh: GridMesh, k: int, backend: Optional[str] = None
+) -> Callable:
     """K relaxation sweeps per halo exchange (communication-avoiding): a
     function of this process's block (and the trailing scalars).
 
-    backend: "auto" (default) runs the main sweeps through kernel C's local
-    form where `sweeps.local_sweep_plan` takes the block (the sweeps left
-    over, and blocks it refuses, through kernel A's window form), as the
-    JAX package prefers its K-sweep window kernel, then its window kernel;
-    "torch" runs them eagerly.
+    backend: "auto" runs the main sweeps through kernel C's local form
+    where `sweeps.local_sweep_plan` takes the block (the sweeps left over,
+    and blocks it refuses, through kernel A's window form), as the JAX
+    package prefers its K-sweep window kernel, then its window kernel;
+    "torch" runs them eagerly. Default: "torch" for a module compiled with
+    backend "torch" (kernels off), "auto" otherwise.
 
     Each call exchanges K-deep ghost strips once and runs K sweeps locally:
     K zero-ghost sweeps on the block (each sweep's wrong zone grows by the
@@ -890,6 +902,7 @@ def shardmap_sweeps(cm, name: str, gmesh: GridMesh, k: int, backend: str = "auto
     """
     if k < 1:
         raise ValueError("k must be >= 1")
+    backend = _module_backend(cm) if backend is None else backend
     _check_backend(backend, ("auto", "torch"))
     fn = cm.module.lookup(name)
     halo = fn.attrs.get("halo")

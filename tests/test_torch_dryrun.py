@@ -37,4 +37,4 @@ def test_a_failing_part_is_named():
 
 @pytest.mark.parametrize("n", range(1, 17))
 def test_mesh_shape_is_the_jax_packages(n):
-    assert entry._mesh_shape_2d(n) == graft._mesh_shape_2d(n)
+    assert entry.mesh_shape_2d(n) == graft._mesh_shape_2d(n)

@@ -538,3 +538,40 @@ def test_composite_route_plans_its_chain_once(monkeypatch):
     assert len(calls) == 1 and calls[0][2] == (64, 128)
     assert all(torch.equal(y, ys[0]) for y in ys)
     assert torch.equal(ys[0], cm.opdef("wrapped")(x))
+
+
+@pytest.mark.parametrize("backend", ["torch", "auto"])
+def test_shardmap_routes_follow_a_kernels_off_module(monkeypatch, backend):
+    """shardmap_opdef and shardmap_sweeps of a module compiled with backend
+    "torch" (kernels off, as config.backend = "torch" compiles it) call no
+    kernel form unless asked; a kernel module ("auto") calls kernel A's
+    window form and kernel C's local form (their plain versions on the CPU)."""
+    from neptune_tpu_torch.parallel import shardmap_opdef, shardmap_sweeps
+
+    calls = []
+    window, local = cuda_backend.apply_window, sweeps.sweeps_local
+
+    def counted_window(*args, **kw):
+        calls.append("window")
+        return window(*args, **kw)
+
+    def counted_local(*args, **kw):
+        calls.append("local")
+        return local(*args, **kw)
+
+    monkeypatch.setattr(cuda_backend, "apply_window", counted_window)
+    monkeypatch.setattr(sweeps, "sweeps_local", counted_local)
+    cm = CompiledModule(stencils.poisson5(32), backend, "cpu")
+    gm = GridMesh((1, 1), ("x", "y"), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((32, 32), dtype=np.float32))
+    y = shardmap_opdef(cm, "poisson", gm)(x)
+    z = shardmap_sweeps(cm, "poisson", gm, 4)(x)
+    whole = cm.opdef("poisson")
+    assert torch.equal(y, whole(x))
+    assert torch.equal(z, whole(whole(whole(whole(x)))))
+    if backend == "torch":
+        assert calls == []
+        shardmap_opdef(cm, "poisson", gm, "auto")(x)  # asked for: the window form
+        assert calls == ["window"]
+    else:
+        assert "window" in calls and "local" in calls
