@@ -32,7 +32,7 @@ from ..solvers import krylov
 from ..solvers.assemble import MatrixHandle
 from ..solvers.newton import newton_krylov, picard
 from ..solvers.precond import make_preconditioner
-from ..utils.profiling import verbose_default
+from ..utils.profiling import span, verbose_default
 from ..utils.options import (
     LINEAR_OPTION_KEYS,
     NONLINEAR_OPTION_KEYS,
@@ -118,8 +118,9 @@ class OpDef:
             if isinstance(out, tuple):
                 return tuple(Expr(E.TempLeaf(o.type, ir_value=o)) for o in out)
             return Expr(E.TempLeaf(out.type, ir_value=out))
-        arrays = [_concrete_array(a) for a in args] + self._capture_args(eager=True)
-        return ctx.compiled().opdef(self.name)(*arrays)
+        with span("nt.call", symbol=self.name):
+            arrays = [_concrete_array(a) for a in args] + self._capture_args(eager=True)
+            return ctx.compiled().opdef(self.name)(*arrays)
 
     def matvec(self, x):
         """Eager matrix-free application (linear opdefs)."""

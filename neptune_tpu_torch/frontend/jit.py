@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ir.types import Bounds, FunctionType, ScalarType, TempType
+from ..utils.profiling import span
 from . import expr as E
 from .core import get_context
 from .dsl import Expr, MatrixExpr, _dtype_name
@@ -95,19 +96,21 @@ class JITClassWrapper:
         inst_attr = getattr(self._instance, name)
         if not callable(inst_attr):
             return inst_attr
+        symbol = f"{self._cls.__name__}.{name}"
 
         def method_proxy(*args):
             # cache per (method, arg signature): a call with other shapes or
             # dtypes traces a fresh IR function instead of failing the first
             # trace's shape check
-            key = (name, tuple(_signature(a) for a in args))
-            if key not in self._compiled_methods:
-                fn_name = f"{self._cls.__name__}_{name}"
-                if fn_name in self._ctx.module.functions:
-                    fn_name = f"{fn_name}_{len(self._compiled_methods)}_{id(self):x}"
-                trace_method(self._ctx, fn_name, inst_attr, args)
-                self._compiled_methods[key] = self._ctx.compiled().function(fn_name)
-            return self._compiled_methods[key](*args)
+            with span("nt.call", symbol=symbol):
+                key = (name, tuple(_signature(a) for a in args))
+                if key not in self._compiled_methods:
+                    fn_name = f"{self._cls.__name__}_{name}"
+                    if fn_name in self._ctx.module.functions:
+                        fn_name = f"{fn_name}_{len(self._compiled_methods)}_{id(self):x}"
+                    trace_method(self._ctx, fn_name, inst_attr, args)
+                    self._compiled_methods[key] = self._ctx.compiled().function(fn_name)
+                return self._compiled_methods[key](*args)
 
         return method_proxy
 

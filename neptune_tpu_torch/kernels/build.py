@@ -27,6 +27,7 @@ import time
 from pathlib import Path
 
 from ..config import config
+from ..utils.profiling import OFF, span
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -40,15 +41,36 @@ NVCC_FLAGS = (
 
 
 class LaunchCounter:
-    """Counts the launches of one kernel: its wrapper adds one where it
-    launches the kernel, and nowhere else."""
+    """Counts the launches of one kernel: its wrapper runs each launch, from
+    its argument checks to the return of the C call, inside `launch()`,
+    which adds one when the block ends without an exception and, while a
+    profiler runs, is the span `nt.launch.<name>` (`utils.profiling`)."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.span_name = f"nt.launch.{name}"
 
     def reset(self) -> None:
         self.count = 0
+
+    def launch(self):
+        """The boundary of one launch, as a context manager: the counter
+        itself, or while a profiler runs its span, which closes the counter
+        with it."""
+        s = span(self.span_name)
+        if s is OFF:
+            return self
+        s.counter = self
+        return s
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.count += 1
+        return False
 
 
 def check(status: int, what: str) -> None:

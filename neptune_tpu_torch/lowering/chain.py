@@ -527,27 +527,27 @@ def stencil_chain(plan: ChainPlan, fields: Sequence, scalars: Sequence, global_s
     global_start, the origin form over one local block, which needs a
     block's plan (`chain_plan(module, name, shape)`; counted as
     `stencil_chain_origin`)."""
-    what = "stencil_chain" if global_start is None else "stencil_chain_origin"
-    if global_start is not None and not plan.origin:
-        raise ValueError(f"{what}: @{plan.name}'s plan is the whole grid's, not a block's")
-    k = _launcher(plan)
-    shape = plan.shape
-    device = fields[0].device
-    ins = []  # held until the launch is queued
-    for j, a in enumerate(fields):
-        if a.device != device or a.device.type != "cuda" or tuple(a.shape) != shape:
-            raise ValueError(
-                f"{what}: field {tuple(a.shape)} on {a.device}, expected {shape} on cuda"
-            )
-        if a.dtype != torch.float32 or not a.is_contiguous():
-            a = a.to(torch.float32).contiguous()
-        ins.append(a)
-        k.in_ptrs[j] = a.data_ptr()
-    for j, v in enumerate(scalars):
-        k.scalars[j] = float(v)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    check(k.fn(device.index or 0, k.addrs[0], out.data_ptr(), k.addrs[1],
-               k.meta_addr(global_start), stream), f"{what} launch")
-    (counter if global_start is None else origin_counter).count += 1
-    return out
+    with (counter if global_start is None else origin_counter).launch():
+        what = "stencil_chain" if global_start is None else "stencil_chain_origin"
+        if global_start is not None and not plan.origin:
+            raise ValueError(f"{what}: @{plan.name}'s plan is the whole grid's, not a block's")
+        k = _launcher(plan)
+        shape = plan.shape
+        device = fields[0].device
+        ins = []  # held until the launch is queued
+        for j, a in enumerate(fields):
+            if a.device != device or a.device.type != "cuda" or tuple(a.shape) != shape:
+                raise ValueError(
+                    f"{what}: field {tuple(a.shape)} on {a.device}, expected {shape} on cuda"
+                )
+            if a.dtype != torch.float32 or not a.is_contiguous():
+                a = a.to(torch.float32).contiguous()
+            ins.append(a)
+            k.in_ptrs[j] = a.data_ptr()
+        for j, v in enumerate(scalars):
+            k.scalars[j] = float(v)
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(k.fn(device.index or 0, k.addrs[0], out.data_ptr(), k.addrs[1],
+                   k.meta_addr(global_start), stream), f"{what} launch")
+        return out

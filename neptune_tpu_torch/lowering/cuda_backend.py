@@ -238,18 +238,17 @@ def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, gl
     these global logical coordinates (counted as `stencil_apply_window`);
     the block's shape is the inputs', or `shape` for an apply with none.
     plan: the tiled plan to build, default `apply_plan(op)`."""
-    k = _launcher(op, plan)
     if global_start is None:
-        out = _launch(k, inputs, scalars, device, k.shape, k.meta_addr, "stencil_apply")
-        counter.count += 1
-        return out
-    shape = tuple(inputs[0].shape) if inputs else tuple(shape)
-    if len(shape) != len(k.shape):
-        raise ValueError(f"stencil_apply_window: block {shape} has not the rank of {k.shape}")
-    out = _launch(k, inputs, scalars, device, shape, k.window(shape, global_start),
-                  "stencil_apply_window")
-    window_counter.count += 1
-    return out
+        with counter.launch():
+            k = _launcher(op, plan)
+            return _launch(k, inputs, scalars, device, k.shape, k.meta_addr, "stencil_apply")
+    with window_counter.launch():
+        k = _launcher(op, plan)
+        shape = tuple(inputs[0].shape) if inputs else tuple(shape)
+        if len(shape) != len(k.shape):
+            raise ValueError(f"stencil_apply_window: block {shape} has not the rank of {k.shape}")
+        return _launch(k, inputs, scalars, device, shape, k.window(shape, global_start),
+                       "stencil_apply_window")
 
 
 def apply_window(op: Operation, inputs: Sequence, scalars: Sequence, global_start: Sequence[int],

@@ -57,7 +57,7 @@ from ..utils.options import (
     nonlinear_option_kwargs,
     split_precond_options,
 )
-from ..utils.profiling import report_solve, verbose_default
+from ..utils.profiling import report_solve, span, verbose_default
 from . import chain, cuda_backend, sweeps, torch_backend
 
 _BACKENDS = ("auto", "torch", "cuda")
@@ -182,11 +182,13 @@ def rule_callable(rule, name: str) -> Callable:
     result may be differentiated (`CompiledModule._differentiating`) and
     straight to the route otherwise, without the Function's host time
     (tens of microseconds per call)."""
+    symbol = getattr(rule, "name", name)
 
     def run(*args):
-        if CompiledModule._differentiating(args):
-            return _OpdefRule.apply(rule, *args)
-        return rule.route(*args)
+        with span("nt.run", symbol=symbol):
+            if CompiledModule._differentiating(args):
+                return _OpdefRule.apply(rule, *args)
+            return rule.route(*args)
 
     run.__name__ = name
     return run
@@ -308,14 +310,16 @@ class CompiledModule:
         n_full, rem = divmod(k, plan.depth) if plan is not None else (0, k)
 
         def run(x, *scalars):
-            if len(scalars) != n_scalars:
-                raise TypeError(f"sweeps(@{name}) expects {n_scalars} scalars, got {len(scalars)}")
-            u = self._tensor(x, torch_backend.DTYPES[fn.ftype.inputs[0].element])
-            for _ in range(n_full):
-                u = sweeps.run_sweeps(plan, u, scalars)
-            for _ in range(rem):
-                u = one(u, *scalars)
-            return u
+            with span("nt.run", symbol=name):
+                if len(scalars) != n_scalars:
+                    raise TypeError(
+                        f"sweeps(@{name}) expects {n_scalars} scalars, got {len(scalars)}")
+                u = self._tensor(x, torch_backend.DTYPES[fn.ftype.inputs[0].element])
+                for _ in range(n_full):
+                    u = sweeps.run_sweeps(plan, u, scalars)
+                for _ in range(rem):
+                    u = one(u, *scalars)
+                return u
 
         run.__name__ = f"neptune_sweeps_{name}"
         return run
@@ -330,22 +334,23 @@ class CompiledModule:
         n_args = plan.n_fields + plan.n_scalars
 
         def run(*args):
-            if len(args) != n_args:
-                raise TypeError(f"@{name} expects {n_args} args, got {len(args)}")
-            fields = []
-            for barg, a in zip(args_in[: plan.n_fields], args):
-                a = self._tensor(a, torch.float32)
-                if tuple(a.shape) != plan.outer.shape:
-                    raise TypeError(
-                        f"@{name} arg {barg.name_hint}: shape {tuple(a.shape)} != "
-                        f"declared {barg.type}"
-                    )
-                fields.append(a)
-            scalars = [
-                torch_backend.scalar_tensor(a, barg.type)
-                for barg, a in zip(args_in[plan.n_fields :], args[plan.n_fields :])
-            ]
-            return chain.run_chain(plan, fields, scalars)
+            with span("nt.run", symbol=name):
+                if len(args) != n_args:
+                    raise TypeError(f"@{name} expects {n_args} args, got {len(args)}")
+                fields = []
+                for barg, a in zip(args_in[: plan.n_fields], args):
+                    a = self._tensor(a, torch.float32)
+                    if tuple(a.shape) != plan.outer.shape:
+                        raise TypeError(
+                            f"@{name} arg {barg.name_hint}: shape {tuple(a.shape)} != "
+                            f"declared {barg.type}"
+                        )
+                    fields.append(a)
+                scalars = [
+                    torch_backend.scalar_tensor(a, barg.type)
+                    for barg, a in zip(args_in[plan.n_fields :], args[plan.n_fields :])
+                ]
+                return chain.run_chain(plan, fields, scalars)
 
         run.__name__ = f"neptune_chain_{name}"
         return run
@@ -378,35 +383,37 @@ class CompiledModule:
 
     def _make_callable(self, fn: Function) -> Callable:
         def run(*args):
-            if len(args) != len(fn.body.args):
-                raise TypeError(
-                    f"@{fn.name} expects {len(fn.body.args)} args, got {len(args)}"
-                )
-            env: dict[int, object] = {}
-            cells: dict[int, torch.Tensor] = {}
-            for barg, a in zip(fn.body.args, args):
-                t = barg.type
-                if isinstance(t, (TensorType, TempType)):
-                    a = self._tensor(a, torch_backend.DTYPES[t.element])
-                    want = self._arg_shape(t.bounds.shape if isinstance(t, TempType) else t.shape)
-                    if tuple(a.shape) != tuple(want):
-                        raise TypeError(
-                            f"@{fn.name} arg {barg.name_hint}: shape {tuple(a.shape)} != "
-                            f"declared {t}"
-                        )
-                    env[barg.uid] = a
-                elif isinstance(t, FieldType):
-                    a = self._tensor(a, torch_backend.DTYPES[t.element])
-                    env[barg.uid] = a
-                    cells[barg.uid] = a
-                elif isinstance(t, ScalarType):
-                    env[barg.uid] = torch_backend.scalar_tensor(a, t)
-                else:
-                    env[barg.uid] = a
-            outs = self._run_block(fn, env, cells)
-            if outs is None:
-                return None
-            return outs[0] if len(outs) == 1 else tuple(outs)
+            with span("nt.run", symbol=fn.name):
+                if len(args) != len(fn.body.args):
+                    raise TypeError(
+                        f"@{fn.name} expects {len(fn.body.args)} args, got {len(args)}"
+                    )
+                env: dict[int, object] = {}
+                cells: dict[int, torch.Tensor] = {}
+                for barg, a in zip(fn.body.args, args):
+                    t = barg.type
+                    if isinstance(t, (TensorType, TempType)):
+                        a = self._tensor(a, torch_backend.DTYPES[t.element])
+                        want = self._arg_shape(
+                            t.bounds.shape if isinstance(t, TempType) else t.shape)
+                        if tuple(a.shape) != tuple(want):
+                            raise TypeError(
+                                f"@{fn.name} arg {barg.name_hint}: shape {tuple(a.shape)} != "
+                                f"declared {t}"
+                            )
+                        env[barg.uid] = a
+                    elif isinstance(t, FieldType):
+                        a = self._tensor(a, torch_backend.DTYPES[t.element])
+                        env[barg.uid] = a
+                        cells[barg.uid] = a
+                    elif isinstance(t, ScalarType):
+                        env[barg.uid] = torch_backend.scalar_tensor(a, t)
+                    else:
+                        env[barg.uid] = a
+                outs = self._run_block(fn, env, cells)
+                if outs is None:
+                    return None
+                return outs[0] if len(outs) == 1 else tuple(outs)
 
         run.__name__ = f"neptune_{fn.name}"
         return run
@@ -560,49 +567,55 @@ class CompiledModule:
                 handle, b, solver=solver, tol=tol, max_iters=max_iters, precond=precond,
                 options=op.attrs.get("options"), verbose=_verbose(op),
             )
-        key = (id(op), handle.symbol)
-        if key not in self._fused_sites:
-            self._fused_sites[key] = self._fused_site(
-                handle, solver, opts, precond, tol, max_iters, b
-            )
-        solve_k = self._fused_sites[key]
-        if solve_k is not None:
-            x, iters, rn = solve_k(b)
-            if _verbose(op):
-                print(
-                    f"[neptune] KSP(cg/fused) {handle.symbol}: iters={int(iters)} "
-                    f"resnorm={float(rn):.3e}"
+        with span("nt.solve", solver=solver, precond=precond) as s:
+            key = (id(op), handle.symbol)
+            if key not in self._fused_sites:
+                self._fused_sites[key] = self._fused_site(
+                    handle, solver, opts, precond, tol, max_iters, b
                 )
-            return x
+            solve_k = self._fused_sites[key]
+            if solve_k is not None:
+                x, iters, rn = solve_k(b)
+                s.set(route="fused", iters=iters)
+                if _verbose(op):
+                    print(
+                        f"[neptune] KSP(cg/fused) {handle.symbol}: iters={int(iters)} "
+                        f"resnorm={float(rn):.3e}"
+                    )
+                return x
 
-        M = None
-        if precond == "mg":
-            M = self._mg_site(op, handle, b.device, pc_opts)
-        elif precond not in (None, "none"):
-            like = torch.zeros(handle.grid_shape, dtype=handle.dtype, device=b.device)
-            dense = handle.dense(b.device) if precond == "ssor_dense" else None
-            M = make_preconditioner(
-                precond, handle.matvec, like, handle.halo, dense_matrix=dense, **pc_opts
-            )
-        if solver == "direct":
-            if opts:
-                raise ValueError(f"solver='direct' takes no runtime options (got {sorted(opts)})")
-            x, info = krylov.direct(handle.dense(b.device), b)
-        else:
-            kw = linear_option_kwargs(solver, opts)
-            # Dirichlet lift (CG only): nonzero copy-through ring data in b
-            # breaks CG's M-symmetry under non-uniform preconditioners; see
-            # MatrixHandle.ring_lift. GMRES/BiCGStab handle the ring natively.
-            lift = handle.ring_lift(b) if solver == "cg" else None
-            b_eff = b if lift is None else b - handle.matvec(lift)
-            x, info = krylov.solve(
-                handle.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters, M=M, **kw
-            )
-            if lift is not None:
-                x = x + lift
-        if _verbose(op):
-            report_solve(f"KSP({solver})", handle.symbol, info)
-        return x
+            M = None
+            if precond == "mg":
+                M = self._mg_site(op, handle, b.device, pc_opts)
+            elif precond not in (None, "none"):
+                like = torch.zeros(handle.grid_shape, dtype=handle.dtype, device=b.device)
+                dense = handle.dense(b.device) if precond == "ssor_dense" else None
+                M = make_preconditioner(
+                    precond, handle.matvec, like, handle.halo, dense_matrix=dense, **pc_opts
+                )
+            if solver == "direct":
+                if opts:
+                    raise ValueError(
+                        f"solver='direct' takes no runtime options (got {sorted(opts)})")
+                x, info = krylov.direct(handle.dense(b.device), b)
+                s.set(route="direct")
+            else:
+                s.set(route="generic")
+                kw = linear_option_kwargs(solver, opts)
+                # Dirichlet lift (CG only): nonzero copy-through ring data in b
+                # breaks CG's M-symmetry under non-uniform preconditioners; see
+                # MatrixHandle.ring_lift. GMRES/BiCGStab handle the ring natively.
+                lift = handle.ring_lift(b) if solver == "cg" else None
+                b_eff = b if lift is None else b - handle.matvec(lift)
+                x, info = krylov.solve(
+                    handle.matvec, b_eff, solver=solver, tol=tol, maxiter=max_iters, M=M, **kw
+                )
+                if lift is not None:
+                    x = x + lift
+            s.set(iters=info.iters)
+            if _verbose(op):
+                report_solve(f"KSP({solver})", handle.symbol, info)
+            return x
 
     def _mg_site(self, op: Operation, handle: MatrixHandle, device, pc_opts: dict, gmesh=None):
         """precond="mg"'s M for one solve site: the hierarchy (coarsened
@@ -655,10 +668,12 @@ class CompiledModule:
             M_lo = make_preconditioner(
                 precond, lo, like32, handle.halo, origin=self._origin(tuple(b.shape))
             )
-        x, info = refined_solve(
-            handle.matvec, lo, b, solver=solver, tol=tol, inner_iters=max_iters, M_lo=M_lo,
-            group=self._reduction_group(b),
-        )
+        with span("nt.solve", solver=solver, precond=precond, route="mixed") as s:
+            x, info = refined_solve(
+                handle.matvec, lo, b, solver=solver, tol=tol, inner_iters=max_iters,
+                M_lo=M_lo, group=self._reduction_group(b),
+            )
+            s.set(iters=info.inner_iters)
         if verbose:
             print(
                 f"[neptune] KSP({solver}/mixed) {handle.symbol}: rounds={info.rounds} "

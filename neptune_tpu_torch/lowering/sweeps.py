@@ -339,23 +339,24 @@ def stencil_sweeps(plan: SweepPlan, x: torch.Tensor, scalars: Sequence, global_s
     """Launch kernel C once on a CUDA tensor: plan.depth sweeps. With
     global_start, the local form over one block (counted as
     `stencil_sweeps_local`)."""
-    k = _entry(plan)
-    if global_start is None:
-        shape, meta_addr, what = k.shape, k.meta_addr, "stencil_sweeps"
-    else:
-        shape, what = tuple(x.shape), "stencil_sweeps_local"
-        meta_addr = k.window(shape, global_start)
-    if x.device.type != "cuda" or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{what}: input {tuple(x.shape)} on {x.device}, expected {tuple(shape)} on cuda")
-    x = x.to(torch.float32).contiguous()
-    out = torch.empty_like(x)
-    for j, v in enumerate(scalars):
-        k.scalars[j] = float(v)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(
-        k.fn(x.device.index or 0, x.data_ptr(), out.data_ptr(), k.scalars_addr, meta_addr,
-             stream),
-        f"{what} launch",
-    )
-    (counter if global_start is None else local_counter).count += 1
-    return out
+    with (counter if global_start is None else local_counter).launch():
+        k = _entry(plan)
+        if global_start is None:
+            shape, meta_addr, what = k.shape, k.meta_addr, "stencil_sweeps"
+        else:
+            shape, what = tuple(x.shape), "stencil_sweeps_local"
+            meta_addr = k.window(shape, global_start)
+        if x.device.type != "cuda" or tuple(x.shape) != tuple(shape):
+            raise ValueError(
+                f"{what}: input {tuple(x.shape)} on {x.device}, expected {tuple(shape)} on cuda")
+        x = x.to(torch.float32).contiguous()
+        out = torch.empty_like(x)
+        for j, v in enumerate(scalars):
+            k.scalars[j] = float(v)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        check(
+            k.fn(x.device.index or 0, x.data_ptr(), out.data_ptr(), k.scalars_addr, meta_addr,
+                 stream),
+            f"{what} launch",
+        )
+        return out

@@ -376,20 +376,20 @@ class _Site:
         self.dinv = None if inv_diag is None else inv_diag.to(device, torch.float32).contiguous()
 
     def solve(self, b: torch.Tensor, tol: float, maxiter: int):
-        x = torch.empty_like(b)
-        iters = torch.empty((), dtype=torch.int32, device=b.device)
-        resnorm = torch.empty((), dtype=torch.float32, device=b.device)
-        check(
-            self.solve_fn(
-                self.index, b.data_ptr(), None if self.dinv is None else self.dinv.data_ptr(),
-                x.data_ptr(), self.exch.data_ptr(), self.part.data_ptr(),
-                iters.data_ptr(), resnorm.data_ptr(), tol, maxiter,
-                torch.cuda.current_stream(b.device).cuda_stream,
-            ),
-            "fused_cg launch",
-        )
-        counter.count += 1
-        return x, iters, resnorm
+        with counter.launch():
+            x = torch.empty_like(b)
+            iters = torch.empty((), dtype=torch.int32, device=b.device)
+            resnorm = torch.empty((), dtype=torch.float32, device=b.device)
+            check(
+                self.solve_fn(
+                    self.index, b.data_ptr(), None if self.dinv is None else self.dinv.data_ptr(),
+                    x.data_ptr(), self.exch.data_ptr(), self.part.data_ptr(),
+                    iters.data_ptr(), resnorm.data_ptr(), tol, maxiter,
+                    torch.cuda.current_stream(b.device).cuda_stream,
+                ),
+                "fused_cg launch",
+            )
+            return x, iters, resnorm
 
     def barrier_floor_us(self, iters: int) -> float:
         """Microseconds per iteration of the barrier probe at this site's

@@ -1336,3 +1336,84 @@ def test_pinned_cg_kernel_route_equals_kernels_off(cuda, monkeypatch):
         runs[route] = (x, info.iters, cuda_backend.counter.count - before)
     assert runs["auto"][1] == runs["torch"][1] and torch.equal(runs["auto"][0], runs["torch"][0])
     assert runs["auto"][2] == runs["auto"][1] + 1 and runs["torch"][2] == 0
+
+
+# ---- the port's spans on the card -------------------------------------------
+
+
+def _profiled_kernels(fn, tmp_path, part: str):
+    """fn() under torch.profiler (CPU and CUDA): the kernels in the trace
+    whose name holds `part`."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel" and part in e.get("name", "")]
+
+
+def _poisson_solve(cuda):
+    module = stencils.with_solve(stencils.poisson5(64), "poisson", solver="cg", tol=1e-4,
+                                 max_iters=500, precond="jacobi")
+    b = torch.zeros((64, 64), device=cuda)
+    b[1:-1, 1:-1] = _randn((62, 62), cuda, 1)
+    return CompiledModule(module).function("solve"), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["stencil_apply", "fused_cg"])
+def test_launch_spans_equal_counters_and_kernels(which, cuda, tmp_path):
+    from neptune_tpu_torch.utils import profiling
+
+    if which == "stencil_apply":
+        op = CompiledModule(stencils.jacobi5((96, 128))).opdef("jacobi")
+        x = torch.rand((96, 128), device=cuda)
+        counter, part, n = cuda_backend.counter, "nt_apply", 7
+
+        def run():
+            for _ in range(n):
+                op(x)
+    else:
+        solve, b = _poisson_solve(cuda)
+        counter, part, n = fused.counter, "nt_fused_cg", 3
+
+        def run():
+            for _ in range(n):
+                solve(b)
+
+    run()  # built and warmed outside the profile
+    torch.cuda.synchronize()
+    profiling.clear()
+    before = counter.count
+    kernels = _profiled_kernels(run, tmp_path, part)
+    spans = [s for s in profiling.spans() if s["name"] == f"nt.launch.{which}"]
+    assert len(spans) == counter.count - before == len(kernels) == n
+    profiling.clear()
+
+
+@pytest.mark.gpu
+def test_fused_iters_attribute_is_the_kernels_scalar(cuda, tmp_path, monkeypatch):
+    from neptune_tpu_torch.utils import profiling
+
+    wrote = []
+    site_solve = fused._Site.solve
+
+    def spy(self, b, tol, maxiter):
+        out = site_solve(self, b, tol, maxiter)
+        wrote.append(out[1])
+        return out
+
+    monkeypatch.setattr(fused._Site, "solve", spy)
+    solve, b = _poisson_solve(cuda)
+    solve(b)
+    torch.cuda.synchronize()
+    wrote.clear()
+    profiling.clear()
+    _profiled_kernels(lambda: solve(b), tmp_path, "nt_fused_cg")
+    (s,) = [s for s in profiling.spans() if s["name"] == "nt.solve"]
+    assert s["attrs"]["route"] == "fused" and s["attrs"]["iters"] == int(wrote[0].item()) > 0
+    profiling.clear()
