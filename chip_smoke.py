@@ -18,9 +18,10 @@ line, the card's nvidia-smi line, and the result line):
   1. device and build: versions, nvcc seconds per library;
   2. kernel A (stencil_apply) against its plain version: f32 bitwise, bf16
      within one bf16 ulp;
-  3. kernel B (fused_cg) against its plain version: iterations within 1,
-     true residual, solution within 1e-4; per solve its time, time per
-     iteration, tiling, and the barrier floor at its grid size;
+  3. kernel B (fused_cg) against its plain version, both lifting the ring
+     that the solve site finds (the composite case has none): iterations
+     within 1, true residual, solution within 1e-4; per solve its time, time
+     per iteration, tiling, and the barrier floor at its grid size;
   4. the first main path end to end, with launch counts, against plain runs;
   5. kernel C (stencil_sweeps) against its plain version and against the
      same sweeps as kernel-A launches, bitwise, with launch counts and
@@ -180,12 +181,15 @@ F32_OPS_PER_S = 67e12
 
 
 # kernel B's systems, (label, system, opdef, tol, maxiter, Jacobi): the entry
-# step's and bench.py's cg_poisson_256 and cg_poisson_512 rows; phase 3 and
-# scripts/torch_fused_cg_times.py solve these
+# step's and bench.py's cg_poisson_256 and cg_poisson_512 rows, whose
+# operators copy a Dirichlet ring through (the site lifts it), and a
+# composite of two Laplacians, which has no ring; phase 3 and
+# scripts/torch_kernel_times.py solve these
 B_SYSTEMS = [
     ("heat_A 256^2 tol 1e-6", "heat_A 256", "heat_A", 1e-6, 200, False),
     ("poisson 256^2 jacobi tol 1e-4", "poisson 256", "poisson", 1e-4, 3500, True),
     ("poisson 512^2 jacobi tol 1e-4", "poisson 512", "poisson", 1e-4, 5500, True),
+    ("lap_lap 256^2 tol 1e-5", "composite 256", "wrapped", 1e-5, 2000, False),
 ]
 
 
@@ -197,6 +201,8 @@ def b_system(system: str):
     kind, n = system.split()
     if kind == "heat_A":
         return entry.build_step(int(n), "float32").module
+    if kind == "composite":
+        return stencils.composite((int(n), int(n)))
     return stencils.poisson5(int(n))
 
 
@@ -3910,7 +3916,9 @@ def main() -> int:
         x_k, it_k, rn_k = solve(b)
         torch.cuda.synchronize()
         launched = fused.counter.count - before
-        x_p, it_p, rn_p = fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv)
+        lift = solve.lift  # the site's ring lift, as the executor's solve site runs it
+        x_p, it_p, rn_p = fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv,
+                                               lift=lift)
         bnorm = torch.linalg.norm(b).item()
         res_k = torch.linalg.norm(b - matvec(x_k)).item()
         res_p = torch.linalg.norm(b - matvec(x_p)).item()
@@ -3926,7 +3934,9 @@ def main() -> int:
         k_ms = cuda_ms(lambda: solve(b), reps=3 if iters > 1000 else 20)
         k_dev = device_us(lambda: solve(b), 3, "nt_fused_cg_kernel")
         p_ms = cuda_ms(
-            lambda: fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv), reps=1
+            lambda: fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv,
+                                         lift=lift),
+            reps=1,
         )
         cells = float(np.prod(n))
         # per iteration: the matvec's stages, then 13 vector operations per
@@ -3939,7 +3949,8 @@ def main() -> int:
         plan = site.plan
         floor = site.barrier_floor_us(2000)
         us_it = k_ms * 1e3 / max(iters, 1)
-        say(f"phase 3 fused_cg {label}: bound {b_ms_cg:.4f} ms ({b_by_cg}), library none; "
+        say(f"phase 3 fused_cg {label}: lift {lift}; bound {b_ms_cg:.4f} ms ({b_by_cg}), "
+            f"library none; "
             f"barrier floor {floor:.3f} us/iter; "
             f"{plan.blocks} blocks of tile {plan.tile} + halo {plan.halo}, "
             f"{plan.smem_bytes} B smem; iters kernel {iters} plain {int(it_p)}; "

@@ -40,6 +40,17 @@
 // and the next 1, so one copy suffices; the partial sums take turns in two
 // slot sets (nt_cg_allreduce).
 //
+// The prologue starts from the Dirichlet lift x0 = b outside the plan's
+// interior box, 0 inside. Where the operator copies its value through
+// outside that box (a ring), this keeps the iterates in the symmetric
+// interior subspace (MatrixHandle.ring_lift); where the box is the whole
+// grid, x0 = 0 and r0 = b exactly. p := the lift on the tile and halo,
+// straight from b; one matvec; x0, r0 = b - A x0 (0 on a ring) and the
+// r.z, b.b, r.r partials on the tile; the edge z0 published. The
+// prologue's reduction barrier is then the exchange barrier too, as barrier
+// 2 is in the loop, and p0 = z0 on the halo comes from the published edges.
+// One matvec a solve, no barrier of its own.
+//
 // Reductions are deterministic: each block writes its partial sums, and
 // after the barrier one warp of every block sums all blocks' partials in the
 // same fixed order, so every block takes the same loop decision and a rerun
@@ -65,6 +76,7 @@
 //   static constexpr int kTiles2, kBlocks;      // tiles along dim 2, in all
 //   static constexpr int kEdge1, kEdge2;        // published depth per side
 //   static constexpr int kBuffers, kSmem;       // stage buffers, bytes
+//   static NtBox interior();                    // the lift's box (above)
 //   static NtGrid grid();
 //   template <class Put> static void matvec(g, org, tab, p, buf, put);
 // whose matvec runs nt_cg_stage per intermediate stage and nt_cg_apply for
@@ -243,7 +255,7 @@ __device__ __forceinline__ void nt_cg_block_sums(double (&v)[NV]) {
 // each total to f32 once: the same in every block. Reductions alternate
 // between two slot sets (e % 2), so a block that has passed the next
 // barrier never overwrites sums that a slower block is still loading.
-constexpr int kNtCgSlots = 2;
+constexpr int kNtCgSlots = 3;
 
 template <int NB, int NV, class Barrier>
 __device__ __forceinline__ void nt_cg_allreduce(double (&v)[NV], double* part, int e,
@@ -342,37 +354,62 @@ __global__ void __launch_bounds__(kNtCgThreads) nt_fused_cg_kernel(const NtCgArg
            t2 >= Tl::T2 - P::kEdge2;
   };
 
-  // x0 = 0, r0 = b on the tile; p0 = z0 on the tile and its halo
-  double init[2] = {0.0, 0.0};  // r.z, b.b
-  nt_cg_for<0, 0, Tl::T1, Tl::T2>([&](int t1, int t2, int j) {
-    float bv = 0.0f, dv = 0.0f;
-    if (owned(t1, t2)) {
-      bv = a.b[cell(t1, t2)];
-      if (PRECOND) dv = a.dinv[cell(t1, t2)];
-      const float zv = PRECOND ? bv * dv : bv;
-      init[0] += (double)(bv * zv);
-      init[1] += (double)(bv * bv);
-    }
-    sx[j] = 0.0f;
-    sr[j] = bv;
-    sd[j] = dv;
-  });
+  // x0 = the lift: p := b outside the interior, 0 inside, on the tile and
+  // its halo, from b itself
+  const NtBox inside = P::interior();
   nt_cg_for<0, 0, Tl::W1, Tl::W2>([&](int p1, int p2, int) {
     int w0, w1, w2;
     nt_tile_cell<Tl, P::kWrap>(org, tab, 0, p1, p2, w0, w1, w2);
+    float lv = 0.0f;
+    if ((P::kWrap || nt_in_grid(g.n, w0, w1, w2)) && !nt_in_box(inside, w0, w1, w2))
+      lv = a.b[(long long)w1 * P::kN2 + w2];
+    p[Tl::at(0, p1, p2)] = lv;
+  });
+  __syncthreads();
+  P::matvec(g, org, tab, p, buf, [&](int, int, int j, float v) { sap[j] = v; });
+  __syncthreads();
+  // r0 = b - A x0 on the tile (0 on a ring, which A copies through); the
+  // partials; the edge z0 published
+  double init[3] = {0.0, 0.0, 0.0};  // r.z, b.b, r.r
+  nt_cg_for<0, 0, Tl::T1, Tl::T2>([&](int t1, int t2, int j) {
+    float xv = 0.0f, rv = 0.0f, dv = 0.0f;
+    if (owned(t1, t2)) {
+      const float bv = a.b[cell(t1, t2)];
+      if (PRECOND) dv = a.dinv[cell(t1, t2)];
+      xv = p[Tl::at(0, t1 + Tl::H1, t2 + Tl::H2)];
+      rv = bv - sap[j];
+      const float zv = PRECOND ? rv * dv : rv;
+      init[0] += (double)(rv * zv);
+      init[1] += (double)(bv * bv);
+      init[2] += (double)(rv * rv);
+      if (edge(t1, t2)) a.exch[cell(t1, t2)] = zv;
+    }
+    sx[j] = xv;
+    sr[j] = rv;
+    sd[j] = dv;
+  });
+  float tot[3];
+  nt_cg_allreduce<NB>(init, a.part, 0, tot, barrier);
+  // p0 = z0 on the tile and its halo, the halo's from the published edges
+  nt_cg_for<0, 0, Tl::W1, Tl::W2>([&](int p1, int p2, int) {
+    const int t1 = p1 - Tl::H1, t2 = p2 - Tl::H2;
     float zv = 0.0f;
-    if (P::kWrap || nt_in_grid(g.n, w0, w1, w2)) {
-      const long long c = (long long)w1 * P::kN2 + w2;
-      zv = PRECOND ? a.b[c] * a.dinv[c] : a.b[c];
+    if (owned(t1, t2)) {
+      const int j = t1 * Tl::T2 + t2;
+      zv = PRECOND ? sr[j] * sd[j] : sr[j];
+    } else {
+      int w0, w1, w2;
+      nt_tile_cell<Tl, P::kWrap>(org, tab, 0, p1, p2, w0, w1, w2);
+      if (P::kWrap || nt_in_grid(g.n, w0, w1, w2))
+        zv = __ldcg(a.exch + (long long)w1 * P::kN2 + w2);
     }
     p[Tl::at(0, p1, p2)] = zv;
   });
-  float tot[2];
-  nt_cg_allreduce<NB>(init, a.part, 0, tot, barrier);
+  __syncthreads();
   const float bnorm = sqrtf(tot[1]);
   float rz_cur = tot[0];
+  float rn = sqrtf(tot[2]);
   const float goal = a.tol * (bnorm == 0.0f ? 1.0f : bnorm);
-  float rn = bnorm;
   int k = 0;
 
   while (k < a.maxiter && rn > goal) {

@@ -26,10 +26,10 @@ import torch
 
 from ..config import config, default_device
 from ..ir.types import Bounds, Location, TempType, TimeMethod
-from ..lowering.executor import auto_mg_preconditioner, report_solve, single_apply_interior
+from ..lowering.executor import auto_mg_preconditioner, report_solve
 from ..lowering.torch_backend import DTYPES
 from ..solvers import krylov
-from ..solvers.assemble import MatrixHandle
+from ..solvers.assemble import MatrixHandle, single_apply_interior
 from ..solvers.newton import newton_krylov, picard
 from ..solvers.precond import make_preconditioner
 from ..utils.profiling import span, verbose_default

@@ -260,7 +260,8 @@ def fused_cg_source(plan) -> str:
     generated body per stage, the tiling as constants, and the matvec that
     runs the stages over the tile's shrinking regions in shared memory, the
     last one over the tile itself into `put`. Along a dim that stores no
-    halo every stage runs over the tile."""
+    halo every stage runs over the tile. `interior()` gives the plan's
+    interior box, outside which the prologue starts x from b."""
     structs, calls = [], []
     last = len(plan.stages) - 1
     for i, st in enumerate(plan.stages):
@@ -289,6 +290,7 @@ def fused_cg_source(plan) -> str:
     stages = "\n".join(calls)
     (t0, t1), (h0, h1), (e0, e1) = plan.tile, plan.halo, plan.edge
     grid = grid_literal(plan.shape, plan.lb, (0, 0), (1, 1))
+    (l0, u0), (l1, u1) = plan.interior
     return (
         '#include "nt_fused_cg.cuh"\n\n'
         + "\n".join(structs)
@@ -301,6 +303,9 @@ struct NtCgPlan {{
   static constexpr int kEdge1 = {e0}, kEdge2 = {e1};
   static constexpr int kBuffers = {plan.n_buffers};
   static constexpr int kSmem = {plan.smem_bytes};
+  static __device__ __forceinline__ NtBox interior() {{
+    return NtBox{{{{0, {l0}, {l1}}}, {{1, {u0}, {u1}}}}};
+  }}
   static __device__ __forceinline__ NtGrid grid() {{ return NtGrid{grid}; }}
   template <class Put>
   static __device__ __forceinline__ void matvec(const NtGrid& g, const int (&org)[3],

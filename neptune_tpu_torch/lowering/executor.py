@@ -47,7 +47,7 @@ from ..ir.core import Function, Module, Operation
 from ..ir.types import Bounds, FieldType, ScalarType, TempType, TensorType, TimeMethod
 from ..kernels.build import LaunchCounter
 from ..solvers import fused, krylov
-from ..solvers.assemble import MatrixHandle
+from ..solvers.assemble import MatrixHandle, single_apply_interior
 from ..solvers.newton import newton_krylov, picard
 from ..solvers.precond import make_preconditioner, safe_inv_diag
 from ..utils.options import (
@@ -576,7 +576,7 @@ class CompiledModule:
             solve_k = self._fused_sites[key]
             if solve_k is not None:
                 x, iters, rn = solve_k(b)
-                s.set(route="fused", iters=iters)
+                s.set(route="fused", iters=iters, lift=int(solve_k.lift is not None))
                 if _verbose(op):
                     print(
                         f"[neptune] KSP(cg/fused) {handle.symbol}: iters={int(iters)} "
@@ -688,7 +688,8 @@ class CompiledModule:
         as atol/divtol/restart are honored only by the generic path).
         Decided, planned and (for Jacobi) given its inverse diagonal once;
         the site builds and allocates on each device at its first solve
-        there."""
+        there. It lifts the copy-through ring where the generic route's
+        `ring_lift` would (`fused.ring_of`), in the kernel's prologue."""
         if not (
             solver == "cg"
             and not opts
@@ -850,25 +851,6 @@ class CompiledModule:
         rhs_sym = op.attrs.get("rhs")
         k = self.opdef(rhs_sym)(state) if rhs_sym else torch.zeros_like(state)
         return state + dt * k
-
-
-def single_apply_interior(fn: Function):
-    """The apply bounds of a unary single-apply opdef whose copy-through
-    seed is the opdef argument — the structure MatrixHandle.ring_lift
-    needs ((A z)_ring = z_ring exactly). None for anything else."""
-    ap = None
-    for op in fn.body.ops:
-        if op.name == "neptune.apply":
-            if ap is not None:
-                return None
-            ap = op
-        elif op.name not in ("neptune.return", "arith.constant"):
-            return None
-    if ap is None or not fn.body.args:
-        return None
-    if not ap.operands or ap.operands[0].uid != fn.body.args[0].uid:
-        return None
-    return ap.attrs.get("bounds")
 
 
 class _CoarseOp:

@@ -14,7 +14,44 @@ from typing import Callable, Optional
 import torch
 
 from ..config import default_device
+from ..ir.core import Function
 from ..ir.types import TempType
+
+
+def single_apply_interior(fn: Function):
+    """The apply bounds of a unary single-apply opdef whose copy-through
+    seed is the opdef argument — the structure MatrixHandle.ring_lift
+    needs ((A z)_ring = z_ring exactly). None for anything else."""
+    ap = None
+    for op in fn.body.ops:
+        if op.name == "neptune.apply":
+            if ap is not None:
+                return None
+            ap = op
+        elif op.name not in ("neptune.return", "arith.constant"):
+            return None
+    if ap is None or not fn.body.args:
+        return None
+    if not ap.operands or ap.operands[0].uid != fn.body.args[0].uid:
+        return None
+    return ap.attrs.get("bounds")
+
+
+def ring_box(interior, outer) -> Optional[tuple]:
+    """`interior` (a single-apply opdef's copy-through bounds, or None) as
+    per-dim (start, stop) indices of `outer`, or None where it leaves no
+    ring: unknown structure, or the whole domain."""
+    if interior is None or interior == outer:
+        return None
+    return tuple((s.start, s.stop) for s in interior.rel_slices(outer))
+
+
+def lift_outside(b, box):
+    """The Dirichlet lift: b outside the interior `box` (per dim (start,
+    stop), as `ring_box` gives it), 0 inside."""
+    inside = torch.zeros(b.shape, dtype=torch.bool, device=b.device)
+    inside[tuple(slice(lo, hi) for lo, hi in box)] = True
+    return torch.where(inside, torch.zeros_like(b), b)
 
 
 @dataclass
@@ -73,15 +110,8 @@ class MatrixHandle:
         symmetric interior subspace) and returns x_int + lift. One matvec,
         exact.
         """
-        if self.interior is None:
-            return None
-        outer = self.temp_type.bounds
-        if self.interior == outer:
-            return None
-        from ..lowering.torch_backend import interior_mask
-
-        inside = interior_mask(self.interior, outer, b.device)
-        return torch.where(inside, torch.zeros_like(b), b)
+        box = ring_box(self.interior, self.temp_type.bounds)
+        return None if box is None else lift_outside(b, box)
 
     def diagonal(self, device=None) -> torch.Tensor:
         """Exact diagonal via stencil-period probing (see solvers.precond)."""

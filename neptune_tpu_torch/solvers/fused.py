@@ -20,6 +20,15 @@ Here:
     for a CPU tensor and launches the kernel for a CUDA tensor, or raises.
     It plans, builds and allocates its workspace once per device;
   * `fused_cg_plain`: the same recurrence in eager PyTorch.
+
+A solve site starts CG from the Dirichlet lift where the operator has a
+copy-through ring (`ring_of`: a single apply whose cells outside an
+interior box copy their value through, the structure the generic route's
+`MatrixHandle.ring_lift` lifts): x0 = b on the ring and 0 inside, so
+r0 = b - A x0 is 0 on the ring and the iterates stay in the symmetric
+interior subspace. Elsewhere the plan's interior box is the whole grid and
+x0 = 0. The kernel computes the lift in its prologue, with one matvec and
+no barrier of its own; `fused_cg_plain` takes the box as `lift`.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..ir.types import StencilShape, TempType
 from ..kernels import codegen
 from ..kernels.build import LaunchCounter, builder, check
 from ..lowering import torch_backend
+from .assemble import lift_outside, ring_box, single_apply_interior
 
 # the JAX package's cap on the fused solve's working set (7 vectors); kept so
 # that the same solves take the fused route in both packages
@@ -120,7 +130,9 @@ class CgPlan:
     itself). buffer[i]: the shared-memory buffer of intermediate stage i (p
     has its own, and the last stage writes Ap). edge: per dim, how deep into
     its tile from each side a block publishes z for the other blocks'
-    halos."""
+    halos. interior: per dim (start, stop) in grid indices, the box outside
+    which the prologue starts x from b: the copy-through ring's interior
+    (`ring_of`), or the whole grid, where x0 = 0."""
 
     stages: list
     shape: tuple
@@ -135,6 +147,7 @@ class CgPlan:
     tiles: tuple
     edge: tuple
     smem_bytes: int
+    interior: tuple
 
     @property
     def blocks(self) -> int:
@@ -227,6 +240,14 @@ def cg_smem_bytes(tile, halo, n_buffers: int, periodic: bool) -> int:
     return 4 * ((1 + n_buffers) * w1 * w2 + 4 * tile[0] * tile[1] + tab)
 
 
+def ring_of(module: Module, name: str) -> Optional[tuple]:
+    """The interior box of opdef @name, per dim (start, stop) in grid
+    indices, where the cells outside it are a copy-through ring that a solve
+    lifts (`MatrixHandle.ring_lift`); None where it has none."""
+    fn = module.lookup(name)
+    return ring_box(single_apply_interior(fn), fn.ftype.inputs[0].bounds)
+
+
 def cg_plan(module: Module, name: str, sms: int = SMS) -> Optional[CgPlan]:
     """Plan kernel B for opdef @name on a card with `sms` SMs, or None when
     one block's state does not fit in shared memory. FusionError if the
@@ -256,6 +277,7 @@ def cg_plan(module: Module, name: str, sms: int = SMS) -> Optional[CgPlan]:
         reach=reach, halo=halo, periodic=periodic, buffer=buffer, n_buffers=n_buffers,
         tile=tile, tiles=tiles, edge=edge_depth(bounds.shape, halo, tile, tiles, periodic),
         smem_bytes=smem(tile, halo),
+        interior=ring_of(module, name) or tuple((0, n) for n in bounds.shape),
     )
 
 
@@ -303,20 +325,28 @@ def _dot(a, b):
     return torch.sum(a * b, dtype=torch.float64).to(torch.float32)
 
 
-def fused_cg_plain(matvec: Callable, b, *, tol: float, maxiter: int, inv_diag=None):
+def fused_cg_plain(matvec: Callable, b, *, tol: float, maxiter: int, inv_diag=None, lift=None):
     """The fused kernel's CG recurrence in eager PyTorch: x0 = 0, r0 = b, the
-    recurrence residual against tol * ||b||. Returns (x, iters, resnorm)."""
+    recurrence residual against tol * ||b||. With `lift` (an interior box,
+    as CgPlan.interior), x0 = lift_outside(b, lift) and r0 = b - A x0, whose
+    norm the first test reads; the target stays tol * ||b||. Returns
+    (x, iters, resnorm)."""
     b = b.to(torch.float32)
     dinv = None if inv_diag is None else inv_diag.to(torch.float32)
     one = torch.ones((), dtype=torch.float32, device=b.device)
     bnorm = torch.sqrt(_dot(b, b))
     target = tol * torch.where(bnorm == 0, one, bnorm)
-    x = torch.zeros_like(b)
-    r = b
+    if lift is None:
+        x = torch.zeros_like(b)
+        r = b
+        rn = bnorm
+    else:
+        x = lift_outside(b, lift)
+        r = b - matvec(x)
+        rn = torch.sqrt(_dot(r, r))
     z = r * dinv if dinv is not None else r
     p = z
     rz = _dot(r, z)
-    rn = bnorm
     k = 0
     while k < maxiter and bool((rn > target).item()):
         Ap = matvec(p)
@@ -335,18 +365,15 @@ def fused_cg_plain(matvec: Callable, b, *, tol: float, maxiter: int, inv_diag=No
 
 
 class _Site:
-    """Kernel B on one device: the plan (`supported`'s own, for SMS blocks),
-    the built library, the inverse diagonal on the device, and the workspace
-    that every solve of the site reuses (the exchange grid and the blocks'
-    partial sums). Solves of one site run one at a time, in stream order.
+    """Kernel B of `plan` on one device: the built library, the inverse
+    diagonal on the device, and the workspace that every solve of the site
+    reuses (the exchange grid and the blocks' partial sums). Solves of one site run one at a time, in stream order.
     Raises before any launch if the card cannot hold the plan's blocks
     co-resident."""
 
-    def __init__(self, module: Module, name: str, device: torch.device, inv_diag):
+    def __init__(self, plan: CgPlan, device: torch.device, inv_diag):
         self.index = device.index
-        self.plan = cg_plan(module, name)
-        if self.plan is None:
-            raise RuntimeError(f"fused_cg: @{name}'s tile state does not fit in shared memory")
+        self.plan = plan
         lib = builder.load(codegen.fused_cg_source(self.plan), "fused_cg")
         setup = lib.nt_fused_cg_setup
         setup.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -415,19 +442,21 @@ class _Site:
 
 
 # csrc/nt_fused_cg.cuh's kNtCgSlots: sums per block and reduction
-_SLOTS = 2
+_SLOTS = 3
 
 
 class FusedCG:
     """solve(b) -> (x, iters, resnorm): the whole (optionally
     Jacobi-preconditioned) CG solve of opdef @name in one kernel launch on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor, the plain version on a CPU tensor. Both lift the operator's
+    copy-through ring, whose interior box is `lift` (None: no ring)."""
 
     def __init__(self, module: Module, name: str, tol: float, maxiter: int, inv_diag):
         self.module, self.name, self.tol, self.maxiter = module, name, tol, maxiter
         self.shape = module.lookup(name).ftype.inputs[0].bounds.shape
         self.stages = matvec_plan(module, name)
         self.inv_diag = inv_diag
+        self.lift = ring_of(module, name)
         self._sites: dict = {}
 
     def site(self, device) -> _Site:
@@ -440,7 +469,12 @@ class FusedCG:
         key = (device, config.fold_affine)
         hit = self._sites.get(key)
         if hit is None:
-            hit = self._sites[key] = _Site(self.module, self.name, device, self.inv_diag)
+            plan = cg_plan(self.module, self.name)
+            if plan is None:
+                raise RuntimeError(
+                    f"fused_cg: @{self.name}'s tile state does not fit in shared memory"
+                )
+            hit = self._sites[key] = _Site(plan, device, self.inv_diag)
         return hit
 
     def __call__(self, b):
@@ -450,7 +484,8 @@ class FusedCG:
         if b.device.type == "cpu":
             dinv = None if self.inv_diag is None else self.inv_diag.to(b.device, torch.float32)
             return fused_cg_plain(
-                plain_matvec(self.stages), b, tol=self.tol, maxiter=self.maxiter, inv_diag=dinv
+                plain_matvec(self.stages), b, tol=self.tol, maxiter=self.maxiter, inv_diag=dinv,
+                lift=self.lift,
             )
         if b.device.type != "cuda":
             raise ValueError(f"fused_cg: no kernel for device {b.device}")

@@ -30,7 +30,8 @@ The port's spans (PERF.md §3 names the metric each feeds):
   * ``nt.run`` — each callable the executor hands out; nested ones nest;
   * ``nt.solve`` — the executor's solve site (`solver`, `precond`, `route`:
     fused, generic, direct or mixed, and `iters`: kernel B's own device
-    scalar on the fused route);
+    scalar on the fused route, where `lift` is 1 if kernel B lifts the
+    copy-through ring and 0 if not);
   * ``nt.launch.<counter>`` — a kernel launch wrapper, from its argument
     checks to the return of its C call, where its `LaunchCounter` counts.
 """

@@ -27,6 +27,7 @@ from neptune_tpu_torch import entry, stencils  # noqa: E402
 from neptune_tpu_torch.ir import F32, Bounds, NeptuneBuilder, TempType  # noqa: E402
 from neptune_tpu_torch.ir import verify_and_annotate  # noqa: E402
 from neptune_tpu_torch.solvers import fused  # noqa: E402
+from neptune_tpu_torch.solvers.assemble import lift_outside  # noqa: E402
 from neptune_tpu_torch.solvers.precond import extract_diagonal, safe_inv_diag  # noqa: E402
 
 CAP_CELLS = 12 * 1024 * 1024 // 28  # the fused route's working-set cap, in cells
@@ -94,30 +95,45 @@ def tiles_of(plan):
 
 
 def emulate(plan, b, *, tol, maxiter, inv_diag=None):
-    """Kernel B's schedule tile by tile; returns (x, iters, resnorm)."""
+    """Kernel B's schedule tile by tile; returns (x, iters, resnorm). The
+    prologue: each tile's p holds the lift (b outside plan.interior, 0
+    inside) over its tile and halo, straight from b; Ap on the tile; x0 =
+    the lift, r0 = b - Ap; the edge z0 published, and p0 = z0 over the halo
+    from the exchange."""
     n = b.numel()
     matvec = fused.plain_matvec(plan.stages)
     tiles = tiles_of(plan)
     bf = b.flatten()
     df = None if inv_diag is None else inv_diag.flatten()
-    z0 = bf * df if df is not None else bf
+    x0 = lift_outside(b, plan.interior).flatten()
     one = torch.ones((), dtype=torch.float32)
 
     def total(parts):
         return torch.stack(parts).sum().to(torch.float32)
 
     st = []
+    exch = torch.full((n,), float("nan"))
     for t in tiles:
         own = t.idx[t.owned]
-        p = torch.zeros(t.idx.shape, dtype=torch.float32)
-        p[t.valid] = z0[t.idx[t.valid]]
-        st.append({"own": own, "p": p, "x": torch.zeros(len(own)), "r": bf[own],
-                   "d": None if df is None else df[own]})
-    bnorm = torch.sqrt(total([torch.sum(s["r"] * s["r"], dtype=torch.float64) for s in st]))
+        full = torch.full((n,), float("nan"))
+        full[t.idx[t.valid]] = x0[t.idx[t.valid]]
+        r = bf[own] - matvec(full.view(b.shape)).flatten()[own]
+        d = None if df is None else df[own]
+        z = r * d if df is not None else r
+        exch[own[t.publish]] = z[t.publish]
+        st.append({"own": own, "x": x0[own], "r": r, "d": d})
+    for t, s in zip(tiles, st):  # after the prologue's barrier
+        z = torch.zeros(t.idx.shape, dtype=torch.float32)
+        z[t.valid] = exch[t.idx[t.valid]]
+        z[t.owned] = s["r"] * s["d"] if df is not None else s["r"]
+        s["p"] = z
+    bnorm = torch.sqrt(total([torch.sum(bf[s["own"]] * bf[s["own"]], dtype=torch.float64)
+                              for s in st]))
     rz = total([torch.sum(s["r"] * (s["r"] * s["d"] if df is not None else s["r"]),
                           dtype=torch.float64) for s in st])
     target = tol * torch.where(bnorm == 0, one, bnorm)
-    rn, k = bnorm, 0
+    rn = total([torch.sum(s["r"] * s["r"], dtype=torch.float64) for s in st]).sqrt()
+    k = 0
     while k < maxiter and bool(rn > target):
         parts = []
         for t, s in zip(tiles, st):  # 1. Ap from the tile's own copy of p
@@ -199,7 +215,42 @@ def test_schedule_matches_plain_bitwise(case):
         matvec = fused.plain_matvec(plan.stages)
         inv = safe_inv_diag(extract_diagonal(matvec, torch.zeros(shape), ((1, 1), (1, 1))))
     x_p, it_p, rn_p = fused.fused_cg_plain(fused.plain_matvec(plan.stages), b, tol=tol,
-                                           maxiter=maxiter, inv_diag=inv)
+                                           maxiter=maxiter, inv_diag=inv, lift=plan.interior)
+    x_e, it_e, rn_e = emulate(plan, b, tol=tol, maxiter=maxiter, inv_diag=inv)
+    assert int(it_e) == int(it_p) > 5
+    assert torch.equal(rn_e, rn_p)
+    assert torch.equal(x_e, x_p)
+
+
+# kernel B's prologue with an interior box set by hand, on schedules of every
+# kind: bands and 2-D tiles, a ragged edge, a composite halo and wrapped tiles
+# (a lift is an x0, which the kernel takes on any operator; a solve site
+# lifts a copy-through ring only, fused.ring_of)
+LIFTED = {
+    "poisson64_jacobi": ((1, 63), (1, 63)),
+    "poisson64_jacobi_bands": ((1, 63), (1, 63)),
+    "uneven": ((1, 60), (1, 44)),
+    "x_plus_lap": ((1, 47), (1, 47)),
+    "periodic_uneven_bands": ((2, 59), (3, 40)),
+}
+
+
+@pytest.mark.parametrize("case", LIFTED)
+def test_lifted_schedule_matches_plain_bitwise(case):
+    build, name, jacobi, tol, maxiter, cut = SCHEDULES[case]
+    module = build()
+    box = LIFTED[case]
+    plan = dataclasses.replace(fused.cg_plan(module, name, sms=16), interior=box)
+    if cut is not None:
+        plan = with_bands(plan, cut)
+    shape = plan.shape
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(shape).astype(np.float32))
+    matvec = fused.plain_matvec(plan.stages)
+    inv = None
+    if jacobi:
+        inv = safe_inv_diag(extract_diagonal(matvec, torch.zeros(shape), ((1, 1), (1, 1))))
+    x_p, it_p, rn_p = fused.fused_cg_plain(matvec, b, tol=tol, maxiter=maxiter, inv_diag=inv,
+                                           lift=box)
     x_e, it_e, rn_e = emulate(plan, b, tol=tol, maxiter=maxiter, inv_diag=inv)
     assert int(it_e) == int(it_p) > 5
     assert torch.equal(rn_e, rn_p)

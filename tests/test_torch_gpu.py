@@ -6,6 +6,8 @@ file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -172,8 +174,10 @@ def test_fused_cg_matches_plain(which, cuda):
         inv = safe_inv_diag(extract_diagonal(matvec, torch.zeros(shape), ((1, 1), (1, 1))))
     solve = fused.fused_cg(module, name, tol=tol, maxiter=maxiter, inv_diag=inv)
     bc = b.to(cuda)
+    # the site lifts the operator's copy-through ring where it has one
     x_p, it_p, _ = fused.fused_cg_plain(matvec, bc, tol=tol, maxiter=maxiter,
-                                        inv_diag=None if inv is None else inv.to(cuda))
+                                        inv_diag=None if inv is None else inv.to(cuda),
+                                        lift=solve.lift)
     before = fused.counter.count
     x_k, it_k, rn_k = solve(bc)
     torch.cuda.synchronize()
@@ -190,6 +194,95 @@ def test_fused_cg_matches_plain(which, cuda):
     res_p = float(torch.linalg.norm(bc - matvec(x_p)))
     assert res_k <= max(1.01 * tol * bnorm, 2 * res_p)
     assert float(torch.linalg.norm(x_k - x_p) / torch.linalg.norm(x_p)) <= 1e-4
+    if which in RINGS:
+        assert solve.lift == plan.interior == RINGS[which]
+        ring = torch.ones_like(bc, dtype=torch.bool)
+        ring[tuple(slice(lo, hi) for lo, hi in RINGS[which])] = False
+        assert torch.equal(x_k[ring], bc[ring])  # a copy-through ring ends as b exactly
+    else:
+        assert solve.lift is None and plan.interior == tuple((0, n) for n in shape)
+
+
+# the FUSED cases whose operator copies a ring through: its interior box
+RINGS = {
+    "poisson": ((1, 63), (1, 63)),
+    "poisson_jacobi": ((1, 63), (1, 63)),
+    "poisson512_jacobi": ((1, 511), (1, 511)),
+    "heat_A256": ((1, 255), (1, 255)),
+    "uneven_509x300": ((1, 508), (1, 299)),
+    "narrow_16x28000": ((1, 15), (1, 27999)),
+    "reach8_17_wide": ((8, 26426), (8, 9)),
+}
+
+
+# kernel B's prologue with an interior box set by hand on the plan (a lift
+# is an x0, which the kernel takes on any operator; a solve site lifts a
+# copy-through ring only), over bands, 2-D tiles, a composite halo, ragged
+# tiles and a torus
+LIFTED = {
+    "poisson": ((1, 63), (1, 63)),
+    "poisson_jacobi": ((1, 63), (1, 63)),
+    "poisson512_jacobi": ((1, 511), (1, 511)),
+    "heat_A256": ((1, 255), (1, 255)),
+    "composite": ((1, 63), (1, 63)),
+    "periodic": ((1, 299), (1, 255)),
+    "uneven_509x300": ((1, 508), (1, 299)),
+}
+
+
+def _site_case(which, cuda, interior):
+    """A FUSED case's kernel B site on the card, its plan's interior box
+    `interior`, and its plain matvec, inverse diagonal and rhs."""
+    build, name, jacobi, tol, maxiter = FUSED[which]
+    module = build()
+    shape = module.lookup(name).ftype.inputs[0].bounds.shape
+    matvec = fused.plain_matvec(fused.matvec_plan(module, name))
+    inv = None
+    if jacobi:
+        inv = safe_inv_diag(extract_diagonal(matvec, torch.zeros(shape), ((1, 1), (1, 1))))
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(shape).astype(np.float32))
+    plan = dataclasses.replace(fused.cg_plan(module, name), interior=interior)
+    site = fused._Site(plan, torch.device("cuda", torch.cuda.current_device()), inv)
+    return site, matvec, None if inv is None else inv.to(cuda), b.to(cuda), tol, maxiter
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", LIFTED)
+def test_lifted_fused_cg_matches_lifted_plain(which, cuda):
+    box = LIFTED[which]
+    site, matvec, inv, bc, tol, maxiter = _site_case(which, cuda, box)
+    x_p, it_p, _ = fused.fused_cg_plain(matvec, bc, tol=tol, maxiter=maxiter, inv_diag=inv,
+                                        lift=box)
+    before = fused.counter.count
+    x_k, it_k, rn_k = site.solve(bc, tol, maxiter)
+    torch.cuda.synchronize()
+    assert fused.counter.count == before + 1
+    assert abs(int(it_k) - int(it_p)) <= 1
+    bnorm = float(torch.linalg.norm(bc))
+    res_k = float(torch.linalg.norm(bc - matvec(x_k)))
+    res_p = float(torch.linalg.norm(bc - matvec(x_p)))
+    assert res_k <= max(1.01 * tol * bnorm, 2 * res_p)
+    assert float(torch.linalg.norm(x_k - x_p) / torch.linalg.norm(x_p)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", RINGS)
+def test_lifted_fused_cg_zero_ring_is_bitwise_unlifted(which, cuda):
+    """b 0 on the ring: the kernel that lifts the ring and the kernel whose
+    interior box is the whole grid (x0 = 0) take the same iterates, bit for
+    bit (b - A 0 = b)."""
+    box = RINGS[which]
+    lifted, _, _, bc, tol, maxiter = _site_case(which, cuda, box)
+    whole = tuple((0, n) for n in lifted.plan.shape)
+    unlifted = _site_case(which, cuda, whole)[0]
+    ring = torch.ones_like(bc, dtype=torch.bool)
+    ring[tuple(slice(lo, hi) for lo, hi in box)] = False
+    bc[ring] = 0.0
+    got = lifted.solve(bc, tol, maxiter)
+    want = unlifted.solve(bc, tol, maxiter)
+    torch.cuda.synchronize()
+    assert int(got[1]) == int(want[1]) > 5
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 @pytest.mark.gpu

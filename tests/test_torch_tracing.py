@@ -162,7 +162,7 @@ def test_fused_route_records_kernel_b_iterations(monkeypatch):
     profiled(lambda: solve(b))
     (s,) = named(profiling.spans(), "nt.solve")
     assert s["attrs"] == {"solver": "cg", "precond": "jacobi", "route": "fused",
-                          "iters": int(got[0])}
+                          "iters": int(got[0]), "lift": 1}
     assert 0 < s["attrs"]["iters"] < 500
     root = profiling.spans()[0]
     assert root["name"] == "nt.call" and root["attrs"]["symbol"] == "PoissonSolver.solve"
