@@ -17,7 +17,8 @@ Phases (one or more lines each, then the total time, the kernels' JSON
 line, the card's nvidia-smi line, and the result line):
   1. device and build: versions, nvcc seconds per library;
   2. kernel A (stencil_apply) against its plain version: f32 bitwise, bf16
-     within one bf16 ulp;
+     within one bf16 ulp, f64 bitwise (HPCG's 27-point operator at 322^3
+     and 42^3, and its symgs colour pass at 322^3);
   3. kernel B (fused_cg) against its plain version, both lifting the ring
      that the solve site finds (the composite case has none): iterations
      within 1, true residual, solution within 1e-4; per solve its time, time
@@ -149,8 +150,10 @@ line, the card's nvidia-smi line, and the result line):
 The kernels' JSON line gives, for each kernel, its time and its plain
 version's at the main path's shape, the least time the card could take
 (bound_ms: the larger of the bytes moved over 3.35 TB/s and the operations
-over 67 TFLOP/s, f32 outside the tensor cores), and the time of one
-PyTorch call that computes the same function where there is one. Kernel
+over 67 TFLOP/s, f32 outside the tensor cores, or 34 TFLOP/s in f64), and
+the time of one PyTorch call that computes the same function where there
+is one. Kernel A's f64 row (stencil_apply_f64) is phase 2's HPCG apply at
+322^3, its launches phase 2's f64 ones. Kernel
 A's launches are phase 4's, phase 11's, phase 15's (15a rank 0's
 replicated levels, 15c), phase 16's (16b, 16c) and phase 18's; its window
 form's phase 8's, 12a's, 13a's, 14's, 15a rank 0's, 16b's (one process and
@@ -175,9 +178,12 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory rate
-# and f32 rate outside the tensor cores
+# and f32 and f64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+# the phase-2 case of the kernels line's f64 row
+A_F64_LABEL = "hpcg27 322^3 f64"
 
 
 # kernel B's systems, (label, system, opdef, tol, maxiter, Jacobi): the entry
@@ -208,24 +214,48 @@ def b_system(system: str):
 
 def a_cases():
     """Kernel A's phase-2 cases, built by the neptune_tpu_torch package that
-    comes first on sys.path: (label, module, affine folding); the last runs
-    every body op by op."""
+    comes first on sys.path: (label, module, affine folding, the value of
+    each scalar); "adv4 4096^2 f32 unfolded" runs every body op by op. The
+    f64 cases are HPCG's solve (portbench's hpcg320_mgcg_f64): its 27-point
+    operator on the finest grid and the coarsest, and the symgs colour pass
+    on the finest (x, b and 1/diag in, colour 5 relaxed)."""
     from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.passes.smoother import colour_pass
 
     return [
-        ("jacobi5 1024^2 f32", stencils.jacobi5((1024, 1024)), True),
-        ("jacobi5 4096^2 f32", stencils.jacobi5((4096, 4096)), True),
-        ("jacobi5 4096^2 bf16", stencils.jacobi5((4096, 4096), "bfloat16"), True),
-        ("heat7 256^3 f32", stencils.heat7((256, 256, 256)), True),
-        ("heat7 256^3 bf16", stencils.heat7((256, 256, 256), "bfloat16"), True),
-        ("heat7 periodic 256^3 f32", stencils.heat7((256, 256, 256), periodic=True), True),
-        ("adv4 4096^2 f32 (h0=2)", stencils.advection4((4096, 4096)), True),
-        ("adv4 4096^2 bf16 (h0=2)", stencils.advection4((4096, 4096), "bfloat16"), True),
-        ("adv4 periodic 4096^2 f32", stencils.advection4((4096, 4096), periodic=True), True),
-        ("u+dt*k 4096^2 f32", stencils.combination((4096, 4096)), True),
-        ("two-result gradients 4096^2 f32", stencils.gradients((4096, 4096)), True),
-        ("adv4 4096^2 f32 unfolded", stencils.advection4((4096, 4096)), False),
+        ("jacobi5 1024^2 f32", stencils.jacobi5((1024, 1024)), True, 0.1),
+        ("jacobi5 4096^2 f32", stencils.jacobi5((4096, 4096)), True, 0.1),
+        ("jacobi5 4096^2 bf16", stencils.jacobi5((4096, 4096), "bfloat16"), True, 0.1),
+        ("heat7 256^3 f32", stencils.heat7((256, 256, 256)), True, 0.1),
+        ("heat7 256^3 bf16", stencils.heat7((256, 256, 256), "bfloat16"), True, 0.1),
+        ("heat7 periodic 256^3 f32", stencils.heat7((256, 256, 256), periodic=True), True, 0.1),
+        ("adv4 4096^2 f32 (h0=2)", stencils.advection4((4096, 4096)), True, 0.1),
+        ("adv4 4096^2 bf16 (h0=2)", stencils.advection4((4096, 4096), "bfloat16"), True, 0.1),
+        ("adv4 periodic 4096^2 f32", stencils.advection4((4096, 4096), periodic=True), True, 0.1),
+        ("u+dt*k 4096^2 f32", stencils.combination((4096, 4096)), True, 0.1),
+        ("two-result gradients 4096^2 f32", stencils.gradients((4096, 4096)), True, 0.1),
+        ("adv4 4096^2 f32 unfolded", stencils.advection4((4096, 4096)), False, 0.1),
+        (A_F64_LABEL, stencils.hpcg27((322, 322, 322)), True, 0.1),
+        ("hpcg27 symgs colour pass 322^3 f64",
+         colour_pass(stencils.hpcg27((322, 322, 322)), "hpcg27"), True, 5.0),
+        ("hpcg27 42^3 f64 (coarsest level)", stencils.hpcg27((42, 42, 42)), True, 0.1),
     ]
+
+
+def a_args(op, scalar: float, rng, dev) -> list:
+    """A phase-2 case's arguments: standard normal inputs drawn in f32 (in
+    f64 for an f64 apply) on dev, then each scalar `scalar`."""
+    import torch
+    from neptune_tpu_torch.lowering import torch_backend
+
+    tt = op.results[0].type
+    dtype = torch_backend.DTYPES[tt.element]
+    draw = np.float64 if dtype == torch.float64 else np.float32
+    n_in = op.attrs["num_inputs"]
+    return [
+        torch.from_numpy(rng.standard_normal(tt.bounds.shape, dtype=draw)).to(dev, dtype)
+        for _ in range(n_in)
+    ] + [torch.tensor(scalar, dtype=dtype)] * (len(op.operands) - n_in)
 
 
 def c_cases():
@@ -391,11 +421,11 @@ def copy_gbs(nbytes: int, reps: int = 20) -> float:
     return 2 * src.numel() * 4 / ms / 1e6
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """(least milliseconds the card could take, what bounds it): each input
     byte read once and each output byte written once over the memory rate,
-    against the operations over the f32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    against the operations over the f32 rate (or `ops_per_s`)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -442,13 +472,15 @@ def _library(w, x, got, reach: int):
 
 def library_for_apply(op, args, got):
     """One PyTorch convolution computing a single-input, linear,
-    constant-coefficient bounded apply's interior: (ms, text), or (None,
-    "none")."""
+    constant-coefficient bounded f32 or bf16 apply's interior: (ms, text),
+    or (None, "none")."""
     from neptune_tpu_torch.lowering import torch_backend
 
     n_in = op.attrs.get("num_inputs", len(op.operands))
     if n_in != 1 or len(op.operands) != 1 or len(op.results) != 1 or op.attrs.get("periodic"):
         return None, "none"
+    if op.results[0].type.element == "float64":
+        return None, "none (f64)"
     rank = op.results[0].type.bounds.rank
     reach = max(max(h) for h in op.attrs["shape"].halo())
     w = impulse_weight(
@@ -2919,7 +2951,8 @@ def phase15(dev, reports, heat_cm, step_ms: float) -> dict:
             d = float((got.cpu() - want).abs().max())
             require(got.is_cuda and got.dtype == torch.float64 and d <= bound,
                     f"15c {row}: max |diff| {d!r} against the native runtime")
-            say(f"phase 15c {row}: the port in f64 on the card (eager) against compile_native, "
+            say(f"phase 15c {row}: the port in f64 on the card (kernel A for its rank-2 and "
+                f"rank-3 applies) against compile_native, "
                 f"max |diff| {d!r} (bound {bound}); card {card_ms:.1f} ms, native build "
                 f"{build_s:.1f} s")
         n = P15_HEADLINE_N
@@ -3810,7 +3843,7 @@ def main() -> int:
     say(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     sources, fold_default = [], config.fold_affine
-    for _, m, fold in A_CASES:
+    for _, m, fold, _ in A_CASES:
         config.fold_affine = fold
         sources.append(cuda_backend.source(stencils.the_apply(m)))
     config.fold_affine = fold_default
@@ -3840,17 +3873,15 @@ def main() -> int:
 
     # ---- phase 2: kernel A against its plain version -------------------
     a_err, a_ms, a_plain_ms, a_bound, a_lib = 0.0, None, None, None, None
-    for label, module, fold in A_CASES:
+    a64_err, a64_launches, a64 = 0.0, 0, None
+    for label, module, fold, scalar in A_CASES:
         config.fold_affine = fold
         op = stencils.the_apply(module)
         tt = op.results[0].type
-        dtype = torch_backend.DTYPES[tt.element]
         n_in = op.attrs["num_inputs"]
         shape = tt.bounds.shape
-        args = [
-            torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
-            for _ in range(n_in)
-        ] + [torch.tensor(0.1, dtype=dtype)] * (len(op.operands) - n_in)
+        args = a_args(op, scalar, rng, dev)
+        torch.cuda.synchronize()
         before = cuda_backend.counter.count
         gots = cuda_backend.try_execute_apply(op, args)
         torch.cuda.synchronize()
@@ -3860,16 +3891,20 @@ def main() -> int:
             gots, refs = (gots,), (refs,)
         err, ulps = 0.0, 0
         for got, ref in zip(gots, refs):
-            e = (got.float() - ref.float()).abs().max().item()
-            if tt.element == "float32":
-                require(torch.equal(got, ref), f"{label}: kernel != plain (max err {e})")
+            e = (got.double() - ref.double()).abs().max().item()
+            if tt.element != "bfloat16":
+                require(got.dtype == ref.dtype and torch.equal(got, ref),
+                        f"{label}: kernel != plain (max err {e})")
             else:
                 d = (got.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max()
                 ulps = max(ulps, int(d))
                 require(ulps <= 1, f"{label}: kernel {ulps} bf16 ulps from plain")
             err = max(err, e)
         require(launched == 1, f"{label}: launch count rose by {launched}")
-        a_err = max(a_err, err)
+        if tt.element == "float64":
+            a64_err, a64_launches = max(a64_err, err), a64_launches + launched
+        else:
+            a_err = max(a_err, err)
         k_ms, p_ms = abba(
             lambda: cuda_backend.try_execute_apply(op, args),
             lambda: torch_backend.execute_apply(op, args),
@@ -3878,7 +3913,8 @@ def main() -> int:
         dev_us = device_us(lambda: cuda_backend.try_execute_apply(op, args), 20, "nt_apply")
         cells = float(np.prod(shape))
         nbytes = (n_in + len(op.results)) * cells * gots[0].element_size()
-        b_ms, b_by = bound(nbytes, codegen.body_ops(op) * cells)
+        b_ms, b_by = bound(nbytes, codegen.body_ops(op) * cells,
+                           F64_OPS_PER_S if tt.element == "float64" else F32_OPS_PER_S)
         lib_ms, lib_txt = library_for_apply(op, args, gots[0])
         dev_txt = "not measured" if dev_us is None else (
             f"{dev_us:.1f} us ({cells / dev_us / 1e3:.2f} Gcell/s, {nbytes / dev_us / 1e3:.1f} GB/s)"
@@ -3894,6 +3930,8 @@ def main() -> int:
             f"d2d copy of the same bytes {copy_gbs(int(nbytes)):.1f} GB/s; plan {a_plan_text(op)}")
         if label == "jacobi5 4096^2 f32":
             a_ms, a_plain_ms, a_bound, a_lib = k_ms, p_ms, (b_ms, b_by), lib_ms
+        if label == A_F64_LABEL:
+            a64 = (k_ms, p_ms, (b_ms, b_by), lib_ms)
     config.fold_affine = fold_default
 
     # ---- phase 3: kernel B against its plain version -------------------
@@ -4289,6 +4327,9 @@ def main() -> int:
                  a_ms, a_plain_ms, a_bound, a_lib, "jacobi5 4096^2 f32",
                  ["neptune_tpu/lowering/pallas_backend.py:845",
                   "neptune_tpu/lowering/pallas_backend.py:1094"]),
+        entry_of("stencil_apply_f64", "neptune_tpu_torch/csrc/nt_apply.cuh",
+                 "neptune_tpu/lowering/pallas_backend.py:845", a64_launches, a64_err, *a64,
+                 A_F64_LABEL),
         entry_of("fused_cg", "neptune_tpu_torch/csrc/nt_fused_cg.cuh",
                  "neptune_tpu/solvers/fused.py:201",
                  launches["fused_cg"] + p15["fused_cg"] + p18["fused_cg"],

@@ -32,15 +32,19 @@
 //     offsets, which the compiler shares);
 //   * offsets are 32-bit where the grid has fewer than 2^31 cells.
 // The generated body is the same for both designs, and the build keeps
-// --fmad=false, so f32 results are bitwise those of eager PyTorch.
+// --fmad=false, so f32 and f64 results are bitwise those of eager PyTorch.
+// An f64 apply is the same code over 8-byte elements: twice the bytes a
+// cell, 2 elements a 16-byte copy, and a body computing in double
+// (NtArith); the plan sizes its tile from the element size.
 //
 // The generated source defines a body struct B:
-//   using T = float | __nv_bfloat16;       element type of inputs and outputs
+//   using T = float | __nv_bfloat16 | double;  element type of inputs and outputs
 //   static constexpr int kIn, kOut;        tensor inputs, results
 //   static constexpr bool kPeriodic;
 //   struct Scalars {...}; static Scalars load(const double* v);
 //   template <class A, class S>
-//   static __device__ void eval(const A& a, const S& s, float* y);
+//   static __device__ void eval(const A& a, const S& s, V* y);
+// (V = NtArith<T>::type, double for f64 and float otherwise)
 // where `a` is an accessor (NtGlobalAcc, NtApplyAcc) and `s` the Scalars;
 // then either a plan struct P (kT1, kT2, kR, kD, kH0, kH1, kH2) and
 // NT_DEFINE_APPLY_TILED(B, P), or, for an apply whose halo makes the tile
@@ -71,12 +75,12 @@ __global__ void __launch_bounds__(kNtApplyThreads)
     for (int i1 = blockIdx.y; i1 < g.n[1]; i1 += gridDim.y) {
       const long long idx = nt_index(g, i0, i1, i2);
       if (nt_in_bounds(g, i0, i1, i2)) {
-        float y[B::kOut];
+        typename NtArith<T>::type y[B::kOut];
         const NtGlobalAcc<B::kPeriodic, T> a{&g, p.in, i0, i1, i2,
                                              i0 + g.lb[0], i1 + g.lb[1], i2 + g.lb[2]};
         B::eval(a, s, y);
 #pragma unroll
-        for (int j = 0; j < B::kOut; ++j) p.out[j][idx] = nt_cast<T>(y[j]);
+        for (int j = 0; j < B::kOut; ++j) p.out[j][idx] = nt_out<T>(y[j]);
       } else {
         // copy-through: output j keeps input j (zeros when there is none)
 #pragma unroll
@@ -151,7 +155,8 @@ struct NtApplyAcc {
   const typename B::T* sm;
   int i;
   int c0, c1, c2;  // logical coordinates, for index() bodies
-  __device__ __forceinline__ float ld(int k, int o0, int o1, int o2) const {
+  __device__ __forceinline__ typename NtArith<typename B::T>::type ld(int k, int o0, int o1,
+                                                                      int o2) const {
     return nt_f(sm[k * Gm::kPlanes * Gm::kPlane + i + o0 * Gm::kPlane + o1 * Gm::kW2 + o2]);
   }
 };
@@ -180,7 +185,7 @@ __device__ __forceinline__ const typename B::T* nt_apply_src(const NtGrid& g,
 // Plane q (a grid index along dim 0, possibly off the grid) of every input
 // into staged plane `slot`, zero off the grid or the wrapped cell on a
 // periodic apply (checked). With `vec`, in 16-byte cp.async copies; otherwise
-// element by element (asynchronous for f32).
+// element by element (asynchronous for f32 and f64).
 template <class B, class P, class Idx, bool CHECKED>
 __device__ __forceinline__ void nt_apply_load_plane(const NtGrid& g, const NtApplyPtrs<B>& p,
                                                     typename B::T* sm, int slot, int q,
@@ -213,13 +218,16 @@ __device__ __forceinline__ void nt_apply_load_plane(const NtGrid& g, const NtApp
     return;
   }
   constexpr int kPer = Gm::kPlane, kTotal = B::kIn * kPer;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 4 || sizeof(T) == 8) {
     for (int j = (int)threadIdx.x; j < kTotal; j += Gm::kThreads) {
       const int k = j / kPer, rc = j - k * kPer;
       bool fill;
       const T* src = nt_apply_src<B, P, Idx, CHECKED>(g, p, k, q, r0 + rc / Gm::kW2,
                                                       c0 + rc % Gm::kW2, fill);
-      nt_cp_async4(sm + (k * Gm::kPlanes + slot) * Gm::kPlane + rc, src, fill);
+      if constexpr (sizeof(T) == 4)
+        nt_cp_async4(sm + (k * Gm::kPlanes + slot) * Gm::kPlane + rc, src, fill);
+      else
+        nt_cp_async8(sm + (k * Gm::kPlanes + slot) * Gm::kPlane + rc, src, fill);
     }
   } else {
     // bf16 has no 2-byte cp.async: kBatch loads per thread are issued
@@ -257,7 +265,7 @@ __device__ __forceinline__ void nt_apply_plane(const NtGrid& g, const NtApplyPtr
   const int at = (z - first) * Gm::kPlane;  // the cell's plane in the tile
   const int tx = (int)threadIdx.x % P::kT2, ty = (int)threadIdx.x / P::kT2;
   const int q2 = org2 + tx;
-  float y[P::kR][B::kOut];
+  typename NtArith<T>::type y[P::kR][B::kOut];
 #pragma unroll
   for (int r = 0; r < P::kR; ++r) {
     const int row = ty * P::kR + r, q1 = org1 + row;
@@ -278,7 +286,7 @@ __device__ __forceinline__ void nt_apply_plane(const NtGrid& g, const NtApplyPtr
     if (CHECKED && (q1 >= g.n[1] || q2 >= g.n[2])) continue;
     const Idx cell = ((Idx)z * g.n[1] + q1) * (Idx)g.n[2] + q2;
 #pragma unroll
-    for (int j = 0; j < B::kOut; ++j) p.out[j][cell] = nt_cast<T>(y[r][j]);
+    for (int j = 0; j < B::kOut; ++j) p.out[j][cell] = nt_out<T>(y[r][j]);
   }
 }
 

@@ -6,10 +6,11 @@
 // conversions live here. Every grid is addressed as rank 3, (n0, n1, n2) in
 // C order; a rank-2 grid is (1, n0, n1).
 //
-// Arithmetic: bodies compute in f32. A bf16 body rounds to bf16 after every
-// operation (nt_bf), as PyTorch's eager bf16 does. The build passes
-// --fmad=false, so no multiply-add is contracted and an f32 body is bitwise
-// equal to the eager PyTorch version of the same IR.
+// Arithmetic: bodies compute in f32, an f64 body in f64 (NtArith). A bf16
+// body rounds to bf16 after every operation (nt_bf), as PyTorch's eager bf16
+// does. The build passes --fmad=false, so no multiply-add is contracted and
+// an f32 or f64 body is bitwise equal to the eager PyTorch version of the
+// same IR.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,8 +24,20 @@ struct NtGrid {
   int bhi[3];  // the rest copy their seed through
 };
 
+// The type a body computes in for element type T: f32 for f32 and bf16
+// elements, f64 for f64 ones.
+template <class T>
+struct NtArith {
+  using type = float;
+};
+template <>
+struct NtArith<double> {
+  using type = double;
+};
+
 __device__ __forceinline__ float nt_f(float v) { return v; }
 __device__ __forceinline__ float nt_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ double nt_f(double v) { return v; }
 
 template <class T>
 __device__ __forceinline__ T nt_cast(float v);
@@ -33,6 +46,17 @@ __device__ __forceinline__ float nt_cast<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 nt_cast<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ double nt_cast<double>(float v) { return v; }
+
+// a body's result in its computing type, stored as element type T
+template <class T>
+__device__ __forceinline__ T nt_out(typename NtArith<T>::type v) {
+  if constexpr (sizeof(T) == 8)
+    return v;
+  else
+    return nt_cast<T>(v);
 }
 
 // round an f32 result to the nearest bf16 (one eager bf16 operation)
@@ -52,15 +76,15 @@ __device__ __forceinline__ long long nt_index(const NtGrid& g, int i0, int i1, i
 // a[i + offset]: outside the grid it reads 0, or wraps modulo the extent on
 // a periodic apply -- never outside the allocation.
 template <bool PERIODIC, class T>
-__device__ __forceinline__ float nt_ld(const T* a, const NtGrid& g,
-                                       int i0, int i1, int i2) {
+__device__ __forceinline__ typename NtArith<T>::type nt_ld(const T* a, const NtGrid& g,
+                                                           int i0, int i1, int i2) {
   if (PERIODIC) {
     i0 = nt_wrap(i0, g.n[0]);
     i1 = nt_wrap(i1, g.n[1]);
     i2 = nt_wrap(i2, g.n[2]);
   } else if ((unsigned)i0 >= (unsigned)g.n[0] || (unsigned)i1 >= (unsigned)g.n[1] ||
              (unsigned)i2 >= (unsigned)g.n[2]) {
-    return 0.0f;
+    return 0;
   }
   return nt_f(a[nt_index(g, i0, i1, i2)]);
 }
@@ -86,13 +110,13 @@ struct NtGlobalAcc {
   const T* const* in;
   int i0, i1, i2;
   int c0, c1, c2;
-  __device__ __forceinline__ float ld(int k, int o0, int o1, int o2) const {
+  __device__ __forceinline__ typename NtArith<T>::type ld(int k, int o0, int o1, int o2) const {
     return nt_ld<PERIODIC>(in[k], *g, i0 + o0, i1 + o1, i2 + o2);
   }
 };
 
 // Asynchronous copies from global into shared memory (cp.async): 16 bytes,
-// or 4 bytes that are zeros when !fill (nothing is read then). They land
+// or 4 or 8 bytes that are zeros when !fill (nothing is read then). They land
 // after `cp.async.wait_all` and a barrier.
 __device__ __forceinline__ void nt_cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -102,6 +126,12 @@ __device__ __forceinline__ void nt_cp_async4(void* smem, const void* gmem, bool 
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                "r"(fill ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void nt_cp_async8(void* smem, const void* gmem, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(fill ? 8 : 0)
                : "memory");
 }
 

@@ -28,6 +28,8 @@ _CTYPE = {
     "bool": "bool",
 }
 _F32ISH = ("float32", "bfloat16")
+# the C element type of a body's inputs and results, where it is not float
+_ELEMENT_CTYPE = {"bfloat16": "__nv_bfloat16", "float64": "double"}
 
 _INFIX = {
     "arith.add": "+", "arith.sub": "-", "arith.mul": "*", "arith.div": "/",
@@ -143,12 +145,15 @@ def body_struct(op: Operation, name: str, scalar_exprs=None, pinned=None) -> str
     if scalar_exprs is None:
         scalar_exprs = [f"s.s{k}" for k in range(len(scalar_types))]
     pad = 3 - rank
+    # the type the body computes in: double for f64, float otherwise (bf16
+    # values are carried in f32 registers)
+    arith = "float64" if out_type.element == "float64" else "float32"
 
     ops = COps()
 
     def access_fn(k, offset):
         adj = [o + (lo - li) for o, lo, li in zip(offset, lb, input_lbs[k])]
-        return ops.emit(f"a.ld({k}, {', '.join(str(o) for o in [0] * pad + adj)})", "float32")
+        return ops.emit(f"a.ld({k}, {', '.join(str(o) for o in [0] * pad + adj)})", arith)
 
     def index_fn(d):
         return ops.emit(f"a.c{d + pad}", "index")
@@ -157,16 +162,16 @@ def body_struct(op: Operation, name: str, scalar_exprs=None, pinned=None) -> str
 
     stmts = "\n".join(f"    {line}" for line in ops.lines)
     outs = "\n".join(
-        f"    y[{j}] = static_cast<float>({y});" for j, y in enumerate(yields)
+        f"    y[{j}] = static_cast<{_CTYPE[arith]}>({y});" for j, y in enumerate(yields)
     )
     return f"""struct {name} {{
-  using T = {"__nv_bfloat16" if out_type.element == "bfloat16" else "float"};
+  using T = {_ELEMENT_CTYPE.get(out_type.element, "float")};
   static constexpr int kIn = {n_in};
   static constexpr int kOut = {len(op.results)};
   static constexpr bool kPeriodic = {'true' if op.attrs.get('periodic') else 'false'};
 {scalars_struct(scalar_types)}
   template <class A, class S>
-  static __device__ __forceinline__ void eval(const A& a, const S& s, float* y) {{
+  static __device__ __forceinline__ void eval(const A& a, const S& s, {_CTYPE[arith]}* y) {{
     (void)a; (void)s;
 {stmts}
 {outs}

@@ -19,8 +19,10 @@ every tile too large for shared memory keeps the first design, one thread
 per cell reading global memory.
 
 `try_execute_apply` decides by `supported` before any launch, as the JAX
-package's does: f64, rank 1 and inputs off the output's domain take the
-eager path. Given CPU tensors it runs the kernel's plain version
+package's does: rank 1 and inputs off the output's domain take the eager
+path. Unlike the TPU kernels, kernel A and its window form take f64: the
+same design over 8-byte elements, computing in double, bitwise the eager
+f64 route. Given CPU tensors it runs the kernel's plain version
 (`torch_backend.execute_apply`); given CUDA tensors it launches the kernel
 or raises.
 
@@ -51,7 +53,8 @@ from ..kernels import codegen
 from ..kernels.build import LaunchCounter, builder, check
 from . import torch_backend
 
-_SUPPORTED_DTYPES = ("float32", "bfloat16")
+_SUPPORTED_DTYPES = ("float32", "bfloat16", "float64")
+_ITEMSIZE = {"bfloat16": 2, "float32": 4, "float64": 8}
 
 counter = LaunchCounter("stencil_apply")
 window_counter = LaunchCounter("stencil_apply_window")
@@ -71,6 +74,11 @@ APPLY_TILES = {
 # shared memory one block of kernel A may take, so that several blocks
 # share an SM and one block's loads overlap another's compute
 APPLY_SMEM = 96 * 1024
+# f64 elements: narrower tiles under a smaller budget, so that three or more
+# blocks share an SM (timed on the H100 at HPCG's 322^3, HPCG's apply and its
+# three-input colour pass: scripts/torch_tile_times.py --kernels F, PERF.md)
+APPLY_TILES_F64 = {3: ((16, 32, 4, 4), (8, 32, 2, 4), (4, 32, 2, 8))}
+APPLY_SMEM_F64 = 64 * 1024
 
 
 @dataclass(frozen=True)
@@ -101,15 +109,20 @@ def apply_smem(n_in: int, itemsize: int, tile, halo, planes: int) -> int:
 
 def apply_plan(op: Operation, tiles=None) -> Optional[ApplyPlan]:
     """The tiled plan of kernel A for a supported apply: the first of
-    `tiles` (default APPLY_TILES of its rank) whose shared memory fits
-    APPLY_SMEM, or None (the first design)."""
+    `tiles` (default APPLY_TILES of its rank, APPLY_TILES_F64 for f64 where
+    it has the rank) whose shared memory fits APPLY_SMEM (APPLY_SMEM_F64
+    for f64), or None (the first design)."""
     rank = op.results[0].type.bounds.rank
     n_in = op.attrs.get("num_inputs", len(op.operands))
-    itemsize = 2 if op.results[0].type.element == "bfloat16" else 4
+    itemsize = _ITEMSIZE[op.results[0].type.element]
     halo = codegen.body_reach(op)
-    for t1, t2, r, d in tiles or APPLY_TILES[rank]:
+    budget = APPLY_SMEM_F64 if itemsize == 8 else APPLY_SMEM
+    if tiles is None:
+        tiles = APPLY_TILES_F64.get(rank) if itemsize == 8 else None
+        tiles = tiles or APPLY_TILES[rank]
+    for t1, t2, r, d in tiles:
         smem = apply_smem(n_in, itemsize, (t1, t2), halo, d)
-        if smem <= APPLY_SMEM:
+        if smem <= budget:
             return ApplyPlan((t1, t2), r, d, halo, t2 * (t1 // r), smem)
     return None
 
@@ -120,8 +133,8 @@ def source(op: Operation, plan="auto") -> str:
 
 
 def supported(op: Operation) -> bool:
-    """f32 or bf16, rank 2 or 3, every input and result on the output's
-    domain and type."""
+    """f32, bf16 or f64, rank 2 or 3, every input and result on the
+    output's domain and type."""
     out_type: TempType = op.results[0].type
     if out_type.element not in _SUPPORTED_DTYPES:
         return False
@@ -160,6 +173,7 @@ class _Launch:
         self.op = op  # held so that id(op) stays unique while cached
         out_type: TempType = op.results[0].type
         self.shape = out_type.bounds.shape
+        self.cells = int(np.prod(self.shape))
         self.dtype = torch_backend.DTYPES[out_type.element]
         self.n_in = op.attrs.get("num_inputs", len(op.operands))
         self.n_out = len(op.results)
@@ -239,8 +253,10 @@ def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, gl
     the block's shape is the inputs', or `shape` for an apply with none.
     plan: the tiled plan to build, default `apply_plan(op)`."""
     if global_start is None:
-        with counter.launch():
+        with counter.launch() as s:
             k = _launcher(op, plan)
+            if s is not counter:  # recording: the launch's sizes, for its roofline
+                s.set(cells=k.cells, grids=k.n_in + k.n_out, itemsize=k.dtype.itemsize)
             return _launch(k, inputs, scalars, device, k.shape, k.meta_addr, "stencil_apply")
     with window_counter.launch():
         k = _launcher(op, plan)

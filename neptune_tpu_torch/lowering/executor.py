@@ -357,8 +357,8 @@ class CompiledModule:
 
     def low_precision_opdef(self, name: str) -> Callable:
         """float32 twin of an opdef (for mixed-precision refinement): a
-        module of its own on the same backend and device, so its applies
-        take kernel A where the f64 original runs eager."""
+        module of its own on the same backend and device, whose applies
+        take kernel A in float32."""
         if self._lo_cm is None:
             from ..passes.retype import retype_module
 
@@ -855,13 +855,14 @@ class CompiledModule:
 
 class _CoarseOp:
     """What build_levels needs of a coarse level: a scaled matvec, the halo
-    for probing its diagonal, and the mesh it runs over (None: the whole
-    grid)."""
+    for probing its diagonal, the mesh it runs over (None: the whole grid),
+    and its grid where that is not half the finer one (None)."""
 
-    def __init__(self, matvec, halo, gmesh=None):
+    def __init__(self, matvec, halo, gmesh=None, level_shape=None):
         self.matvec = matvec
         self.halo = halo
         self.gmesh = gmesh
+        self.level_shape = level_shape
 
     def __call__(self, x):
         return self.matvec(x)
@@ -874,6 +875,8 @@ def auto_mg_preconditioner(
     *,
     mg_levels: Optional[int] = None,
     mg_smoother: str = "jacobi",
+    mg_coarsen: str = "cell",
+    mg_coarse_sweeps: int = 32,
     device=None,
     gmesh=None,
 ):
@@ -889,9 +892,17 @@ def auto_mg_preconditioner(
 
     mg_levels: total level count including the finest (default: coarsen
     while every extent stays even and the smallest stays >= 16, at most 6
-    levels). mg_smoother: "jacobi" or "cheb" (both symmetric, as
-    CG requires). `device` holds the levels' tensors (default
-    `config.device`).
+    levels). mg_smoother: "jacobi", "cheb" or "symgs" (all symmetric, as
+    CG requires; "symgs" builds each level's colour pass from its opdef,
+    `passes.smoother.colour_pass`, and needs the operator unscaled).
+    mg_coarsen: "cell" (the grid halves; mean restriction, multilinear
+    interpolation, each level damped by 1/4) or "vertex" (HPCG's hierarchy:
+    the interior box halves and the ring stays, the extents counted are the
+    box's; injection transfers, the coarse operators unscaled).
+    mg_coarse_sweeps: smoothing sweeps on the coarsest level; one sweep
+    before and one after on the others. HPCG's cycle is mg_levels=4,
+    "symgs", "vertex", mg_coarse_sweeps=1. `device` holds the levels'
+    tensors (default `config.device`).
 
     gmesh: a `parallel.GridMesh` whose blocks the solve runs on (the
     handle's matvec is then the mesh's sharded opdef): each coarse level
@@ -903,17 +914,24 @@ def auto_mg_preconditioner(
     residual is gathered once on the way down, and each process takes its
     block of the correction on the way up. Where the finest block is odd
     already, M gathers r, runs a whole-grid cycle and returns its block.
+    HPCG's options ("symgs", "vertex") run on the whole grid only.
     """
     from ..passes.coarsen import coarsen_opdef
+    from ..passes.smoother import SUFFIX, colour_pass
     from ..solvers.multigrid import first_whole_level, mg_preconditioner
 
     shape = handle.grid_shape
+    extents = shape
+    if mg_coarsen == "vertex":
+        if handle.interior is None:
+            raise ValueError("mg_coarsen='vertex' needs a single-apply opdef (its ring is kept)")
+        extents = handle.interior.shape
     if mg_levels is None:
         mg_levels = 1
         while (
             mg_levels < 6
-            and all(s % (2**mg_levels) == 0 for s in shape)
-            and min(shape) // (2**mg_levels) >= 16
+            and all(s % (2**mg_levels) == 0 for s in extents)
+            and min(extents) // (2**mg_levels) >= 16
         ):
             mg_levels += 1
     if mg_levels < 2:
@@ -922,6 +940,12 @@ def auto_mg_preconditioner(
             f"mg_levels={mg_levels}; extents must be even and >= 32 to "
             "coarsen, or pass mg_levels explicitly)"
         )
+    if gmesh is not None and (mg_smoother == "symgs" or mg_coarsen == "vertex"):
+        raise ValueError("mg_smoother='symgs' and mg_coarsen='vertex' run on the whole grid "
+                         "only (no mesh)")
+    if mg_smoother == "symgs" and mg_coarsen != "vertex":
+        raise ValueError("mg_smoother='symgs' builds its colour passes from unscaled coarse "
+                         "operators: it needs mg_coarsen='vertex'")
     # levels below `sharded` run on the mesh's blocks, the rest whole
     sharded = 0
     if gmesh is not None:
@@ -931,9 +955,13 @@ def auto_mg_preconditioner(
     if gmesh is not None and sharded == 0:
         whole = CompiledModule(module, backend, device).opdef(handle.symbol)
         ops = [_CoarseOp(whole, handle.halo)]
+    colour_ops = None
+    if mg_smoother == "symgs":
+        colour_ops = [CompiledModule(colour_pass(module, handle.symbol), backend, device)
+                      .opdef(handle.symbol + SUFFIX)]
     mod = module
     for lvl in range(1, mg_levels):
-        mod = coarsen_opdef(mod, handle.symbol)
+        mod = coarsen_opdef(mod, handle.symbol, mode=mg_coarsen)
         cm = CompiledModule(mod, backend, device)
         if lvl >= sharded:
             mv, mesh = cm.opdef(handle.symbol), None
@@ -941,14 +969,23 @@ def auto_mg_preconditioner(
             from ..parallel.sharded_apply import shardmap_opdef
 
             mv, mesh = shardmap_opdef(cm, handle.symbol, gmesh, cm.backend), gmesh
-        scale = 0.25**lvl  # rediscretization damping (see the docstring)
-        ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo, mesh))
+        if mg_coarsen == "vertex":
+            grid = mod.lookup(handle.symbol).ftype.inputs[0].bounds.shape
+            ops.append(_CoarseOp(mv, handle.halo, mesh, grid))
+        else:
+            scale = 0.25**lvl  # rediscretization damping (see the docstring)
+            ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo, mesh))
+        if colour_ops is not None:
+            colour_ops.append(CompiledModule(colour_pass(mod, handle.symbol), backend, device)
+                              .opdef(handle.symbol + SUFFIX))
     if sharded > 0:
         shape = tuple(
             n // gmesh.shape[d] if d < len(gmesh.shape) else n for d, n in enumerate(shape)
         )
     like = torch.zeros(shape, dtype=handle.dtype, device=default_device(device))
-    M = mg_preconditioner(ops, like, smoother=mg_smoother)
+    M = mg_preconditioner(ops, like, smoother=mg_smoother, coarse_iters=mg_coarse_sweeps,
+                          transfer="injection" if mg_coarsen == "vertex" else "mean",
+                          colour_ops=colour_ops)
     if gmesh is None or sharded > 0:
         return M
 

@@ -12,7 +12,16 @@ depend on the grid size, so cloning every referenced opdef with
 gives the same discretization on the coarse grid. Unchanged constants keep
 the fine grid's implicit 1/h^k scaling, so for second-order (1/h²)
 operators the caller damps each level's matvec by 1/4 per coarsening
-(`lowering/executor.py::auto_mg_preconditioner`).
+(`lowering/executor.py::auto_mg_preconditioner`), unless it asks for the
+operator unscaled (HPCG's coarse levels).
+
+That is cell-centred coarsening (`mode="cell"`): the whole grid halves.
+`mode="vertex"` keeps each opdef's ring and halves its interior box
+instead: outer [lb, ub) with the apply bounds [lo, hi) becomes
+[lb, lb + (lo - lb) + (hi - lo)/2 + (ub - hi)), so the ring of absent
+neighbours stays one cell wide on every level (322 -> 162 -> 82 -> 42
+for HPCG's 320 -> 160 -> 80 -> 40 unknowns), and coarse unknown i sits
+on fine unknown 2i (injection, `solvers.multigrid`).
 """
 
 from __future__ import annotations
@@ -54,11 +63,33 @@ def _margin_preserve(attr_b: Bounds, old_outer: Bounds, new_outer: Bounds) -> Bo
     return Bounds(lb, ub)
 
 
-def _swap_type(t, factor: int):
+def _vertex(b: Bounds, box: Bounds, factor: int = 2) -> Bounds:
+    """`b` with the interior `box`'s extent divided by `factor` and its
+    margins outside the box kept."""
+    ub = []
+    for l, u, bl, bu in zip(b.lb, b.ub, box.lb, box.ub):
+        if (bu - bl) % factor:
+            raise ValueError(
+                f"interior {box} not {factor}:1-coarsenable (extent {bu - bl})")
+        ub.append(bl + (bu - bl) // factor + (u - bu))
+    return Bounds(b.lb, tuple(ub))
+
+
+def _box(fn) -> Bounds:
+    """The one interior box of an opdef's applies and stores (vertex
+    coarsening keeps the ring outside it)."""
+    boxes = {op.attrs["bounds"] for op in fn.walk() if op.attrs.get("bounds") is not None}
+    if len(boxes) != 1:
+        raise NotImplementedError(
+            f"vertex coarsening needs one interior box in @{fn.name} (found {len(boxes)})")
+    return boxes.pop()
+
+
+def _swap_type(t, shrink):
     if isinstance(t, TempType):
-        return TempType(t.element, _halve(t.bounds, factor), t.location)
+        return TempType(t.element, shrink(t.bounds), t.location)
     if isinstance(t, FieldType):
-        return FieldType(t.element, _halve(t.bounds, factor), t.location)
+        return FieldType(t.element, shrink(t.bounds), t.location)
     return t
 
 
@@ -78,9 +109,11 @@ def _reachable_syms(module: Module, sym: str) -> list[str]:
     return seen
 
 
-def coarsen_opdef(module: Module, sym: str, factor: int = 2) -> Module:
+def coarsen_opdef(module: Module, sym: str, factor: int = 2, mode: str = "cell") -> Module:
     """A fresh module holding @sym (and the opdefs it calls) re-instantiated
-    at `factor`:1-coarsened bounds, verified and re-keyed.
+    at `factor`:1-coarsened bounds, verified and re-keyed. mode: "cell"
+    (the whole grid halves) or "vertex" (the interior box halves, the ring
+    stays; see the module docstring).
 
     Raises ValueError when a grid extent is not divisible by `factor` and
     NotImplementedError when an opdef's body holds ops whose coarsening is
@@ -102,9 +135,20 @@ def coarsen_opdef(module: Module, sym: str, factor: int = 2) -> Module:
                     "coarsening is not purely geometric — provide explicit "
                     "coarse operators instead (solvers.multigrid.build_levels)"
                 )
+        if mode == "vertex":
+            box = _box(fn)
+
+            def shrink(b, box=box):
+                return _vertex(b, box, factor)
+        elif mode == "cell":
+
+            def shrink(b):
+                return _halve(b, factor)
+        else:
+            raise ValueError(f"coarsen_opdef mode must be 'cell' or 'vertex' (got {mode!r})")
         fn.ftype = FunctionType(
-            tuple(_swap_type(t, factor) for t in fn.ftype.inputs),
-            tuple(_swap_type(t, factor) for t in fn.ftype.results),
+            tuple(_swap_type(t, shrink) for t in fn.ftype.inputs),
+            tuple(_swap_type(t, shrink) for t in fn.ftype.results),
         )
         # stale annotations: verify_and_annotate derives them again below
         for k in ("structure_key", "structure_key_hash", "halo"):
@@ -119,18 +163,18 @@ def coarsen_opdef(module: Module, sym: str, factor: int = 2) -> Module:
                 else:
                     old_outer = op.results[0].type.bounds
                 new_attr_bounds[id(op)] = _margin_preserve(
-                    attr_b, old_outer, _halve(old_outer, factor)
+                    attr_b, old_outer, shrink(old_outer)
                 )
         # pass 2: swap every value type, then install the new bounds
         for a in fn.body.args:
-            a.type = _swap_type(a.type, factor)
+            a.type = _swap_type(a.type, shrink)
         for op in fn.walk():
             if id(op) in new_attr_bounds:
                 op.attrs["bounds"] = new_attr_bounds[id(op)]
             for r in op.results:
-                r.type = _swap_type(r.type, factor)
+                r.type = _swap_type(r.type, shrink)
             for region in op.regions:
                 for a in region.args:
-                    a.type = _swap_type(a.type, factor)
+                    a.type = _swap_type(a.type, shrink)
 
     return verify_and_annotate(sub)

@@ -20,6 +20,15 @@ The port of `neptune_tpu/solvers/multigrid.py`:
 Coarse-grid corrections are zeroed on each level's boundary ring (the
 correction equation has homogeneous Dirichlet data there).
 
+HPCG's cycle (`transfer="injection"`, `smoother="symgs"`): levels coarsened
+about their interior box, which keeps the ring (`passes.coarsen`'s vertex
+mode); coarse unknown i is fine unknown 2i, so restriction is injection of
+the fine residual and prolongation adds the coarse correction onto the
+fine unknowns it sits on (the transpose of the injection); each smoothing
+sweep is one symmetric multicolour Gauss-Seidel sweep, 2^rank parity
+colours forward then backward, each colour one call of the level's colour
+pass (`passes.smoother`, a kernel-A launch on the card).
+
 On a mesh of processes (`parallel.GridMesh`) the same cycle runs on
 blocks: when the finest operator carries a `gmesh` (a
 `parallel.shardmap_opdef` matvec, or a handle or wrapper around one),
@@ -50,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import default_device
+from ..utils.profiling import span
 from .chebyshev import power_method
 from .chebyshev import smooth as _cheb_smooth
 from ..utils.tree import tnorm
@@ -74,6 +84,11 @@ class MGLevel(NamedTuple):
     ca_k: int = 0  # the smoother's fused iteration count
     # the mesh whose blocks this level's tensors are (None: the whole grid)
     mesh: Optional[object] = None
+    # the "symgs" smoother's colour pass: (x, b, colour) -> x with the
+    # cells of that colour relaxed (None: the level has none)
+    colour: Optional[Callable] = None
+    # per dim (start, stop): the cells inside the boundary ring
+    box: Optional[tuple] = None
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -124,15 +139,21 @@ def first_whole_level(gshape, mesh, n_levels: int) -> int:
     return n_levels
 
 
-def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) -> list[MGLevel]:
+def build_levels(
+    ops: Sequence, like, *, rings: Optional[Sequence[int]] = None,
+    colour_ops: Optional[Sequence[Callable]] = None,
+) -> list[MGLevel]:
     """Per-level smoother data, on `like`'s device and in its dtype.
 
     ops: finest-to-coarsest operators, `MatrixHandle`s (their halo gives
     exact diagonal probing) or bare matvec callables. like: a finest-grid
     tensor or array (shape, dtype and device template; on a mesh, this
-    process's block). Each coarser level halves every dimension. rings:
+    process's block). Each coarser level halves every dimension, or has
+    the `level_shape` its operator names (a whole-grid level). rings:
     per-level boundary-ring width of the correction mask; by default each
-    operator's largest halo (1 if unknown).
+    operator's largest halo (1 if unknown). colour_ops: per level, the
+    colour pass (x, b, inv_diag, colour) -> x of the "symgs" smoother
+    (`passes.smoother.colour_pass`), given this level's inverse diagonal.
 
     On a mesh, operators without a `gmesh` after sharded ones are
     whole-grid levels, replicated on every process; a sharded level may
@@ -146,6 +167,10 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
     gshape = _geometry(mesh0, shape)[0]
     for i, op in enumerate(ops):
         mesh = _mesh_of(op) if mesh0 is not None else None
+        if i and getattr(op, "level_shape", None) is not None and mesh is None:
+            # a level that names its own grid (vertex coarsening keeps the
+            # ring, so its grid is not half the finer one)
+            shape = gshape = tuple(op.level_shape)
         if mesh is not None and levels and levels[-1].mesh is None:
             raise ValueError(
                 f"multigrid level {i} is sharded on mesh {mesh.shape} below a whole-grid "
@@ -154,7 +179,8 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
         if mesh is None:
             shape = gshape
         origin = _geometry(mesh, shape)[1]
-        if i + 1 < len(ops) and any(s % 2 for s in shape):
+        if i + 1 < len(ops) and getattr(ops[i + 1], "level_shape", None) is None and any(
+                s % 2 for s in shape):
             if mesh is not None:
                 raise ValueError(
                     f"multigrid level {i} grid {gshape} on mesh {mesh.shape}: block {shape} "
@@ -188,8 +214,13 @@ def build_levels(ops: Sequence, like, *, rings: Optional[Sequence[int]] = None) 
         lmax = power_method(
             mv, seed_vec, iters=20, M=lambda v, iv=inv_diag: iv * v, group=_group(mesh, rank)
         ) * 1.1
+        colour = None
+        if colour_ops is not None:
+            colour = lambda x, b, c, f=colour_ops[i], d=inv_diag: f(x, b, d, c)  # noqa: E731
+        box = tuple((ring - o, gn - ring - o) for o, gn in zip(origin, gshape))
         levels.append(
-            MGLevel(mv, inv_diag, torch.from_numpy(idx).to(device), float(lmax), mesh=mesh)
+            MGLevel(mv, inv_diag, torch.from_numpy(idx).to(device), float(lmax), mesh=mesh,
+                    colour=colour, box=box)
         )
         shape = tuple(s // 2 for s in shape)
         gshape = tuple(s // 2 for s in gshape)
@@ -266,10 +297,34 @@ def prolong_block(e: torch.Tensor, fine_shape, mesh) -> torch.Tensor:
     return out[tuple(slice(2 * lo, 2 * lo + f) for lo, f in zip(lows, fine_shape))]
 
 
-def _down(r: torch.Tensor, L: MGLevel, Lc: MGLevel) -> torch.Tensor:
+def _injected(L: MGLevel, Lc: MGLevel) -> tuple:
+    """(fine slices, coarse slices): the fine unknowns that Lc's unknowns
+    sit on, every second one from the start of L's box, and Lc's box."""
+    fine, coarse = [], []
+    for (flo, _), (clo, chi) in zip(L.box, Lc.box):
+        fine.append(slice(flo, flo + 2 * (chi - clo), 2))
+        coarse.append(slice(clo, chi))
+    return tuple(fine), tuple(coarse)
+
+
+def _add_injected(x: torch.Tensor, ec: torch.Tensor, L: MGLevel, Lc: MGLevel) -> torch.Tensor:
+    """x with Lc's correction ec added onto the fine unknowns Lc's unknowns
+    sit on, in place: the transpose of the injection."""
+    fine, coarse = _injected(L, Lc)
+    x[fine] += ec[coarse]
+    return x
+
+
+def _down(r: torch.Tensor, L: MGLevel, Lc: MGLevel, transfer: str = "mean") -> torch.Tensor:
     """The restriction of L's residual r to Lc's grid, its ring zeroed:
     joined once into the whole grid where Lc is the first whole-grid
-    level."""
+    level. transfer "injection": Lc's unknowns take r at the fine unknowns
+    they sit on."""
+    if transfer == "injection":
+        fine, coarse = _injected(L, Lc)
+        rc = torch.zeros(Lc.inv_diag.shape, dtype=r.dtype, device=r.device)
+        rc[coarse] = r[fine]
+        return rc
     rc = restrict(r)
     if L.mesh is not None and Lc.mesh is None:
         rc = L.mesh.gather(rc)
@@ -284,28 +339,46 @@ def _up(ec: torch.Tensor, fine_shape, L: MGLevel, Lc: MGLevel) -> torch.Tensor:
     return prolong(ec, fine_shape, L.mesh)
 
 
-def _check_smoother(smoother: str) -> None:
-    if smoother not in ("rb", "jacobi", "cheb"):
-        raise ValueError(f"unknown smoother {smoother!r}; options: 'rb', 'jacobi', 'cheb'")
+def _check_smoother(smoother: str, transfer: str = "mean") -> None:
+    if smoother not in ("rb", "jacobi", "cheb", "symgs"):
+        raise ValueError(
+            f"unknown smoother {smoother!r}; options: 'rb', 'jacobi', 'cheb', 'symgs'")
+    if transfer not in ("mean", "injection"):
+        raise ValueError(f"unknown transfer {transfer!r}; options: 'mean', 'injection'")
 
 
-def _smoother(L: MGLevel, b, smoother: str, omega: float) -> Callable:
-    """smooth(x, n): n sweeps of `smoother` for L's operator and rhs b."""
-    if smoother == "cheb":
+def _smoother(L: MGLevel, b, smoother: str, omega: float, level: int = 0) -> Callable:
+    """smooth(x, n): n sweeps of `smoother` for L's operator and rhs b,
+    each call of it the span `nt.mg.smooth`."""
+    colours = 1
+    if smoother == "symgs":
+        if L.colour is None:
+            raise ValueError(
+                f"multigrid level {level} has no colour pass: the 'symgs' smoother needs "
+                "levels built with colour_ops (precond='mg' builds them)")
+        colours = 2**b.ndim
+        order = [float(c) for c in list(range(colours)) + list(range(colours))[::-1]]
+
+        def sweeps(x, n):
+            for _ in range(n):
+                for c in order:
+                    x = L.colour(x, b, c)
+            return x
+
+    elif smoother == "cheb":
         lmax = L.cheb_lmax
 
-        def smooth(x, n):
-            if n <= 0:
-                return x
+        def sweeps(x, n):
             return _cheb_smooth(
                 L.matvec, b, x, M=lambda v: L.inv_diag * v, lam_min=lmax / 4.0, lam_max=lmax,
                 maxiter=n,
             )
 
     elif smoother == "rb":
+        colours = 2
         red = red_mask(b.shape, b.device, _geometry(L.mesh, tuple(b.shape))[1])
 
-        def smooth(x, n):
+        def sweeps(x, n):
             for _ in range(n):
                 for color in (red, ~red):
                     x = torch.where(color, x + L.inv_diag * (b - L.matvec(x)), x)
@@ -313,10 +386,16 @@ def _smoother(L: MGLevel, b, smoother: str, omega: float) -> Callable:
 
     else:
 
-        def smooth(x, n):
+        def sweeps(x, n):
             for _ in range(n):
                 x = x + omega * L.inv_diag * (b - L.matvec(x))
             return x
+
+    def smooth(x, n):
+        if n <= 0:
+            return x
+        with span("nt.mg.smooth", level=level, smoother=smoother, colours=colours, sweeps=n):
+            return sweeps(x, n)
 
     return smooth
 
@@ -332,7 +411,7 @@ def v_cycle(
     coarse_iters: int = 32,
     smoother: str = "rb",
     coarse_solver: str = "cg",
-    _lvl: int = 0,
+    transfer: str = "mean",
     _x_is_zero: bool = False,
 ):
     """One V(pre,post) cycle for A x = b on the finest grid.
@@ -348,21 +427,35 @@ def v_cycle(
     stencils); "jacobi", the omega-damped simultaneous update; "cheb",
     degree-n Chebyshev smoothing of D^-1 A on [lam_max/4, lam_max] (fixed
     degree and bounds keep the cycle linear, so it stays a valid CG
-    preconditioner). coarse_solver: "cg" (tol 1e-8, `coarse_iters`
-    iterations at most, tested on the host) or "jacobi" (a fixed count of
-    smoothing sweeps).
+    preconditioner); "symgs", symmetric multicolour Gauss-Seidel (colours
+    forward then backward, each level's colour pass). coarse_solver: "cg"
+    (tol 1e-8, `coarse_iters` iterations at most, tested on the host) or
+    "jacobi" (a fixed count of smoothing sweeps, of whichever smoother).
+    transfer: "mean" (cell-centred mean and multilinear interpolation) or
+    "injection" (see the module docstring). The whole cycle is the span
+    `nt.mg.cycle`.
     """
-    _check_smoother(smoother)
-    L = levels[_lvl]
-    smooth = _smoother(L, b, smoother, omega)
+    _check_smoother(smoother, transfer)
+    kw = dict(pre=pre, post=post, omega=omega, coarse_iters=coarse_iters, smoother=smoother,
+              coarse_solver=coarse_solver, transfer=transfer)
+    with span("nt.mg.cycle", levels=len(levels)):
+        return _cycle(levels, b, x, 0, _x_is_zero, kw)
 
-    if _lvl == len(levels) - 1:
+
+def _cycle(levels, b, x, lvl, x_is_zero, kw):
+    """`v_cycle` from level `lvl` down, `kw` its settings."""
+    L = levels[lvl]
+    smooth = _smoother(L, b, kw["smoother"], kw["omega"], lvl)
+    pre, post, coarse_iters = kw["pre"], kw["post"], kw["coarse_iters"]
+    coarse_solver, transfer = kw["coarse_solver"], kw["transfer"]
+
+    if lvl == len(levels) - 1:
         if coarse_solver == "jacobi":
             # a fixed smoothing count keeps the cycle a LINEAR operator, as
             # a Krylov preconditioner must be (an inner CG is nonlinear in b)
             if L.ca_smooth is not None:
                 calls = max(1, coarse_iters // max(L.ca_k, 1))
-                if _x_is_zero:
+                if x_is_zero:
                     x, _ = L.ca_smooth_zero(b)
                     calls -= 1
                 for _ in range(calls):
@@ -378,8 +471,9 @@ def v_cycle(
         )
         return x
 
+    given = x
     if L.ca_smooth is not None:
-        x, r = L.ca_smooth_zero(b) if _x_is_zero else L.ca_smooth(b, x)
+        x, r = L.ca_smooth_zero(b) if x_is_zero else L.ca_smooth(b, x)
     else:
         x = smooth(x, pre)
         r = b - L.matvec(x)
@@ -387,26 +481,17 @@ def v_cycle(
     # vanish on the coarse ring (identity rows would otherwise store the
     # restricted boundary-layer residual as boundary values, which interior
     # rows coupled at O(1/h^2) amplify once per level)
-    Lc = levels[_lvl + 1]
-    rc = _down(r, L, Lc)
-    ec = v_cycle(
-        levels,
-        rc,
-        torch.zeros_like(rc),
-        pre=pre,
-        post=post,
-        omega=omega,
-        coarse_iters=coarse_iters,
-        smoother=smoother,
-        coarse_solver=coarse_solver,
-        _lvl=_lvl + 1,
-        _x_is_zero=True,
-    )
-    # zero the correction's ring too before interpolating: keeps any
-    # coarsest-level ring drift out of fine interior cells
-    ec = torch.where(Lc.interior, ec, 0.0)
-    e = _up(ec, x.shape, L, Lc)
-    x = x + torch.where(L.interior, e, 0.0)
+    Lc = levels[lvl + 1]
+    rc = _down(r, L, Lc, transfer)
+    ec = _cycle(levels, rc, torch.zeros_like(rc), lvl + 1, True, kw)
+    if transfer == "injection":
+        x = _add_injected(x.clone() if x is given else x, ec, L, Lc)
+    else:
+        # zero the correction's ring too before interpolating: keeps any
+        # coarsest-level ring drift out of fine interior cells
+        ec = torch.where(Lc.interior, ec, 0.0)
+        e = _up(ec, x.shape, L, Lc)
+        x = x + torch.where(L.interior, e, 0.0)
     if L.ca_smooth is not None:
         x, _ = L.ca_smooth(b, x)
         return x
@@ -502,6 +587,8 @@ def mg_preconditioner(
     coarse_iters: int = 32,
     smoother: str = "jacobi",
     levels: Optional[Sequence[MGLevel]] = None,
+    transfer: str = "mean",
+    colour_ops: Optional[Sequence[Callable]] = None,
 ) -> Callable:
     """M(r) ~= A^-1 r: one V-cycle from a zero guess, the `M` of the Krylov
     solvers (`cg(..., M=mg_preconditioner(...))`). Pass `levels=` to reuse
@@ -509,22 +596,27 @@ def mg_preconditioner(
 
     CG needs a FIXED symmetric positive linear M, so this cycle smooths
     symmetrically (equal pre/post counts) and ends in a fixed-count
-    coarsest smooth; it reads nothing on the host. smoother: "jacobi" or
-    "cheb" (self-adjoint in the D-inner product); red-black ordering is
-    not symmetric and is refused.
+    coarsest smooth (`coarse_iters` sweeps); it reads nothing on the host.
+    smoother: "jacobi" or "cheb" (self-adjoint in the D-inner product), or
+    "symgs" (each sweep a palindrome of colour passes, so self-adjoint in
+    the A-inner product; needs `colour_ops`, see `build_levels`); red-black
+    ordering is not symmetric and is refused. transfer: "mean" or
+    "injection" (restriction the transpose of prolongation, as symmetry
+    asks).
     """
-    if smoother not in ("jacobi", "cheb"):
+    if smoother not in ("jacobi", "cheb", "symgs"):
         raise ValueError(
-            "mg_preconditioner smoother must be 'jacobi' or 'cheb' "
+            "mg_preconditioner smoother must be 'jacobi', 'cheb' or 'symgs' "
             f"(got {smoother!r}; 'rb' ordering is not symmetric)"
         )
-    lv = list(levels) if levels is not None else build_levels(ops, like)
+    _check_smoother(smoother, transfer)
+    lv = list(levels) if levels is not None else build_levels(ops, like, colour_ops=colour_ops)
 
     def M(r):
         return v_cycle(
             lv, r, torch.zeros_like(r), pre=pre, post=post, omega=omega,
             coarse_iters=coarse_iters, smoother=smoother, coarse_solver="jacobi",
-            _x_is_zero=True,
+            transfer=transfer, _x_is_zero=True,
         )
 
     return M

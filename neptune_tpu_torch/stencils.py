@@ -11,6 +11,7 @@ can run through both.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 from .ir import BF16, F32, F64, Bounds, FieldType, NeptuneBuilder, TempType, TensorType
@@ -104,6 +105,22 @@ def poisson7(n: int, dtype="float32") -> Module:
         return acc
 
     return _one_apply_opdef("poisson", (n, n, n), 1, dtype, body)
+
+
+def hpcg27(shape, dtype="float64") -> Module:
+    """@hpcg27: HPCG's operator, (3^rank - 1) u - (the 3^rank - 1 neighbours)
+    on the interior: the 27-point stencil on a rank-3 grid (9-point on a
+    rank-2 one), the ring standing for absent neighbours."""
+    rank = len(shape)
+
+    def body(b, S, u, s):
+        acc = b.mul(b.constant(float(3**rank - 1), S), b.access(u[0], [0] * rank))
+        for o in itertools.product((-1, 0, 1), repeat=rank):
+            if any(o):
+                acc = b.sub(acc, b.access(u[0], list(o)))
+        return acc
+
+    return _one_apply_opdef("hpcg27", tuple(shape), 1, dtype, body)
 
 
 def with_solve(module: Module, name: str, **solve) -> Module:

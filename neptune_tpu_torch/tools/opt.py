@@ -111,7 +111,7 @@ def opdef_route(module, name: str) -> str:
         elif any(ok):
             route = f"{_KERNELS['A']} for {sum(ok)} of {len(ok)} applies, eager for the rest"
         else:
-            route = "eager (no kernel takes its applies: f64, rank 1, or mixed domains)"
+            route = "eager (no kernel takes its applies: rank 1 or mixed domains)"
     if sweeps.sweep_plan(module, name, 2) is not None:
         route += f"; sweeps: {_KERNELS['C']}"
     return route

@@ -40,12 +40,18 @@ LINEAR_OPTION_KEYS = {
     # Krylov loop — the analog of PETSc's -pc_* namespace):
     "omega": float,  # SSOR relaxation weight (-pc_sor_omega)
     "mg_levels": int,  # total geometric-MG levels incl. finest (-pc_mg_levels)
-    "mg_smoother": str,  # "jacobi" | "cheb" (-mg_levels_ksp_type analog)
+    "mg_smoother": str,  # "jacobi" | "cheb" | "symgs" (-mg_levels_ksp_type analog)
+    # "cell" | "vertex": halve the grid (mean transfers, each level damped
+    # by 1/4), or halve the interior keeping the ring (HPCG's hierarchy:
+    # injection, the operator unscaled)
+    "mg_coarsen": str,
+    "mg_coarse_sweeps": int,  # smoothing sweeps on the coarsest level (-mg_coarse_ksp_max_it)
 }
 
 # options consumed by the preconditioner construction; split off the dict
 # handed to the Krylov loop (PETSc's -pc_* vs -ksp_* namespaces)
-PRECOND_OPTION_KEYS = ("omega", "mg_levels", "mg_smoother")
+MG_OPTION_KEYS = ("mg_levels", "mg_smoother", "mg_coarsen", "mg_coarse_sweeps")
+PRECOND_OPTION_KEYS = ("omega",) + MG_OPTION_KEYS
 
 
 def split_precond_options(opts: dict, precond: str) -> dict:
@@ -57,17 +63,19 @@ def split_precond_options(opts: dict, precond: str) -> dict:
             "option 'omega' only applies to precond='ssor'/'ssor_dense' "
             f"(got precond={precond!r})"
         )
-    for k in ("mg_levels", "mg_smoother"):
+    for k in MG_OPTION_KEYS:
         if k in pc and precond != "mg":
             raise ValueError(
                 f"option {k!r} only applies to precond='mg' "
                 f"(got precond={precond!r})"
             )
-    if pc.get("mg_smoother") not in (None, "jacobi", "cheb"):
+    if pc.get("mg_smoother") not in (None, "jacobi", "cheb", "symgs"):
         raise ValueError(
-            "mg_smoother must be 'jacobi' or 'cheb' "
+            "mg_smoother must be 'jacobi', 'cheb' or 'symgs' "
             f"(got {pc['mg_smoother']!r})"
         )
+    if pc.get("mg_coarsen") not in (None, "cell", "vertex"):
+        raise ValueError(f"mg_coarsen must be 'cell' or 'vertex' (got {pc['mg_coarsen']!r})")
     return pc
 
 # Nonlinear (SNES-class) options.

@@ -33,7 +33,12 @@ The port's spans (PERF.md §3 names the metric each feeds):
     scalar on the fused route, where `lift` is 1 if kernel B lifts the
     copy-through ring and 0 if not);
   * ``nt.launch.<counter>`` — a kernel launch wrapper, from its argument
-    checks to the return of its C call, where its `LaunchCounter` counts.
+    checks to the return of its C call, where its `LaunchCounter` counts;
+    kernel A's (`stencil_apply`) carries the launch's `cells`, its `grids`
+    (inputs and outputs) and their `itemsize`;
+  * ``nt.mg.cycle`` — one multigrid V-cycle (`levels`);
+  * ``nt.mg.smooth`` — one smoother call on one level (`level`,
+    `smoother`, `colours` a sweep, `sweeps`).
 """
 
 from __future__ import annotations

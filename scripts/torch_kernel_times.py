@@ -61,19 +61,13 @@ def times_a(cs, dev, rng, out):
 
     from neptune_tpu_torch import stencils
     from neptune_tpu_torch.config import config
-    from neptune_tpu_torch.lowering import cuda_backend, torch_backend
+    from neptune_tpu_torch.lowering import cuda_backend
 
     fold = config.fold_affine
-    for label, module, fold_case in cs.a_cases():
+    for label, module, fold_case, scalar in cs.a_cases():
         config.fold_affine = fold_case
         op = stencils.the_apply(module)
-        tt = op.results[0].type
-        dtype = torch_backend.DTYPES[tt.element]
-        n_in = op.attrs["num_inputs"]
-        args = [
-            torch.from_numpy(rng.standard_normal(tt.bounds.shape, dtype=np.float32)).to(dev, dtype)
-            for _ in range(n_in)
-        ] + [torch.tensor(0.1, dtype=dtype)] * (len(op.operands) - n_in)
+        args = cs.a_args(op, scalar, rng, dev)
         call = lambda: cuda_backend.try_execute_apply(op, args)  # noqa: E731
         out[f"A {label}"] = {"ms": cs.cuda_ms(call, 20)}
         if label.startswith("jacobi5 1024^2"):

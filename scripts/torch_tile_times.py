@@ -10,8 +10,11 @@ tiles=)`), checks it bitwise against its plain version, and times it with
 CUDA events, the candidates in turns (first, ..., last, last, ..., first).
 One JSON line per case and candidate: the data behind the plans' tile lists
 (`cuda_backend.APPLY_TILES`, `sweeps.TILES`, `chain.TILES`) and kernel C's
-recompute cap (`sweeps.MAX_RECOMPUTE`). `--kernels AD` times a subset.
-Needs a CUDA device and nvcc.
+recompute cap (`sweeps.MAX_RECOMPUTE`). Kernel "F" is kernel A in float64
+on HPCG's 322^3 grid: the 27-point apply and its symgs colour pass (three
+inputs), under the candidates of `F_TILES` (the data behind
+`cuda_backend.APPLY_TILES_F64`). `--kernels AD` times a subset; the
+default is ACD. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -32,6 +35,13 @@ A_TILES = {
     2: [(32, 64, 8, 1), (16, 128, 8, 1), (32, 128, 16, 1), (16, 64, 4, 1)],
     3: [(16, 64, 4, 4), (8, 64, 2, 8), (16, 64, 4, 2), (32, 64, 8, 4), (16, 64, 4, 8)],
 }
+# kernel A in float64, rank 3: (rows, columns, cells per thread, planes), the
+# shared memory of each under an inputs-and-halo budget of ~96-100 KB
+F_TILES = [(16, 64, 4, 4), (8, 64, 2, 8), (16, 64, 4, 2), (16, 32, 4, 4), (8, 64, 4, 4),
+           (16, 64, 2, 4), (32, 32, 4, 4), (8, 64, 4, 2), (4, 64, 2, 4), (8, 32, 2, 4),
+           (16, 32, 4, 2), (8, 64, 2, 2), (4, 32, 2, 8), (16, 64, 4, 8)]
+F_SMEM = 100 * 1024
+
 # kernel C: depth -> (columns per lane, planes, rows, rows per strip, planes per task)
 C_TILES = {
     2: {16: [(4, 1, 64, 8, 1)], 8: [(4, 1, 64, 8, 1)]},
@@ -124,6 +134,50 @@ def times_d(cs, dev, rng, card):
                               **regs[id(p)], "ms": ms}), flush=True)
 
 
+def times_f(dev, rng, card):
+    """Kernel A in float64 under each of F_TILES whose shared memory fits
+    F_SMEM: HPCG's apply and its colour pass, each checked bitwise against
+    its eager version, timed in turns."""
+    import torch
+
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.kernels.build import builder
+    from neptune_tpu_torch.lowering import cuda_backend, torch_backend
+    from neptune_tpu_torch.passes.smoother import colour_pass
+
+    cs = smoke()
+    module = stencils.hpcg27((322, 322, 322))
+    cases = [("hpcg27 322^3 f64", stencils.the_apply(module), 1),
+             ("hpcg27 colour pass 322^3 f64",
+              stencils.the_apply(colour_pass(module, "hpcg27")), 3)]
+    for label, op, n_in in cases:
+        halo = cuda_backend.codegen.body_reach(op)
+        plans = []
+        for t1, t2, r, d in F_TILES:
+            smem = cuda_backend.apply_smem(n_in, 8, (t1, t2), halo, d)
+            if smem <= F_SMEM:
+                plans.append(cuda_backend.ApplyPlan((t1, t2), r, d, halo, t2 * (t1 // r), smem))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            for j in [pool.submit(builder.load, cuda_backend.source(op, p), "stencil_apply")
+                      for p in plans]:
+                j.result()
+        shape = op.results[0].type.bounds.shape
+        xs = [torch.from_numpy(rng.standard_normal(shape)).to(dev) for _ in range(n_in)]
+        sv = [3.0] if n_in == 3 else []
+        ref = torch_backend.execute_apply(op, xs + [torch.tensor(v) for v in sv])
+        calls = []
+        for p in plans:
+            got = cuda_backend.stencil_apply(op, xs, sv, dev, plan=p)
+            assert torch.equal(got, ref), (label, p)
+            calls.append(lambda p=p: cuda_backend.stencil_apply(op, xs, sv, dev, plan=p))
+        least = (n_in + 1) * 8 * op.results[0].type.bounds.size / 3.35e12 * 1e3
+        for p, ms in zip(plans, turns(cs, calls, 10)):
+            print(json.dumps({"kernel": "F", "case": label, "card": card, "tile": p.tile,
+                              "strip": p.strip, "planes": p.planes, "threads": p.threads,
+                              "smem": p.smem_bytes, "ms": ms, "least_ms": least,
+                              "roofline_pct": 100 * least / ms}), flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     kernels = args[1].upper() if len(args) > 1 and args[0] == "--kernels" else "ACD"
@@ -167,6 +221,8 @@ def main() -> int:
         c_plans.append((label, k, plans))
     if "D" in kernels:
         times_d(cs, dev, rng, card)
+    if "F" in kernels:
+        times_f(dev, rng, card)
     a_plans = a_plans if "A" in kernels else []
     c_plans = c_plans if "C" in kernels else []
     with ThreadPoolExecutor(max_workers=8) as pool:

@@ -141,7 +141,8 @@ def _plain_against_pallas(case):
     _compare(op, _f32(ref), _f32(got), dtype)
 
 
-# the same operators in f64: the eager route
+# the same operators in f64: kernel A's route (rank 2 and 3; its plain
+# version on the CPU) and the eager route agree; rank 1 stays eager
 F64_BUILDS = {
     "jacobi5": lambda: stencils.jacobi5((16, 24), "float64"),
     "adv4": lambda: stencils.advection4((16, 24), "float64"),
@@ -149,6 +150,7 @@ F64_BUILDS = {
     "heat7": lambda: stencils.heat7((6, 8, 10), "float64"),
     "combination": lambda: stencils.combination((16, 24), "float64"),
     "two_results": lambda: stencils.gradients((16, 24), "float64"),
+    "rank1_three_point": lambda: stencils.hpcg27((24,), "float64"),
 }
 
 
@@ -171,15 +173,20 @@ def test_fold_setting_reaches_generated_source(unfolded):
 
 def _eager_against_jnp_backend(module):
     op, jop = _both(module)
-    assert cuda_backend.try_execute_apply(op, []) is None  # f64: eager route
     grids, scalars = _operands(op, 1, np.float64)
+    args = [torch.from_numpy(a) for a in grids] + [torch.tensor(s) for s in scalars]
     ref = jnp_backend.execute_apply(
         jop, [jnp.asarray(a) for a in grids] + [jnp.asarray(s) for s in scalars]
     )
-    got = torch_backend.execute_apply(
-        op, [torch.from_numpy(a) for a in grids] + [torch.tensor(s) for s in scalars]
-    )
+    got = torch_backend.execute_apply(op, args)
     _compare(op, _np64(ref), _np64(got), "float64")
+    via = cuda_backend.try_execute_apply(op, args)
+    if op.results[0].type.bounds.rank == 1:
+        assert via is None  # rank 1: the eager route
+    else:  # kernel A's gate takes f64; on the CPU its plain version runs
+        assert cuda_backend.supported(op)
+        via, got = (via, got) if isinstance(via, tuple) else ((via,), (got,))
+        assert all(torch.equal(v, g) for v, g in zip(via, got))
 
 
 @pytest.mark.parametrize("case", CASES)

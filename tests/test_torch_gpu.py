@@ -509,11 +509,15 @@ WINDOWS = {
     "graded_index": (lambda: stencils.graded((100, 70), lb=(3, -5)), (25, 35), (53, 30)),
     "two_results": (lambda: stencils.gradients((64, 128)), (16, 64), (48, 64)),
     "periodic_adv4": (lambda: stencils.advection4((64, 80), periodic=True), (32, 40), (32, 40)),
+    "jacobi5_f64": (lambda: stencils.jacobi5((200, 90), "float64"), (50, 45), (150, 45)),
+    "hpcg27_f64": (lambda: stencils.hpcg27((40, 34, 70)), (20, 17, 70), (20, 17, 0)),
 }
 
 
 def _block(shape, dtype, cuda, seed=7):
-    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    x = np.random.default_rng(seed).standard_normal(shape)
+    if dtype != torch.float64:
+        x = x.astype(np.float32)
     return torch.from_numpy(x).to(cuda, dtype)
 
 
@@ -532,10 +536,29 @@ def test_window_form_matches_plain(case, cuda):
     if len(op.results) == 1:
         got, ref = (got,), (ref,)
     for g, r in zip(got, ref):
-        if dtype == torch.float32:
-            assert torch.equal(g, r)
+        if dtype != torch.bfloat16:
+            assert g.dtype == dtype and torch.equal(g, r)
         else:
             assert bf16_ulps(g, r) <= 1
+
+
+@pytest.mark.gpu
+def test_local_sweeps_f64_take_the_window_form(cuda):
+    """Kernel C takes no f64 apply: a block's f64 sweeps are as many
+    launches of kernel A's window form, bitwise the eager window route."""
+    op = stencils.the_apply(stencils.heat7((40, 34, 70), "float64"))
+    block, gstart, k = (20, 17, 70), (20, 17, 0), 3
+    assert sweeps.local_sweep_plan(op, block, k) is None
+    x = _block(block, torch.float64, cuda)
+    before = sweeps.local_counter.count, cuda_backend.window_counter.count
+    got = sweeps.sweeps_local(op, x, [], k, gstart)
+    torch.cuda.synchronize()
+    assert (sweeps.local_counter.count - before[0],
+            cuda_backend.window_counter.count - before[1]) == (0, k)
+    ref = x
+    for _ in range(k):
+        ref = torch_backend.execute_apply_window(op, [ref], [], gstart)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu
@@ -626,6 +649,8 @@ TILED = {
     "window_rank3": (lambda: stencils.heat7((80, 40, 300)), None, (40, 0, 0)),
     # the bounds end inside the block, away from its edges
     "window_bounds_inside_the_block": (lambda: stencils.jacobi5((80, 200)), SMALL_A, (50, 110)),
+    "window_hpcg27_f64": (lambda: stencils.hpcg27((82, 82, 164)), None, (41, 0, 82)),
+    "window_jacobi5_f64": (lambda: stencils.jacobi5((400, 1200), "float64"), None, (200, 512)),
 }
 
 
@@ -662,8 +687,8 @@ def test_tiled_stencil_apply_matches_plain(case, aligned, cuda):
         ref = torch_backend.execute_apply_window(op, xs, sv, gstart)
     got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
     for g, r in zip(got, ref):
-        if dtype == torch.float32:
-            assert torch.equal(g, r)
+        if dtype != torch.bfloat16:
+            assert g.dtype == dtype and torch.equal(g, r)
         else:
             assert bf16_ulps(g, r) <= 1
 
@@ -1510,3 +1535,143 @@ def test_fused_iters_attribute_is_the_kernels_scalar(cuda, tmp_path, monkeypatch
     (s,) = [s for s in profiling.spans() if s["name"] == "nt.solve"]
     assert s["attrs"]["route"] == "fused" and s["attrs"]["iters"] == int(wrote[0].item()) > 0
     profiling.clear()
+
+
+# ---------------------------------------------------------------------------
+# kernel A in float64, and HPCG's solve on the card
+# ---------------------------------------------------------------------------
+
+# float64 applies at odd shapes, and at HPCG's 322^3 grid
+F64_APPLIES = {
+    "hpcg27_odd": lambda: stencils.hpcg27((7, 9, 11)),
+    "hpcg27_ragged": lambda: stencils.hpcg27((37, 45, 131)),
+    "hpcg27_322": lambda: stencils.hpcg27((322, 322, 322)),
+    "heat7_odd": lambda: stencils.heat7((9, 13, 70), "float64"),
+    "heat7_periodic": lambda: stencils.heat7((8, 16, 40), "float64", periodic=True),
+    "jacobi5_odd": lambda: stencils.jacobi5((97, 131), "float64"),
+    "adv4_odd": lambda: stencils.advection4((61, 133), "float64"),
+    "nine_point_odd": lambda: stencils.hpcg27((53, 77)),
+    "combination": lambda: stencils.combination((64, 129), "float64"),
+}
+
+
+def _block64(shape, cuda, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", F64_APPLIES)
+def test_f64_stencil_apply_is_bitwise_eager(case, aligned, cuda):
+    """Kernel A over f64 elements, computing in double with --fmad=false,
+    equals the eager f64 route bit for bit, with 16-byte copies and without."""
+    op = stencils.the_apply(F64_APPLIES[case]())
+    assert cuda_backend.supported(op) and cuda_backend.apply_plan(op) is not None
+    shape = op.results[0].type.bounds.shape
+    n_in = op.attrs["num_inputs"]
+    xs = []
+    for seed in range(n_in):
+        x = _block64(shape, cuda, seed)
+        if not aligned:
+            buf = torch.empty(x.numel() + 1, dtype=torch.float64, device=cuda)
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(shape)
+        xs.append(x)
+    sv = [torch.tensor(0.1, dtype=torch.float64)] * (len(op.operands) - n_in)
+    before = cuda_backend.counter.count
+    got = cuda_backend.try_execute_apply(op, xs + sv)
+    torch.cuda.synchronize()
+    assert cuda_backend.counter.count == before + 1
+    ref = torch_backend.execute_apply(op, xs + sv)
+    assert got.dtype == torch.float64 and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(12, 14, 18), (34, 34, 34), (20, 26)])
+def test_colour_pass_is_bitwise_eager(shape, cuda):
+    """The symgs colour pass of HPCG's operator, one kernel-A launch (three
+    inputs and a scalar), equals its eager route bit for bit."""
+    from neptune_tpu_torch.passes.smoother import SUFFIX, colour_pass
+
+    module = colour_pass(stencils.hpcg27(shape), "hpcg27")
+    cm = CompiledModule(module, "auto", cuda)
+    eager = CompiledModule(module, "torch", cuda)
+    x, b = (_block64(shape, cuda, s) for s in (1, 2))
+    d = torch.full(shape, 1 / 26, dtype=torch.float64, device=cuda)
+    for c in range(2 ** len(shape)):
+        before = cuda_backend.counter.count
+        got = cm.opdef("hpcg27" + SUFFIX)(x, b, d, float(c))
+        torch.cuda.synchronize()
+        assert cuda_backend.counter.count == before + 1
+        assert torch.equal(got, eager.opdef("hpcg27" + SUFFIX)(x, b, d, float(c)))
+
+
+@pytest.mark.gpu
+def test_hpcg_solve_on_the_card_matches_the_reference(cuda):
+    """A 34^3-grid HPCG solve through the port's normal path (jit_class,
+    solve_linear, the generic CG route, the symgs V-cycle on kernel A) equals
+    the plain reference's 50 iterations, and launches the written count."""
+    import importlib
+
+    prog = importlib.import_module("portbench.programs.hpcg27")
+    ref = importlib.import_module("portbench.reference.hpcg27")
+    n = 32
+    cfg = {"bounds": [[0] * 3, [n + 2] * 3], "interior": [[1] * 3, [n + 1] * 3],
+           "dtype": "float64", "solver": "cg", "tol": 0.0, "max_iters": 50}
+    opts = {"mg_levels": 4, "mg_smoother": "symgs", "mg_coarsen": "vertex",
+            "mg_coarse_sweeps": 1}
+    solve = prog.solver(cfg, opts)
+    interior = ((1, 1, 1), (n + 1,) * 3)
+    gen = torch.Generator(device=cuda).manual_seed(2**31 + 11)
+    for b in (ref.hpcg_rhs((n + 2,) * 3, interior, device=cuda),
+              ref.random_rhs((n + 2,) * 3, interior, gen, device=cuda)):
+        solve(b)
+        before = cuda_backend.counter.count, fused.counter.count
+        x = solve(b)
+        torch.cuda.synchronize()
+        # the lift, r0, one V-cycle, then 50 of (A p, one V-cycle); a
+        # V-cycle is 16 colour passes a sweep, 2 sweeps and a residual on
+        # each of 3 levels, one sweep on the coarsest
+        assert cuda_backend.counter.count - before[0] == 2 + 51 * (3 * 33 + 16) + 50
+        assert fused.counter.count == before[1]
+        xr = ref.pcg(b, interior)
+        assert ref.rel_diffs(x[None], xr[None]).item() <= 1e-12
+        assert ref.rel_residuals(x[None], b[None], interior).item() <= 1e-10
+
+
+# the float32 and bfloat16 sources and plans of kernel A are the parent's
+# byte for byte: sha256 of `cuda_backend.source(op) + repr(apply_plan(op))`
+F32_SOURCES = {
+    "jacobi5_f32": (lambda: stencils.jacobi5((64, 128)),
+                    "e2e9d1877a985377290f625e6d374c056f19b62f85c5d41bb50307b0fd9d4978"),
+    "jacobi5_f32_8192": (lambda: stencils.jacobi5((8192, 8192)),
+                         "e2e9d1877a985377290f625e6d374c056f19b62f85c5d41bb50307b0fd9d4978"),
+    "jacobi5_bf16": (lambda: stencils.jacobi5((64, 128), "bfloat16"),
+                     "80a2768ebf55a13ab1ae5b32b413088050a8e0fc9b4e34847ae921f3e9ac52e3"),
+    "adv4_f32": (lambda: stencils.advection4((64, 128)),
+                 "8a68874038f0a4f198629cb3823535773b039025c92bb89a55f3185d5b626852"),
+    "adv4_periodic_f32": (lambda: stencils.advection4((64, 128), periodic=True),
+                          "c78bd61412f45babc89355c47f65d01258e3ccb4485322396f27e7264fceb1ab"),
+    "adv4_bf16": (lambda: stencils.advection4((64, 128), "bfloat16"),
+                  "36c40da01ee2e6bb8a9039531b0814190abdad9bbfdb29687e044c27e5d81c9f"),
+    "heat7_f32": (lambda: stencils.heat7((8, 16, 128)),
+                  "4a60a814c7f7a3bdb1a68c628c4771acbc4d9d4a6c9cf796d4e39ee1cfce9aff"),
+    "heat7_bf16": (lambda: stencils.heat7((8, 16, 128), "bfloat16"),
+                   "9cb921cbcf0e94a0cd8fdb91885e99e8e4d92d7ca4837c408de96a038875a776"),
+    "heat7_periodic_f32": (lambda: stencils.heat7((8, 16, 128), periodic=True),
+                           "75e1227c3a2022ac286f8a19bb3a53320fcf44808f42f7fe47aea4aa73f774db"),
+    "combination_f32": (lambda: stencils.combination((64, 128)),
+                        "0c8c12c5c127a6f8e09dee3781106993d69e434687643fc31796ce8aa903e68b"),
+    "two_results_f32": (lambda: stencils.gradients((64, 128)),
+                        "3ff5bcb0bdc414aa6c51c79b0398f60ab8b4a815336101e39e32a176dda40bd6"),
+}
+
+
+@pytest.mark.parametrize("case", F32_SOURCES)
+def test_f32_and_bf16_sources_and_plans_are_unchanged(case):
+    import hashlib
+
+    build, digest = F32_SOURCES[case]
+    op = stencils.the_apply(build())
+    text = cuda_backend.source(op) + repr(cuda_backend.apply_plan(op))
+    assert hashlib.sha256(text.encode()).hexdigest() == digest

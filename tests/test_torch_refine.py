@@ -98,8 +98,8 @@ def test_twin_matches_jax():
     assert lo.dtype == np.float32 and hi.dtype == np.float64
     assert _rel(hi, hi_ref) <= 1e-14
     assert _rel(lo, lo_ref) <= TOL["float32"]
-    # the twin is a module of its own on the same backend: its f32 applies
-    # take kernel A's route, where the f64 original's run eager
+    # the twin is a module of its own on the same backend: its applies take
+    # kernel A's route in f32
     cm = ntt.get_context().compiled()
     assert cm._lo_cm.backend == cm.backend and cm._lo_cm.device == cm.device
 

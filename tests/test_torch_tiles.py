@@ -248,7 +248,18 @@ APPLY_CASES = {
     "window_rank3": (lambda: stencils.heat7((16, 20, 80)), SMALL_A, (5, 10, 0)),
     "default_plan_rank2": (lambda: stencils.jacobi5((70, 300)), None, None),
     "default_plan_rank3": (lambda: stencils.heat7((40, 20, 70)), None, None),
+    # kernel A over f64 elements: HPCG's 27-point apply and its three-input
+    # colour pass under the f64 tiles, a 9-point one under small tiles
+    "hpcg27_f64_default_plan": (lambda: stencils.hpcg27((12, 14, 70)), None, None),
+    "hpcg27_colour_pass_f64": (lambda: _colour(stencils.hpcg27((10, 18, 40))), None, None),
+    "nine_point_f64": (lambda: stencils.hpcg27((30, 70)), SMALL_A, None),
 }
+
+
+def _colour(module):
+    from neptune_tpu_torch.passes.smoother import colour_pass
+
+    return colour_pass(module, "hpcg27")
 
 
 @pytest.mark.parametrize("case", APPLY_CASES)
@@ -287,6 +298,13 @@ def test_kernel_a_plans():
     p3 = cuda_backend.apply_plan(stencils.the_apply(stencils.heat7((256, 256, 256))))
     assert (p3.tile, p3.planes, p3.halo) == ((16, 64), 4, (1, 1, 1))
     assert p3.smem_bytes == 4 * 6 * 18 * 72  # 4 planes and their halo
+    h = stencils.hpcg27((322, 322, 322))
+    f64 = cuda_backend.apply_plan(stencils.the_apply(h))
+    assert (f64.tile, f64.strip, f64.planes) == ((16, 32), 4, 4)
+    assert f64.smem_bytes == 8 * 6 * 18 * 36  # f64: 2 to the vector
+    colour = cuda_backend.apply_plan(stencils.the_apply(_colour(h)))
+    assert (colour.tile, colour.strip, colour.planes) == ((8, 32), 2, 4)
+    assert colour.smem_bytes == 3 * 8 * 6 * 10 * 36 <= cuda_backend.APPLY_SMEM_F64
     wide = stencils.the_apply(stencils.shifted_laplacian((64, 4096), reach=8))
     assert cuda_backend.apply_plan(wide, ((256, 128, 16, 1),)) is None
     src = cuda_backend.source(wide, None)
