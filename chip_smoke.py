@@ -18,7 +18,8 @@ line, the card's nvidia-smi line, and the result line):
   1. device and build: versions, nvcc seconds per library;
   2. kernel A (stencil_apply) against its plain version: f32 bitwise, bf16
      within one bf16 ulp, f64 bitwise (HPCG's 27-point operator at 322^3
-     and 42^3, and its symgs colour pass at 322^3);
+     and 42^3, and its symgs colour pass at 322^3, out of place and in
+     kernel A's colour form, in place);
   3. kernel B (fused_cg) against its plain version, both lifting the ring
      that the solve site finds (the composite case has none): iterations
      within 1, true residual, solution within 1e-4; per solve its time, time
@@ -240,6 +241,36 @@ def a_cases():
          colour_pass(stencils.hpcg27((322, 322, 322)), "hpcg27"), True, 5.0),
         ("hpcg27 42^3 f64 (coarsest level)", stencils.hpcg27((42, 42, 42)), True, 0.1),
     ]
+
+
+def phase2_colour_form(op, args) -> None:
+    """Kernel A's colour form of a symgs colour pass (`args`: x, b, 1/diag,
+    the colour), in place, against the out-of-place pass bitwise, with its
+    launch count, times and bound."""
+    import torch
+    from neptune_tpu_torch.lowering import cuda_backend
+
+    x, ins, sv = args[0], args[1:3], [float(a) for a in args[3:]]
+    want = cuda_backend.try_execute_apply(op, args)
+    got = x.clone()
+    torch.cuda.synchronize()
+    before = cuda_backend.counter.count
+    cuda_backend.apply_colour(op, got, ins, sv)
+    torch.cuda.synchronize()
+    launched = cuda_backend.counter.count - before
+    require(torch.equal(got, want), "colour form != the out-of-place colour pass")
+    require(launched == 1, f"colour form: launch count rose by {launched}")
+    k_ms, o_ms = abba(lambda: cuda_backend.apply_colour(op, got, ins, sv),
+                      lambda: cuda_backend.try_execute_apply(op, args), reps=20)
+    dev_us = device_us(lambda: cuda_backend.apply_colour(op, got, ins, sv), 20, "nt_apply")
+    sizes = cuda_backend.colour_sizes(op, int(sv[-1]))
+    b_ms = sizes["cells"] * sizes["grids"] * sizes["itemsize"] / HBM_BYTES_PER_S * 1e3
+    say(f"phase 2 stencil_apply colour form, in place, colour {int(sv[-1])}: bitwise the "
+        f"out-of-place pass, launches+{launched}; {k_ms:.4f} ms per call against {o_ms:.4f} ms "
+        f"out of place; device time "
+        f"{'not measured' if dev_us is None else f'{dev_us:.1f} us'}; bound {b_ms:.4f} ms "
+        f"(bytes: {sizes['cells']} cells x {sizes['grids']} grids); plan "
+        f"{cuda_backend.colour_plan(op)}")
 
 
 def a_args(op, scalar: float, rng, dev) -> list:
@@ -3932,6 +3963,8 @@ def main() -> int:
             a_ms, a_plain_ms, a_bound, a_lib = k_ms, p_ms, (b_ms, b_by), lib_ms
         if label == A_F64_LABEL:
             a64 = (k_ms, p_ms, (b_ms, b_by), lib_ms)
+        if cuda_backend.colour_form(op):
+            phase2_colour_form(op, args)
     config.fold_affine = fold_default
 
     # ---- phase 3: kernel B against its plain version -------------------

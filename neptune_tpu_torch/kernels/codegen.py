@@ -251,6 +251,26 @@ NT_DEFINE_APPLY_TILED(NtBody, NtApplyPlan)
 """
 
 
+def colour_source(op: Operation, plan) -> str:
+    """The complete source of kernel A's colour form (csrc/nt_colour.cuh)
+    for an apply marked as a colour pass (`passes.smoother.MARK`): the
+    apply's own body, evaluated at one colour's cells, under `plan` (a
+    `cuda_backend.ApplyPlan` counted in colour cells, its halo (kH0, 1, 1))."""
+    from ..passes.smoother import MARK, PARITY
+
+    if op.attrs.get(MARK) != PARITY:
+        raise ValueError("kernel A's colour form needs an apply marked as a colour pass")
+    (t1, t2), h0 = plan.tile, plan.halo[0]
+    return '#include "nt_colour.cuh"\n\n' + body_struct(op, "NtBody") + f"""
+struct NtColourPlan {{
+  static constexpr int kT1 = {t1}, kT2 = {t2}, kR = {plan.strip}, kD = {plan.planes};
+  static constexpr int kH0 = {h0};
+}};
+
+NT_DEFINE_APPLY_COLOUR(NtBody, NtColourPlan)
+"""
+
+
 def grid_literal(shape, lb, blo, bhi) -> str:
     """An NtGrid initializer for a rank-2 grid, (1, n0, n1) in the kernels."""
     def three(v, fill):

@@ -26,6 +26,14 @@ f64 route. Given CPU tensors it runs the kernel's plain version
 (`torch_backend.execute_apply`); given CUDA tensors it launches the kernel
 or raises.
 
+The colour form (`apply_colour`, counted as `stencil_apply`) runs an apply
+that `passes.smoother.colour_pass` marked as a symgs colour pass over the
+cells of one colour only, updating x in place (`csrc/nt_colour.cuh`): x
+read whole, b and 1/diag read and x written at the colour's cells, where
+the out-of-place launch moves four whole grids. Its plan is
+`colour_plan`'s, its tiles `COLOUR_TILES`; every other apply keeps its
+source and plan.
+
 The window form (`apply_window`, counted apart as `stencil_apply_window`)
 is the same kernel over one local block of a sharded grid. It replaces
 `pallas_backend.py::execute_apply_window` and the `global_start` cases of
@@ -79,6 +87,12 @@ APPLY_SMEM = 96 * 1024
 # three-input colour pass: scripts/torch_tile_times.py --kernels F, PERF.md)
 APPLY_TILES_F64 = {3: ((16, 32, 4, 4), (8, 32, 2, 4), (4, 32, 2, 8))}
 APPLY_SMEM_F64 = 64 * 1024
+# Tiles of the colour form, counted in one colour's cells: (colour rows kT1,
+# colour columns kT2, cells per thread kR, colour planes kD), the first whose
+# staged x fits COLOUR_SMEM taken (timed on the H100 at HPCG's 322^3 and
+# 162^3: scripts/torch_tile_times.py --kernels G, PERF.md)
+COLOUR_TILES = {2: ((8, 32, 2, 1),), 3: ((8, 32, 2, 1),)}
+COLOUR_SMEM = 64 * 1024
 
 
 @dataclass(frozen=True)
@@ -164,6 +178,92 @@ def try_execute_apply(op: Operation, operand_arrays: Sequence, device=None) -> O
     return stencil_apply(op, operand_arrays[:n_in], operand_arrays[n_in:], device)
 
 
+def colour_form(op: Operation) -> bool:
+    """Whether kernel A runs `op` in its colour form: an apply marked as a
+    colour pass (`passes.smoother.MARK`) that `supported` takes, bounded,
+    with one result and a colour scalar, reading x (its first input) within
+    one cell along each dim and its other inputs at the cell alone, and a
+    tile of `COLOUR_TILES` that fits."""
+    from ..passes.smoother import MARK, PARITY
+
+    n_in = op.attrs.get("num_inputs", len(op.operands))
+    if (op.attrs.get(MARK) != PARITY or not supported(op) or op.attrs.get("periodic")
+            or len(op.results) != 1 or n_in < 1 or len(op.operands) == n_in):
+        return False
+    body, rank = op.region(0), op.results[0].type.bounds.rank
+    for a in op.walk():
+        if a.name != "neptune.access" or a.operands[0].block_arg_of is not body:
+            continue
+        k, offset = a.operands[0].index - rank, a.attrs["offset"]
+        if any(abs(o) > (1 if k == 0 else 0) for o in offset):
+            return False
+    return colour_plan(op) is not None
+
+
+def colour_smem(itemsize: int, tile, planes: int, rank: int) -> int:
+    """Shared memory of the colour form's tile (NtColourGeom): x alone, the
+    tile's colour planes (one plane in rank 2), rows and columns, each two
+    cells apart, with a halo of one cell, the columns widened to whole
+    16-byte vectors."""
+    vec = 16 // itemsize
+    staged = 2 * planes + 1 if rank == 3 else 1
+    return staged * (2 * tile[0] + 1) * (2 * tile[1] + vec) * itemsize
+
+
+def colour_plan(op: Operation, tiles=None) -> Optional[ApplyPlan]:
+    """The colour form's plan: the first of `tiles` (default COLOUR_TILES
+    of the apply's rank), counted in colour cells, whose staged x fits
+    COLOUR_SMEM, or None. Its halo is (1, 1, 1) in rank 3, (0, 1, 1) in
+    rank 2, whose tiles have one plane."""
+    rank = op.results[0].type.bounds.rank
+    itemsize = _ITEMSIZE[op.results[0].type.element]
+    for t1, t2, r, d in tiles or COLOUR_TILES[rank]:
+        smem = colour_smem(itemsize, (t1, t2), d, rank)
+        if smem <= COLOUR_SMEM and (rank == 3 or d == 1):
+            return ApplyPlan((t1, t2), r, d, (int(rank == 3), 1, 1), t2 * (t1 // r), smem)
+    return None
+
+
+def colour_cells(op: Operation, colour: int) -> tuple:
+    """Per dim, (first, count): the grid index of the first cell of
+    `colour` inside the apply's bounds and the number of its cells, a
+    cell's colour being the parity of its index from the bounds' lower
+    end along each dim, dim 0 the highest bit."""
+    tt: TempType = op.results[0].type
+    rank = tt.bounds.rank
+    meta = window_meta(tt.bounds.shape, op.attrs["bounds"], tt.bounds.lb)
+    out = []
+    for d in range(rank):
+        lo, hi = int(meta[6 + 3 - rank + d]), int(meta[9 + 3 - rank + d])
+        first = lo + ((colour >> (rank - 1 - d)) & 1)
+        out.append((first, max(0, (hi - first + 1) // 2)))
+    return tuple(out)
+
+
+def colour_sizes(op: Operation, colour: int) -> dict:
+    """The sizes a colour-form launch's span carries, for its roofline: the
+    colour's cells, 2^rank + 3 grids of them (x read whole, b, 1/diag and x
+    at the colour's cells), the element size, and form "colour"."""
+    rank = op.results[0].type.bounds.rank
+    cells = int(np.prod([n for _, n in colour_cells(op, colour)]))
+    return dict(cells=cells, grids=2**rank + 3,
+                itemsize=_ITEMSIZE[op.results[0].type.element], form="colour")
+
+
+def _colour_of(op: Operation, c) -> int:
+    rank = op.results[0].type.bounds.rank
+    v = float(c)
+    if not (v == int(v) and 0 <= v < 2**rank):
+        raise ValueError(f"colour pass: colour {c!r} is not one of 0..{2**rank - 1}")
+    return int(v)
+
+
+def colour_slices(op: Operation, c) -> tuple:
+    """The grid slices of the cells of colour `c` inside the apply's
+    bounds (`colour_cells`)."""
+    return tuple(slice(f, f + 2 * n, 2) for f, n in colour_cells(op, _colour_of(op, c)))
+
+
 class _Launch:
     """What every launch of one apply's kernel shares: its C entry, the grid
     metadata, the output shape and dtype, and the argument buffers, built
@@ -208,6 +308,90 @@ def _launcher(op: Operation, plan="auto") -> _Launch:
     if hit is None:
         hit = _kernels[key] = _Launch(op, plan)
     return hit
+
+
+class _ColourLaunch:
+    """What every launch of one colour pass's colour form shares: its C
+    entry, the argument buffers, and each colour's launch data (the grid's,
+    then the colour's first cells and counts, rank-3 padded) and sizes."""
+
+    def __init__(self, op: Operation, plan):
+        self.op = op  # held so that id(op) stays unique while cached
+        tt: TempType = op.results[0].type
+        self.shape = tt.bounds.shape
+        self.dtype = torch_backend.DTYPES[tt.element]
+        self.n_in = op.attrs.get("num_inputs", len(op.operands))
+        self.plan = colour_plan(op) if plan == "auto" else plan
+        lib = builder.load(codegen.colour_source(op, self.plan), "stencil_apply")
+        self.fn = lib.nt_apply_colour
+        self.fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+        self.fn.restype = ctypes.c_int
+        self.in_ptrs = (ctypes.c_void_p * self.n_in)()
+        self.in_addr = ctypes.addressof(self.in_ptrs)
+        self.scalars = np.zeros(len(op.operands) - self.n_in, dtype=np.float64)
+        grid = window_meta(self.shape, op.attrs["bounds"], tt.bounds.lb)
+        pad = [(0, 1)] * (3 - len(self.shape))
+        self.metas, self.sizes = [], []
+        for colour in range(2 ** len(self.shape)):
+            cells = pad + list(colour_cells(op, colour))
+            meta = np.concatenate([grid, [f for f, _ in cells], [n for _, n in cells]])
+            meta = meta.astype(np.int32)
+            self.metas.append((meta, meta.ctypes.data))
+            self.sizes.append(colour_sizes(op, colour))
+
+
+def _colour_launcher(op: Operation, plan="auto") -> _ColourLaunch:
+    key = (id(op), arithmetic(), "colour", plan)
+    hit = _kernels.get(key)
+    if hit is None:
+        hit = _kernels[key] = _ColourLaunch(op, plan)
+    return hit
+
+
+def apply_colour(op: Operation, x, inputs: Sequence, scalars: Sequence, plan="auto"):
+    """Kernel A's colour form of the colour pass `op` (`colour_form(op)`):
+    the pass over the cells of colour `scalars[-1]` only, written into x in
+    place; returns x. x is the pass's first input, `inputs` its others (b
+    and 1/diag), `scalars` its scalars. On CPU tensors the plain version:
+    the pass computed out of place, then written into x at the colour's
+    cells. On the card one launch, counted as `stencil_apply`, whose span
+    carries `colour_sizes`. plan: the plan to build, default
+    `colour_plan(op)`."""
+    colour = _colour_of(op, scalars[-1])
+    if x.device.type == "cpu":
+        n_in = op.attrs.get("num_inputs", len(op.operands))
+        sv = [torch_backend.scalar_tensor(v, o.type) for v, o in zip(scalars, op.operands[n_in:])]
+        cells = colour_slices(op, colour)
+        x[cells] = torch_backend.execute_apply(op, [x, *inputs, *sv])[cells]
+        return x
+    if x.device.type != "cuda":
+        raise ValueError(f"stencil_apply colour form: no kernel for device {x.device}")
+    with counter.launch() as s:
+        k = _colour_launcher(op, plan)
+        if s is not counter:
+            s.set(**k.sizes[colour])
+        if len(inputs) != k.n_in - 1 or len(scalars) != len(k.scalars):
+            raise TypeError(f"stencil_apply colour form: {k.n_in - 1} inputs after x and "
+                            f"{len(k.scalars)} scalars expected")
+        if x.dtype != k.dtype or tuple(x.shape) != k.shape or not x.is_contiguous():
+            raise ValueError(
+                f"stencil_apply colour form: x {tuple(x.shape)} {x.dtype}, expected a "
+                f"contiguous {k.shape} {k.dtype} tensor to update in place")
+        ins = []  # held until the launch is queued
+        for j, a in enumerate(inputs, 1):
+            if a.device != x.device or tuple(a.shape) != k.shape:
+                raise ValueError(
+                    f"stencil_apply colour form: input {tuple(a.shape)} on {a.device}, "
+                    f"expected {k.shape} on {x.device}")
+            ins.append(a.to(k.dtype).contiguous())
+            k.in_ptrs[j] = ins[-1].data_ptr()
+        k.in_ptrs[0] = x.data_ptr()
+        for j, v in enumerate(scalars):
+            k.scalars[j] = float(v)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        check(k.fn(x.device.index or 0, k.in_addr, k.scalars.ctypes.data, k.metas[colour][1],
+                   stream), "stencil_apply colour form launch")
+    return x
 
 
 def window_meta(shape: Sequence[int], bounds: Bounds, global_start: Sequence[int]) -> np.ndarray:

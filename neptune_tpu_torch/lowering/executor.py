@@ -253,6 +253,37 @@ class CompiledModule:
                     self._structure_cache[skey] = cb
         return self._opdef_cache[name]
 
+    def colour_form(self, name: str) -> Callable:
+        """A symgs colour pass (`passes.smoother.colour_pass`) in place:
+        (x, b, d, c) -> x, x's cells of colour c relaxed in x itself, x a
+        tensor of the pass's type that the caller owns. Kernel A's colour
+        form (`cuda_backend.apply_colour`, its plain version on CPU tensors)
+        where the backend runs kernels and kernel A has one; otherwise the
+        out-of-place pass, `opdef(name)`, written into x at those cells.
+        Calling `opdef(name)` stays the out-of-place pass."""
+        from ..passes.smoother import MARK, PARITY
+
+        fn = self.module.lookup(name)
+        (op,) = [op for op in fn.body.ops if op.name == "neptune.apply"]
+        if list(op.operands) != list(fn.body.args) or op.attrs.get(MARK) != PARITY:
+            raise ValueError(f"@{name} is not a colour pass (passes.smoother.colour_pass)")
+        n_in = op.attrs.get("num_inputs", len(op.operands))
+        dtype = torch_backend.DTYPES[op.results[0].type.element]
+        kernel = self.backend in ("auto", "cuda") and cuda_backend.colour_form(op)
+        whole = self.opdef(name)
+
+        def run(x, *args):
+            with span("nt.run", symbol=name):
+                if kernel:
+                    ins = [self._tensor(a, dtype) for a in args[:n_in - 1]]
+                    return cuda_backend.apply_colour(op, x, ins, args[n_in - 1:])
+                cells = cuda_backend.colour_slices(op, args[-1])
+                x[cells] = whole(x, *args)[cells]
+                return x
+
+        run.__name__ = f"neptune_colour_{name}"
+        return run
+
     def _torch_view(self) -> "CompiledModule":
         """A backend="torch" view of this module on the same device, with
         its own caches: the eager lowering that differentiates opdefs."""
@@ -894,7 +925,8 @@ def auto_mg_preconditioner(
     while every extent stays even and the smallest stays >= 16, at most 6
     levels). mg_smoother: "jacobi", "cheb" or "symgs" (all symmetric, as
     CG requires; "symgs" builds each level's colour pass from its opdef,
-    `passes.smoother.colour_pass`, and needs the operator unscaled).
+    `passes.smoother.colour_pass`, run in place, `CompiledModule.
+    colour_form`, and needs the operator unscaled).
     mg_coarsen: "cell" (the grid halves; mean restriction, multilinear
     interpolation, each level damped by 1/4) or "vertex" (HPCG's hierarchy:
     the interior box halves and the ring stays, the extents counted are the
@@ -958,7 +990,7 @@ def auto_mg_preconditioner(
     colour_ops = None
     if mg_smoother == "symgs":
         colour_ops = [CompiledModule(colour_pass(module, handle.symbol), backend, device)
-                      .opdef(handle.symbol + SUFFIX)]
+                      .colour_form(handle.symbol + SUFFIX)]
     mod = module
     for lvl in range(1, mg_levels):
         mod = coarsen_opdef(mod, handle.symbol, mode=mg_coarsen)
@@ -977,7 +1009,7 @@ def auto_mg_preconditioner(
             ops.append(_CoarseOp(lambda x, f=mv, s=scale: s * f(x), handle.halo, mesh))
         if colour_ops is not None:
             colour_ops.append(CompiledModule(colour_pass(mod, handle.symbol), backend, device)
-                              .opdef(handle.symbol + SUFFIX))
+                              .colour_form(handle.symbol + SUFFIX))
     if sharded > 0:
         shape = tuple(
             n // gmesh.shape[d] if d < len(gmesh.shape) else n for d, n in enumerate(shape)

@@ -16,6 +16,13 @@ over @sym's bounds (`d` the inverse diagonal on the grid, `c` the colour
 as a float64 scalar), cells outside the bounds copied through from x. On
 the card each colour pass is then one kernel-A launch, whose body is
 @sym's own body followed by the update.
+
+The apply carries the mark `colour = "parity"` (`MARK`, `PARITY`): its
+cells are coloured by the rule above, its first input is x, its other
+inputs are read at the cell alone and its last scalar is the colour. Kernel
+A reads the mark to offer the apply's colour form (`cuda_backend.
+apply_colour`), which updates x's cells of one colour in place; calling the
+opdef stays the out-of-place pass.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ..ir.types import F64, INDEX
 from ..ir.verify import verify_and_annotate
 
 SUFFIX = "__colour"
+MARK, PARITY = "colour", "parity"
 
 
 def the_apply(fn):
@@ -65,6 +73,7 @@ def colour_pass(module: Module, sym: str) -> Module:
     b.push_block(new.body)
     nap, body = b.start_apply([x, rhs, dinv], bounds, scalar_params=[c],
                               periodic=bool(ap.attrs.get("periodic")))
+    nap.attrs[MARK] = PARITY
     old = ap.region(0)
     # the operator's body, read from x: index args and its input map over
     mapping = {a.uid: v for a, v in zip(old.args[:rank + 1], body.args[:rank + 1])}

@@ -27,7 +27,10 @@ the fine residual and prolongation adds the coarse correction onto the
 fine unknowns it sits on (the transpose of the injection); each smoothing
 sweep is one symmetric multicolour Gauss-Seidel sweep, 2^rank parity
 colours forward then backward, each colour one call of the level's colour
-pass (`passes.smoother`, a kernel-A launch on the card).
+pass in place (`passes.smoother`; on the card kernel A's colour form, a
+launch over that colour's cells). The sweeps update a tensor the smoother
+owns: the cycle's own zeros, or a copy of the caller's x made once when
+smoothing starts.
 
 On a mesh of processes (`parallel.GridMesh`) the same cycle runs on
 blocks: when the finest operator carries a `gmesh` (a
@@ -84,8 +87,8 @@ class MGLevel(NamedTuple):
     ca_k: int = 0  # the smoother's fused iteration count
     # the mesh whose blocks this level's tensors are (None: the whole grid)
     mesh: Optional[object] = None
-    # the "symgs" smoother's colour pass: (x, b, colour) -> x with the
-    # cells of that colour relaxed (None: the level has none)
+    # the "symgs" smoother's colour pass in place: (x, b, colour) -> x, the
+    # cells of that colour relaxed in x itself (None: the level has none)
     colour: Optional[Callable] = None
     # per dim (start, stop): the cells inside the boundary ring
     box: Optional[tuple] = None
@@ -152,8 +155,9 @@ def build_levels(
     the `level_shape` its operator names (a whole-grid level). rings:
     per-level boundary-ring width of the correction mask; by default each
     operator's largest halo (1 if unknown). colour_ops: per level, the
-    colour pass (x, b, inv_diag, colour) -> x of the "symgs" smoother
-    (`passes.smoother.colour_pass`), given this level's inverse diagonal.
+    colour pass of the "symgs" smoother in place, (x, b, inv_diag, colour)
+    -> x (`CompiledModule.colour_form` of `passes.smoother.colour_pass`),
+    given this level's inverse diagonal.
 
     On a mesh, operators without a `gmesh` after sharded ones are
     whole-grid levels, replicated on every process; a sharded level may
@@ -348,9 +352,11 @@ def _check_smoother(smoother: str, transfer: str = "mean") -> None:
 
 
 def _smoother(L: MGLevel, b, smoother: str, omega: float, level: int = 0) -> Callable:
-    """smooth(x, n): n sweeps of `smoother` for L's operator and rhs b,
-    each call of it the span `nt.mg.smooth`."""
-    colours = 1
+    """smooth(x, n, owned=False): n sweeps of `smoother` for L's operator
+    and rhs b, each call of it the span `nt.mg.smooth`. owned: x is the
+    cycle's own to update in place; otherwise the "symgs" sweeps, whose
+    colour passes run in place, start from a copy of it."""
+    colours, in_place = 1, smoother == "symgs"
     if smoother == "symgs":
         if L.colour is None:
             raise ValueError(
@@ -362,7 +368,7 @@ def _smoother(L: MGLevel, b, smoother: str, omega: float, level: int = 0) -> Cal
         def sweeps(x, n):
             for _ in range(n):
                 for c in order:
-                    x = L.colour(x, b, c)
+                    L.colour(x, b, c)
             return x
 
     elif smoother == "cheb":
@@ -391,11 +397,11 @@ def _smoother(L: MGLevel, b, smoother: str, omega: float, level: int = 0) -> Cal
                 x = x + omega * L.inv_diag * (b - L.matvec(x))
             return x
 
-    def smooth(x, n):
+    def smooth(x, n, owned=False):
         if n <= 0:
             return x
         with span("nt.mg.smooth", level=level, smoother=smoother, colours=colours, sweeps=n):
-            return sweeps(x, n)
+            return sweeps(x if owned or not in_place else x.clone(), n)
 
     return smooth
 
@@ -420,7 +426,8 @@ def v_cycle(
     fused degree k replaces the pre/post counts there, the pre-smoother's
     residual is restricted directly (no extra matvec), and a zero initial
     guess (every coarse level's correction equation; `_x_is_zero`) skips
-    the residual matvec.
+    the residual matvec. `_x_is_zero` also says that x is zeros made for
+    this cycle alone, which the cycle may update in place.
 
     smoother: "rb" (default), red-black sweeps: two checkerboard-masked
     undamped Jacobi half-updates per sweep (Gauss-Seidel order for star
@@ -461,7 +468,7 @@ def _cycle(levels, b, x, lvl, x_is_zero, kw):
                 for _ in range(calls):
                     x, _ = L.ca_smooth(b, x)
                 return x
-            return smooth(x, coarse_iters)
+            return smooth(x, coarse_iters, x_is_zero)
         # coarsest: matrix-free CG. The rhs ring is zero and every Krylov
         # vector keeps a zero ring (identity rows), so CG acts on the SPD
         # interior block only; an under-solved coarsest grid would cap the
@@ -475,7 +482,7 @@ def _cycle(levels, b, x, lvl, x_is_zero, kw):
     if L.ca_smooth is not None:
         x, r = L.ca_smooth_zero(b) if x_is_zero else L.ca_smooth(b, x)
     else:
-        x = smooth(x, pre)
+        x = smooth(x, pre, x_is_zero)
         r = b - L.matvec(x)
     # the correction equation has homogeneous Dirichlet data: its rhs must
     # vanish on the coarse ring (identity rows would otherwise store the
@@ -485,7 +492,7 @@ def _cycle(levels, b, x, lvl, x_is_zero, kw):
     rc = _down(r, L, Lc, transfer)
     ec = _cycle(levels, rc, torch.zeros_like(rc), lvl + 1, True, kw)
     if transfer == "injection":
-        x = _add_injected(x.clone() if x is given else x, ec, L, Lc)
+        x = _add_injected(x.clone() if x is given and not x_is_zero else x, ec, L, Lc)
     else:
         # zero the correction's ring too before interpolating: keeps any
         # coarsest-level ring drift out of fine interior cells
@@ -495,7 +502,7 @@ def _cycle(levels, b, x, lvl, x_is_zero, kw):
     if L.ca_smooth is not None:
         x, _ = L.ca_smooth(b, x)
         return x
-    return smooth(x, post)
+    return smooth(x, post, True)
 
 
 def multigrid_solve(

@@ -35,7 +35,8 @@ The port's spans (PERF.md §3 names the metric each feeds):
   * ``nt.launch.<counter>`` — a kernel launch wrapper, from its argument
     checks to the return of its C call, where its `LaunchCounter` counts;
     kernel A's (`stencil_apply`) carries the launch's `cells`, its `grids`
-    (inputs and outputs) and their `itemsize`;
+    (inputs and outputs) and their `itemsize`; its colour form's, the
+    colour's cells, 2^rank + 3 grids of them and `form` "colour";
   * ``nt.mg.cycle`` — one multigrid V-cycle (`levels`);
   * ``nt.mg.smooth`` — one smoother call on one level (`level`,
     `smoother`, `colours` a sweep, `sweeps`).

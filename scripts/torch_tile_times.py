@@ -13,8 +13,12 @@ One JSON line per case and candidate: the data behind the plans' tile lists
 recompute cap (`sweeps.MAX_RECOMPUTE`). Kernel "F" is kernel A in float64
 on HPCG's 322^3 grid: the 27-point apply and its symgs colour pass (three
 inputs), under the candidates of `F_TILES` (the data behind
-`cuda_backend.APPLY_TILES_F64`). `--kernels AD` times a subset; the
-default is ACD. Needs a CUDA device and nvcc.
+`cuda_backend.APPLY_TILES_F64`). Kernel "G" is kernel A's colour form in
+float64 on HPCG's 322^3 and 162^3 grids, in place, under the candidates of
+`G_TILES` (the data behind `cuda_backend.COLOUR_TILES`), each checked
+bitwise against the out-of-place pass, which is timed beside them.
+`--kernels AD` times a subset; the default is ACD. Needs a CUDA device and
+nvcc.
 """
 
 from __future__ import annotations
@@ -41,6 +45,11 @@ F_TILES = [(16, 64, 4, 4), (8, 64, 2, 8), (16, 64, 4, 2), (16, 32, 4, 4), (8, 64
            (16, 64, 2, 4), (32, 32, 4, 4), (8, 64, 4, 2), (4, 64, 2, 4), (8, 32, 2, 4),
            (16, 32, 4, 2), (8, 64, 2, 2), (4, 32, 2, 8), (16, 64, 4, 8)]
 F_SMEM = 100 * 1024
+# kernel A's colour form in float64, rank 3: (colour rows, colour columns,
+# cells per thread, colour planes), x alone staged
+G_TILES = [(8, 32, 2, 2), (4, 32, 2, 1), (8, 32, 2, 1), (4, 32, 1, 2), (4, 32, 2, 4),
+           (8, 32, 4, 2), (16, 32, 4, 1), (8, 64, 2, 1), (4, 64, 2, 2), (16, 32, 4, 2)]
+G_SMEM = 100 * 1024
 
 # kernel C: depth -> (columns per lane, planes, rows, rows per strip, planes per task)
 C_TILES = {
@@ -178,6 +187,63 @@ def times_f(dev, rng, card):
                               "roofline_pct": 100 * least / ms}), flush=True)
 
 
+def times_g(dev, rng, card):
+    """Kernel A's colour form under each of G_TILES whose staged x fits
+    G_SMEM, at HPCG's finest and second levels: each checked bitwise
+    against the out-of-place pass, timed in turns with it, with its
+    registers and spills."""
+    import torch
+
+    from neptune_tpu_torch import stencils
+    from neptune_tpu_torch.kernels import codegen
+    from neptune_tpu_torch.kernels.build import builder
+    from neptune_tpu_torch.lowering import cuda_backend
+    from neptune_tpu_torch.passes.smoother import colour_pass
+
+    cs = smoke()
+    colour = 5
+    for n in (322, 162):
+        op = stencils.the_apply(colour_pass(stencils.hpcg27((n, n, n)), "hpcg27"))
+        plans = []
+        for t1, t2, r, d in G_TILES:
+            smem = cuda_backend.colour_smem(8, (t1, t2), d, 3)
+            if smem <= G_SMEM:
+                plans.append(cuda_backend.ApplyPlan((t1, t2), r, d, (1, 1, 1),
+                                                    t2 * (t1 // r), smem))
+        sources = {id(p): codegen.colour_source(op, p) for p in plans}
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            builds = [pool.submit(builder.load, src, "stencil_apply") for src in sources.values()]
+            infos = {k: pool.submit(ptxas, src) for k, src in sources.items()}
+            for j in builds:
+                j.result()
+            regs = {k: j.result() for k, j in infos.items()}
+        shape = (n, n, n)
+        x, b = (torch.from_numpy(rng.standard_normal(shape)).to(dev) for _ in range(2))
+        d = torch.full(shape, 1 / 26, dtype=torch.float64, device=dev)
+        want = cuda_backend.stencil_apply(op, [x, b, d], [float(colour)], dev)
+        work = x.clone()
+        calls = [lambda: cuda_backend.stencil_apply(op, [x, b, d], [float(colour)], dev)]
+        for p in plans:
+            got = x.clone()
+            cuda_backend.apply_colour(op, got, [b, d], [float(colour)], plan=p)
+            assert torch.equal(got, want), (n, p)
+            calls.append(lambda p=p: cuda_backend.apply_colour(op, work, [b, d], [float(colour)],
+                                                               plan=p))
+        sizes = cuda_backend.colour_sizes(op, colour)
+        least = sizes["cells"] * sizes["grids"] * 8 / 3.35e12 * 1e3
+        least_out = 4 * 8 * n**3 / 3.35e12 * 1e3
+        ms = turns(cs, calls, 10)
+        print(json.dumps({"kernel": "G", "case": f"hpcg27 colour pass {n}^3 f64, out of place",
+                          "card": card, "ms": ms[0], "least_ms": least_out,
+                          "roofline_pct": 100 * least_out / ms[0]}), flush=True)
+        for p, t in zip(plans, ms[1:]):
+            print(json.dumps({"kernel": "G", "case": f"hpcg27 colour form {n}^3 f64",
+                              "card": card, "tile": p.tile, "strip": p.strip,
+                              "planes": p.planes, "threads": p.threads, "smem": p.smem_bytes,
+                              **regs[id(p)], "ms": t, "least_ms": least,
+                              "roofline_pct": 100 * least / t}), flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     kernels = args[1].upper() if len(args) > 1 and args[0] == "--kernels" else "ACD"
@@ -223,6 +289,8 @@ def main() -> int:
         times_d(cs, dev, rng, card)
     if "F" in kernels:
         times_f(dev, rng, card)
+    if "G" in kernels:
+        times_g(dev, rng, card)
     a_plans = a_plans if "A" in kernels else []
     c_plans = c_plans if "C" in kernels else []
     with ThreadPoolExecutor(max_workers=8) as pool:

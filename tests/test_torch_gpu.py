@@ -1606,6 +1606,110 @@ def test_colour_pass_is_bitwise_eager(shape, cuda):
         assert torch.equal(got, eager.opdef("hpcg27" + SUFFIX)(x, b, d, float(c)))
 
 
+# (grid, element type): odd and even extents, each with the copy-through ring
+COLOUR_FORMS = {
+    "rank3_f64_even": ((34, 34, 34), "float64"),
+    "rank3_f64_odd": ((13, 19, 71), "float64"),
+    "rank3_f64_162": ((162, 162, 162), "float64"),
+    "rank3_f32_odd": ((13, 19, 71), "float32"),
+    "rank3_f32_even": ((12, 18, 140), "float32"),
+    "rank2_f64_odd": ((21, 141), "float64"),
+    "rank2_f64_even": ((20, 26), "float64"),
+    "rank2_f32_odd": ((37, 75), "float32"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", COLOUR_FORMS)
+def test_colour_form_is_the_colour_pass_in_place(case, aligned, cuda):
+    """Kernel A's colour form, for every colour: one launch that writes x in
+    place, bitwise the out-of-place `__colour` opdef, changing only cells of
+    that colour; with 16-byte copies of x and without."""
+    from neptune_tpu_torch.passes.smoother import SUFFIX, colour_pass
+
+    shape, dtype = COLOUR_FORMS[case]
+    rank = len(shape)
+    cm = CompiledModule(colour_pass(stencils.hpcg27(shape, dtype), "hpcg27"), "auto", cuda)
+    op = stencils.the_apply(cm.module)
+    form = cm.colour_form("hpcg27" + SUFFIX)
+    assert form is not None
+    td = torch_backend.DTYPES[dtype]
+    x, b = (_block64(shape, cuda, s).to(td) for s in (1, 2))
+    d = torch.full(shape, 1 / (3**rank - 1), dtype=td, device=cuda)
+    for c in range(2**rank):
+        want = cm.opdef("hpcg27" + SUFFIX)(x, b, d, float(c))
+        buf = torch.empty(x.numel() + (0 if aligned else 1), dtype=td, device=cuda)
+        got = buf[buf.numel() - x.numel():].view(shape)
+        got.copy_(x)
+        before = cuda_backend.counter.count
+        assert form(got, b, d, float(c)) is got
+        torch.cuda.synchronize()
+        assert cuda_backend.counter.count == before + 1
+        assert torch.equal(got, want)
+        mask = torch.zeros(shape, dtype=torch.bool, device=cuda)
+        mask[tuple(slice(f, f + 2 * n, 2) for f, n in cuda_backend.colour_cells(op, c))] = True
+        assert not ((got != x) & ~mask).any() and (got != x).any()
+        x = want
+
+
+def _hpcg_levels(shape, cuda, monkeypatch):
+    """HPCG's preconditioner on `shape` (three levels), the levels it built
+    (their colour passes kernel A's colour form), and the same levels with
+    each colour pass out of place, its result taking x's place."""
+    from neptune_tpu_torch.lowering.executor import auto_mg_preconditioner
+    from neptune_tpu_torch.passes.coarsen import coarsen_opdef
+    from neptune_tpu_torch.passes.smoother import SUFFIX, colour_pass
+    from neptune_tpu_torch.solvers import multigrid
+
+    built = []
+    real = multigrid.build_levels
+    monkeypatch.setattr(multigrid, "build_levels",
+                        lambda *a, **k: built.append(real(*a, **k)) or built[-1])
+    cm = CompiledModule(stencils.hpcg27(shape), "auto", cuda)
+    M = auto_mg_preconditioner(cm.module, cm._handle_for("hpcg27"), "auto", device=cuda,
+                               mg_levels=3, mg_smoother="symgs", mg_coarsen="vertex",
+                               mg_coarse_sweeps=1)
+    (levels,) = built
+    mods = [cm.module]
+    while len(mods) < 3:
+        mods.append(coarsen_opdef(mods[-1], "hpcg27", mode="vertex"))
+    passes = [CompiledModule(colour_pass(m, "hpcg27"), "auto", cuda).opdef("hpcg27" + SUFFIX)
+              for m in mods]
+    out_of_place = [L._replace(colour=lambda x, b, c, f=f, d=L.inv_diag: x.copy_(f(x, b, d, c)))
+                    for L, f in zip(levels, passes)]
+    return levels, out_of_place, M
+
+
+@pytest.mark.gpu
+def test_symgs_in_place_never_writes_the_callers_tensors(cuda, monkeypatch):
+    """The symgs smoother and V-cycle on the colour form leave the caller's
+    x and b (and M's r) as they were, equal the out-of-place cycle bitwise,
+    and launch one kernel A a colour pass."""
+    from neptune_tpu_torch.solvers import multigrid
+
+    shape = (34, 34, 34)
+    levels, out_of_place, M = _hpcg_levels(shape, cuda, monkeypatch)
+    x, b = _block64(shape, cuda, 3), _block64(shape, cuda, 4)
+    x0, b0 = x.clone(), b.clone()
+    before = cuda_backend.counter.count
+    y = multigrid._smoother(levels[0], b, "symgs", 0.8)(x, 1)
+    torch.cuda.synchronize()
+    assert cuda_backend.counter.count == before + 16
+    assert y is not x and torch.equal(x, x0) and torch.equal(b, b0)
+    assert torch.equal(y, multigrid._smoother(out_of_place[0], b, "symgs", 0.8)(x, 1))
+    kw = dict(pre=1, post=1, smoother="symgs", coarse_solver="jacobi", coarse_iters=1,
+              transfer="injection")
+    got = multigrid.v_cycle(levels, b, x, **kw)
+    assert torch.equal(x, x0) and torch.equal(b, b0)
+    assert torch.equal(got, multigrid.v_cycle(out_of_place, b, x, **kw))
+    r = _block64(shape, cuda, 5)
+    r0 = r.clone()
+    assert torch.equal(M(r), multigrid.v_cycle(out_of_place, r, torch.zeros_like(r),
+                                               _x_is_zero=True, **kw))
+    assert torch.equal(r, r0)
+
+
 @pytest.mark.gpu
 def test_hpcg_solve_on_the_card_matches_the_reference(cuda):
     """A 34^3-grid HPCG solve through the port's normal path (jit_class,
@@ -1639,8 +1743,16 @@ def test_hpcg_solve_on_the_card_matches_the_reference(cuda):
         assert ref.rel_residuals(x[None], b[None], interior).item() <= 1e-10
 
 
+def _colour_apply(shape, dtype="float64"):
+    from neptune_tpu_torch.passes.smoother import colour_pass
+
+    return colour_pass(stencils.hpcg27(shape, dtype), "hpcg27")
+
+
 # the float32 and bfloat16 sources and plans of kernel A are the parent's
-# byte for byte: sha256 of `cuda_backend.source(op) + repr(apply_plan(op))`
+# byte for byte: sha256 of `cuda_backend.source(op) + repr(apply_plan(op))`;
+# so are HPCG's float64 ones (the SpMV, the residual's, and the out-of-place
+# colour pass that calling the `__colour` opdef runs), beside the colour form
 F32_SOURCES = {
     "jacobi5_f32": (lambda: stencils.jacobi5((64, 128)),
                     "e2e9d1877a985377290f625e6d374c056f19b62f85c5d41bb50307b0fd9d4978"),
@@ -1664,6 +1776,22 @@ F32_SOURCES = {
                         "0c8c12c5c127a6f8e09dee3781106993d69e434687643fc31796ce8aa903e68b"),
     "two_results_f32": (lambda: stencils.gradients((64, 128)),
                         "3ff5bcb0bdc414aa6c51c79b0398f60ab8b4a815336101e39e32a176dda40bd6"),
+    "hpcg27_f64_322": (lambda: stencils.hpcg27((322, 322, 322)),
+                       "da84cef5e098b754276e4bc0f04ef40086cae11298c6cb0b754a933dfbbf5c6d"),
+    "hpcg27_f64_42": (lambda: stencils.hpcg27((42, 42, 42)),
+                      "da84cef5e098b754276e4bc0f04ef40086cae11298c6cb0b754a933dfbbf5c6d"),
+    "nine_point_f64": (lambda: stencils.hpcg27((30, 70)),
+                       "06fe8e76445776969e6d47035fb1b2d6600f4bcefda35461ced9814bb624149e"),
+    "hpcg27_f32": (lambda: stencils.hpcg27((34, 34, 34), "float32"),
+                   "81ddd5c3a739cf2742eccba9d06a57297e17d95d6d6d7c0af3c8b0acb6b9601f"),
+    "heat7_f64": (lambda: stencils.heat7((8, 16, 128), "float64"),
+                  "02a90a497381e7f4be07d74354d68cc60c1e8f3e0fbb750f85fd2e2575c44326"),
+    "colour_pass_f64_322": (lambda: _colour_apply((322, 322, 322)),
+                            "57d077aa35ecad2c456a38e1837f939b716fa7f5a30ac7d214a2ea25ea7676f8"),
+    "colour_pass_f64_rank2": (lambda: _colour_apply((20, 26)),
+                              "a9a69c8d15edc06df719c96c799ad17a2b36df9584aeea09d77f8f70e94a156a"),
+    "colour_pass_f32": (lambda: _colour_apply((34, 34, 34), "float32"),
+                        "177fab5a961edba382ebf29961407800aba7614e083a5e9e8228445202a6ad9b"),
 }
 
 

@@ -1,7 +1,8 @@
 """The schedules of kernels A and C, emulated tile by tile on the CPU.
 
-Kernel A's tiled design (`csrc/nt_apply.cuh`) and kernel C's register
-strips (`csrc/nt_sweeps.cuh`) run only on the card. Here each is emulated
+Kernel A's tiled design (`csrc/nt_apply.cuh`), its colour form
+(`csrc/nt_colour.cuh`) and kernel C's register strips
+(`csrc/nt_sweeps.cuh`) run only on the card. Here each is emulated
 in Python block by block, under the plans the port builds them from
 (`cuda_backend.apply_plan`, `sweeps.sweep_plan`): the same tile origins,
 interior test, loads (unchecked, zero-filled or wrapped), staged planes,
@@ -9,7 +10,9 @@ strips, sweep regions, the register window's rotating planes and stores. Shared 
 that the kernel has not filled yet, and the values that lanes take from
 beyond the warp's edge, are NaN, and an unchecked load off the grid raises,
 so a schedule that reads what it must not cannot equal the plain version.
-Each emulation must equal the plain version bit for bit.
+Each emulation must equal the plain version bit for bit. The colour form
+writes x in place as each block ends, its blocks taken in a shuffled order,
+so a block that used a cell another block writes would not equal it.
 """
 
 import numpy as np
@@ -124,6 +127,66 @@ def emulate_apply(op, inputs, scalars, plan, global_start=None):
                     plane(z)
     outs = [o.reshape(shape) for o in outs]
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def emulate_colour(op, x, inputs, scalars, plan, colour, seed=0):
+    """Kernel A's colour form, block by block (nt_apply_colour_kernel): x
+    updated in place at the colour's cells."""
+    rank = op.results[0].type.bounds.rank
+    n, lb, _, _ = (list(map(int, v)) for v in _grid(op, tuple(x.shape), None))
+    cells = [(0, 1)] * (3 - rank) + list(cuda_backend.colour_cells(op, colour))
+    first, count = [f for f, _ in cells], [m for _, m in cells]
+    (t1, t2), d, h0 = plan.tile, plan.planes, plan.halo[0]
+    assert plan.threads == t2 * (t1 // plan.strip) and t2 % 32 == 0 and t1 % plan.strip == 0
+    s0 = 2 if h0 else 1
+    vec = 16 // x.element_size()
+    planes, w1, w2 = s0 * (d - 1) + 1 + 2 * h0, 2 * t1 + 1, 2 * t2 + vec
+    assert plan.smem_bytes == planes * w1 * w2 * x.element_size()
+    x3, ins3 = x.view(n), [a.reshape(n) for a in inputs]
+    n_in = 1 + len(inputs)
+    blocks = [(bz, by, bx) for bz in range(-(-count[0] // d)) for by in range(-(-count[1] // t1))
+              for bx in range(-(-count[2] // t2))]
+    for i in np.random.default_rng(seed).permutation(len(blocks)):
+        j = (blocks[i][0] * d, blocks[i][1] * t1, blocks[i][2] * t2)
+        z, r, q = first[0] + s0 * j[0], first[1] + 2 * j[1], first[2] + 2 * j[2]
+        z_lo, r_lo, c_lo = z - h0, r - 1, q - 1 - (q - 1) % vec
+        interior = (j[0] + d <= count[0] and j[1] + t1 <= count[1] and j[2] + t2 <= count[2]
+                    and z_lo >= 0 and z_lo + planes <= n[0] and r_lo >= 0
+                    and r_lo + w1 <= n[1] and c_lo >= 0 and c_lo + w2 <= n[2])
+        tile = torch.full((planes, w1, w2), NAN, dtype=x.dtype)
+        rows, cols = torch.arange(r_lo, r_lo + w1), torch.arange(c_lo, c_lo + w2)
+        for pl in range(planes):
+            tile[pl] = _rows_cols(x3, z_lo + pl, rows, cols, not interior, False, n)
+        ar1, ar2 = torch.arange(t1), torch.arange(t2)
+        gr, gc = r + 2 * ar1, q + 2 * ar2
+        ys = []
+        for dd in range(d):
+            gz = z + s0 * dd
+            mine = ((j[0] + dd < count[0]) & (j[1] + ar1 < count[1])[:, None]
+                    & (j[2] + ar2 < count[2])[None, :])
+            assert not interior or bool(mine.all())
+
+            def access(k, offset, dd=dd, gz=gz):
+                o0, o1, o2 = (0,) * (3 - rank) + tuple(offset)
+                if k:
+                    assert not any(offset)
+                    return ins3[k - 1][min(gz, n[0] - 1)][gr.clamp(max=n[1] - 1)][
+                        :, gc.clamp(max=n[2] - 1)]
+                return tile[h0 + s0 * dd + o0][(1 + 2 * ar1 + o1)[:, None],
+                                               (q - c_lo + 2 * ar2 + o2)[None, :]]
+
+            coords = (torch.tensor(gz + lb[0], dtype=torch.int32), (gr[:, None] + lb[1]).int(),
+                      (gc[None, :] + lb[2]).int())
+            (y,) = eval_scalar_dag(op.region(0), rank, n_in, access,
+                                   lambda k: _coords(rank, coords)[k], scalars, TorchOps("cpu"))
+            ys.append((gz, mine, torch.as_tensor(y).to(x.dtype).expand(t1, t2)))
+        for gz, mine, y in ys:  # the block's stores, after all of its reads
+            if gz >= n[0]:
+                continue
+            m1, m2 = int((gr < n[1]).sum()), int((gc < n[2]).sum())
+            view = x3[gz, r: r + 2 * m1: 2, q: q + 2 * m2: 2]
+            view[...] = torch.where(mine[:m1, :m2], y[:m1, :m2], view)
+    return x
 
 
 def emulate_sweeps(plan, x, scalars, global_start=None):
@@ -287,6 +350,49 @@ def test_kernel_a_tiles_equal_plain(case):
         assert torch.equal(g, r)
 
 
+def _colour_op(shape, dtype="float64"):
+    return stencils.the_apply(_colour(stencils.hpcg27(shape, dtype)))
+
+
+# small tiles, counted in colour cells, so that small grids have interior,
+# edge and ragged blocks
+SMALL_COLOUR = {2: ((4, 32, 2, 1),), 3: ((2, 32, 1, 2),)}
+
+# (colour pass, tiles or None for the default plan): odd and even extents,
+# each with the copy-through ring
+COLOUR_CASES = {
+    "rank3_f64_even": (lambda: _colour_op((10, 12, 150)), SMALL_COLOUR),
+    "rank3_f64_odd": (lambda: _colour_op((9, 11, 141)), SMALL_COLOUR),
+    "rank3_f32_odd": (lambda: _colour_op((7, 13, 139), "float32"), SMALL_COLOUR),
+    "rank3_f64_default_plan": (lambda: _colour_op((12, 22, 70)), None),
+    "rank2_f64_odd": (lambda: _colour_op((21, 141)), SMALL_COLOUR),
+    "rank2_f32_even": (lambda: _colour_op((20, 140), "float32"), SMALL_COLOUR),
+    "rank2_f64_default_plan": (lambda: _colour_op((30, 70)), None),
+}
+
+
+@pytest.mark.parametrize("case", COLOUR_CASES)
+def test_kernel_a_colour_form_equals_plain(case):
+    """Every colour of the pass: the colour form's blocks, in place, equal
+    the out-of-place pass bit for bit."""
+    build, tiles = COLOUR_CASES[case]
+    op = build()
+    rank = op.results[0].type.bounds.rank
+    assert cuda_backend.colour_form(op)
+    plan = cuda_backend.colour_plan(op, tiles and tiles[rank])
+    dtype = torch_backend.DTYPES[op.results[0].type.element]
+    shape = op.results[0].type.bounds.shape
+    x, b = _data(shape, dtype, 1), _data(shape, dtype, 2)
+    dinv = torch.full(shape, 1 / 26, dtype=dtype)
+    for c in range(2**rank):
+        sv = [torch.tensor(float(c), dtype=torch.float64)]
+        want = torch_backend.execute_apply(op, [x, b, dinv] + sv)
+        got = emulate_colour(op, x.clone(), [b, dinv], sv, plan, c, seed=c)
+        assert not torch.isnan(got).any()
+        assert torch.equal(got, want)
+        x = want
+
+
 def test_kernel_a_plans():
     """The default tiles, their shared memory, and the first design for a
     halo that no tile takes."""
@@ -305,6 +411,9 @@ def test_kernel_a_plans():
     colour = cuda_backend.apply_plan(stencils.the_apply(_colour(h)))
     assert (colour.tile, colour.strip, colour.planes) == ((8, 32), 2, 4)
     assert colour.smem_bytes == 3 * 8 * 6 * 10 * 36 <= cuda_backend.APPLY_SMEM_F64
+    form = cuda_backend.colour_plan(stencils.the_apply(_colour(h)))
+    assert (form.tile, form.strip, form.planes, form.halo) == ((8, 32), 2, 1, (1, 1, 1))
+    assert form.smem_bytes == 8 * 3 * 17 * 66 <= cuda_backend.COLOUR_SMEM  # x alone
     wide = stencils.the_apply(stencils.shifted_laplacian((64, 4096), reach=8))
     assert cuda_backend.apply_plan(wide, ((256, 128, 16, 1),)) is None
     src = cuda_backend.source(wide, None)
