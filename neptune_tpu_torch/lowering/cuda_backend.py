@@ -26,23 +26,34 @@ f64 route. Given CPU tensors it runs the kernel's plain version
 (`torch_backend.execute_apply`); given CUDA tensors it launches the kernel
 or raises.
 
-The colour form (`apply_colour`, counted as `stencil_apply`) runs an apply
-that `passes.smoother.colour_pass` marked as a symgs colour pass over the
-cells of one colour only, updating x in place (`csrc/nt_colour.cuh`): x
-read whole, b and 1/diag read and x written at the colour's cells, where
-the out-of-place launch moves four whole grids. Its plan is
-`colour_plan`'s, its tiles `COLOUR_TILES`; every other apply keeps its
-source and plan.
+Kernel A has three forms behind one launcher, `_launcher(op, plan, form)`,
+whose launches `_launch` fills and queues:
 
-The window form (`apply_window`, counted apart as `stencil_apply_window`)
-is the same kernel over one local block of a sharded grid. It replaces
-`pallas_backend.py::execute_apply_window` and the `global_start` cases of
-the two DMA kernels. Only the launch data differ: the extents are the
-block's, the logical origin is the block's global start (so index()
-bodies see global coordinates), and the apply's bounds are clipped to the
-block. Reads that leave the block read 0 (or wrap around it on a periodic
-apply): those cells lie in the edge zone that the sharded caller
-recomputes or carves off, as the JAX contract has it.
+  the whole grid  `stencil_apply`, counted as `stencil_apply`
+  the window      `apply_window`, counted apart as `stencil_apply_window`
+  the colour      `apply_colour`, counted as `stencil_apply`
+
+The first two share form "apply"'s launch data (`nt_apply`; the grid's
+metadata, and each window's by block shape and global start); form
+"colour"'s (`nt_apply_colour`) hold each colour's metadata and sizes.
+
+The colour form runs an apply that `passes.smoother.colour_pass` marked as
+a symgs colour pass over the cells of one colour only, updating x in place
+(`csrc/nt_colour.cuh`): x read whole, b and 1/diag read and x written at
+the colour's cells, where the out-of-place launch moves four whole grids.
+Its plan is `colour_plan`'s, its tiles `COLOUR_TILES`; every other apply
+keeps its source and plan. It runs on CUDA tensors only: its plain version
+is `CompiledModule.colour_form`'s out-of-place pass written at the
+colour's cells.
+
+The window form is the same kernel over one local block of a sharded grid.
+It replaces `pallas_backend.py::execute_apply_window` and the
+`global_start` cases of the two DMA kernels. Only the launch data differ:
+the extents are the block's, the logical origin is the block's global
+start (so index() bodies see global coordinates), and the apply's bounds
+are clipped to the block. Reads that leave the block read 0 (or wrap
+around it on a periodic apply): those cells lie in the edge zone that the
+sharded caller recomputes or carves off, as the JAX contract has it.
 """
 
 from __future__ import annotations
@@ -67,7 +78,7 @@ _ITEMSIZE = {"bfloat16": 2, "float32": 4, "float64": 8}
 counter = LaunchCounter("stencil_apply")
 window_counter = LaunchCounter("stencil_apply_window")
 
-# (id(op), (fold, pinned), plan) -> its launch data (which holds the op);
+# (id(op), (fold, pinned), form, plan) -> its launch data (which holds the op);
 # the generated body depends on the effective arithmetic (`config.arithmetic`)
 _kernels: dict[tuple, "_Launch"] = {}
 
@@ -265,132 +276,93 @@ def colour_slices(op: Operation, c) -> tuple:
 
 
 class _Launch:
-    """What every launch of one apply's kernel shares: its C entry, the grid
-    metadata, the output shape and dtype, and the argument buffers, built
-    once and refilled per launch."""
+    """What every launch of one apply's kernel in one form shares: its C
+    entry, the argument buffers, built once and refilled per launch, and
+    the form's launch data. Form "apply" (`nt_apply`, the whole grid and
+    the window form): the whole grid's metadata and sizes, and each
+    window's metadata by (block shape, global start). Form "colour"
+    (`nt_apply_colour`, x updated in place, no output): each colour's
+    metadata (the grid's, then the colour's first cells and counts, rank-3
+    padded) and sizes."""
 
-    def __init__(self, op: Operation, plan):
-        self.op = op  # held so that id(op) stays unique while cached
-        out_type: TempType = op.results[0].type
-        self.shape = out_type.bounds.shape
-        self.cells = int(np.prod(self.shape))
-        self.dtype = torch_backend.DTYPES[out_type.element]
-        self.n_in = op.attrs.get("num_inputs", len(op.operands))
-        self.n_out = len(op.results)
-        self.plan = apply_plan(op) if plan == "auto" else plan
-        lib = builder.load(codegen.apply_source(op, self.plan), "stencil_apply")
-        self.fn = lib.nt_apply
-        self.fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
-        self.fn.restype = ctypes.c_int
-        self.in_ptrs = (ctypes.c_void_p * max(self.n_in, 1))()
-        self.out_ptrs = (ctypes.c_void_p * self.n_out)()
-        self.scalars = np.zeros(max(len(op.operands) - self.n_in, 1), dtype=np.float64)
-        self.addrs = (ctypes.addressof(self.in_ptrs), ctypes.addressof(self.out_ptrs),
-                      self.scalars.ctypes.data)
-        self.meta = window_meta(self.shape, op.attrs["bounds"], out_type.bounds.lb)
-        self.meta_addr = self.meta.ctypes.data
-        # (block shape, global start) -> the window form's launch data and
-        # its address
-        self.metas: dict[tuple, tuple] = {}
-
-    def window(self, shape: tuple, global_start) -> int:
-        key = (shape, tuple(int(x) for x in global_start))
-        hit = self.metas.get(key)
-        if hit is None:
-            meta = window_meta(shape, self.op.attrs["bounds"], key[1])
-            hit = self.metas[key] = (meta, meta.ctypes.data)
-        return hit[1]
-
-
-def _launcher(op: Operation, plan="auto") -> _Launch:
-    key = (id(op), arithmetic(), plan)
-    hit = _kernels.get(key)
-    if hit is None:
-        hit = _kernels[key] = _Launch(op, plan)
-    return hit
-
-
-class _ColourLaunch:
-    """What every launch of one colour pass's colour form shares: its C
-    entry, the argument buffers, and each colour's launch data (the grid's,
-    then the colour's first cells and counts, rank-3 padded) and sizes."""
-
-    def __init__(self, op: Operation, plan):
+    def __init__(self, op: Operation, plan, form: str):
         self.op = op  # held so that id(op) stays unique while cached
         tt: TempType = op.results[0].type
         self.shape = tt.bounds.shape
         self.dtype = torch_backend.DTYPES[tt.element]
         self.n_in = op.attrs.get("num_inputs", len(op.operands))
-        self.plan = colour_plan(op) if plan == "auto" else plan
-        lib = builder.load(codegen.colour_source(op, self.plan), "stencil_apply")
-        self.fn = lib.nt_apply_colour
-        self.fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+        self.n_scalars = len(op.operands) - self.n_in
+        colour = form == "colour"
+        self.n_out = 0 if colour else len(op.results)
+        if plan == "auto":
+            plan = colour_plan(op) if colour else apply_plan(op)
+        self.plan = plan
+        lib = builder.load((codegen.colour_source if colour else codegen.apply_source)(op, plan),
+                           "stencil_apply")
+        self.fn = lib.nt_apply_colour if colour else lib.nt_apply
+        self.in_ptrs = (ctypes.c_void_p * max(self.n_in, 1))()
+        self.out_ptrs = (ctypes.c_void_p * self.n_out)()
+        self.scalars = np.zeros(max(self.n_scalars, 1), dtype=np.float64)
+        outs = () if colour else (ctypes.addressof(self.out_ptrs),)
+        self.addrs = (ctypes.addressof(self.in_ptrs), *outs, self.scalars.ctypes.data)
+        self.fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (len(self.addrs) + 2)
         self.fn.restype = ctypes.c_int
-        self.in_ptrs = (ctypes.c_void_p * self.n_in)()
-        self.in_addr = ctypes.addressof(self.in_ptrs)
-        self.scalars = np.zeros(len(op.operands) - self.n_in, dtype=np.float64)
-        grid = window_meta(self.shape, op.attrs["bounds"], tt.bounds.lb)
-        pad = [(0, 1)] * (3 - len(self.shape))
-        self.metas, self.sizes = [], []
-        for colour in range(2 ** len(self.shape)):
-            cells = pad + list(colour_cells(op, colour))
-            meta = np.concatenate([grid, [f for f, _ in cells], [n for _, n in cells]])
-            meta = meta.astype(np.int32)
-            self.metas.append((meta, meta.ctypes.data))
-            self.sizes.append(colour_sizes(op, colour))
+        self.meta = window_meta(self.shape, op.attrs["bounds"], tt.bounds.lb)
+        if colour:
+            # colour -> its launch data, their address and its span's sizes
+            pad = [(0, 1)] * (3 - len(self.shape))
+            self.colours = []
+            for c in range(2 ** len(self.shape)):
+                cells = pad + list(colour_cells(op, c))
+                meta = np.concatenate([self.meta, [f for f, _ in cells], [n for _, n in cells]])
+                meta = meta.astype(np.int32)
+                self.colours.append((meta, meta.ctypes.data, colour_sizes(op, c)))
+        else:
+            self.meta_addr = self.meta.ctypes.data
+            self.sizes = dict(cells=int(np.prod(self.shape)), grids=self.n_in + self.n_out,
+                              itemsize=self.dtype.itemsize)
+            # (block shape, global start) -> the window form's launch data
+            # and its address
+            self.windows: dict[tuple, tuple] = {}
+
+    def window(self, shape: tuple, global_start) -> int:
+        key = (shape, tuple(int(x) for x in global_start))
+        hit = self.windows.get(key)
+        if hit is None:
+            meta = window_meta(shape, self.op.attrs["bounds"], key[1])
+            hit = self.windows[key] = (meta, meta.ctypes.data)
+        return hit[1]
 
 
-def _colour_launcher(op: Operation, plan="auto") -> _ColourLaunch:
-    key = (id(op), arithmetic(), "colour", plan)
+def _launcher(op: Operation, plan="auto", form: str = "apply") -> _Launch:
+    key = (id(op), arithmetic(), form, plan)
     hit = _kernels.get(key)
     if hit is None:
-        hit = _kernels[key] = _ColourLaunch(op, plan)
+        hit = _kernels[key] = _Launch(op, plan, form)
     return hit
 
 
 def apply_colour(op: Operation, x, inputs: Sequence, scalars: Sequence, plan="auto"):
-    """Kernel A's colour form of the colour pass `op` (`colour_form(op)`):
-    the pass over the cells of colour `scalars[-1]` only, written into x in
-    place; returns x. x is the pass's first input, `inputs` its others (b
-    and 1/diag), `scalars` its scalars. On CPU tensors the plain version:
-    the pass computed out of place, then written into x at the colour's
-    cells. On the card one launch, counted as `stencil_apply`, whose span
-    carries `colour_sizes`. plan: the plan to build, default
-    `colour_plan(op)`."""
+    """Kernel A's colour form of the colour pass `op` (`colour_form(op)`) on
+    CUDA tensors: one launch, counted as `stencil_apply`, whose span carries
+    `colour_sizes`, over the cells of colour `scalars[-1]` only, written
+    into x in place; returns x. x is the pass's first input, `inputs` its
+    others (b and 1/diag), `scalars` its scalars. plan: the plan to build,
+    default `colour_plan(op)`. The plain version is the out-of-place pass
+    written at the colour's cells (`CompiledModule.colour_form`)."""
     colour = _colour_of(op, scalars[-1])
-    if x.device.type == "cpu":
-        n_in = op.attrs.get("num_inputs", len(op.operands))
-        sv = [torch_backend.scalar_tensor(v, o.type) for v, o in zip(scalars, op.operands[n_in:])]
-        cells = colour_slices(op, colour)
-        x[cells] = torch_backend.execute_apply(op, [x, *inputs, *sv])[cells]
-        return x
     if x.device.type != "cuda":
         raise ValueError(f"stencil_apply colour form: no kernel for device {x.device}")
     with counter.launch() as s:
-        k = _colour_launcher(op, plan)
+        k = _launcher(op, plan, "colour")
+        _, meta_addr, sizes = k.colours[colour]
         if s is not counter:
-            s.set(**k.sizes[colour])
-        if len(inputs) != k.n_in - 1 or len(scalars) != len(k.scalars):
-            raise TypeError(f"stencil_apply colour form: {k.n_in - 1} inputs after x and "
-                            f"{len(k.scalars)} scalars expected")
+            s.set(**sizes)
         if x.dtype != k.dtype or tuple(x.shape) != k.shape or not x.is_contiguous():
             raise ValueError(
                 f"stencil_apply colour form: x {tuple(x.shape)} {x.dtype}, expected a "
                 f"contiguous {k.shape} {k.dtype} tensor to update in place")
-        ins = []  # held until the launch is queued
-        for j, a in enumerate(inputs, 1):
-            if a.device != x.device or tuple(a.shape) != k.shape:
-                raise ValueError(
-                    f"stencil_apply colour form: input {tuple(a.shape)} on {a.device}, "
-                    f"expected {k.shape} on {x.device}")
-            ins.append(a.to(k.dtype).contiguous())
-            k.in_ptrs[j] = ins[-1].data_ptr()
-        k.in_ptrs[0] = x.data_ptr()
-        for j, v in enumerate(scalars):
-            k.scalars[j] = float(v)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        check(k.fn(x.device.index or 0, k.in_addr, k.scalars.ctypes.data, k.metas[colour][1],
-                   stream), "stencil_apply colour form launch")
+        _launch(k, [x, *inputs], scalars, x.device, k.shape, meta_addr, "stencil_apply colour form")
     return x
 
 
@@ -410,7 +382,14 @@ def window_meta(shape: Sequence[int], bounds: Bounds, global_start: Sequence[int
 
 def _launch(k: _Launch, inputs: Sequence, scalars: Sequence, device, shape, meta_addr: int,
             what: str):
+    """One launch of any form: checks the argument counts and that each
+    input is on `device` with `shape`, converts each once to a contiguous
+    tensor of the launch's dtype, fills the pointers and scalars, and
+    queues the kernel on the current stream. Returns the output(s)."""
     shape = tuple(shape)
+    if len(inputs) != k.n_in or len(scalars) != k.n_scalars:
+        raise TypeError(f"{what}: {k.n_in} inputs and {k.n_scalars} scalars expected, got "
+                        f"{len(inputs)} and {len(scalars)}")
     ins = []  # held until the launch is queued
     for j, a in enumerate(inputs):
         if a.device != device or tuple(a.shape) != shape:
@@ -440,7 +419,7 @@ def stencil_apply(op: Operation, inputs: Sequence, scalars: Sequence, device, gl
         with counter.launch() as s:
             k = _launcher(op, plan)
             if s is not counter:  # recording: the launch's sizes, for its roofline
-                s.set(cells=k.cells, grids=k.n_in + k.n_out, itemsize=k.dtype.itemsize)
+                s.set(**k.sizes)
             return _launch(k, inputs, scalars, device, k.shape, k.meta_addr, "stencil_apply")
     with window_counter.launch():
         k = _launcher(op, plan)

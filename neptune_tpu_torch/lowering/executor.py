@@ -257,9 +257,9 @@ class CompiledModule:
         """A symgs colour pass (`passes.smoother.colour_pass`) in place:
         (x, b, d, c) -> x, x's cells of colour c relaxed in x itself, x a
         tensor of the pass's type that the caller owns. Kernel A's colour
-        form (`cuda_backend.apply_colour`, its plain version on CPU tensors)
-        where the backend runs kernels and kernel A has one; otherwise the
-        out-of-place pass, `opdef(name)`, written into x at those cells.
+        form (`cuda_backend.apply_colour`) where the backend runs kernels,
+        kernel A has one and x is on the card; otherwise the plain version,
+        the out-of-place pass `opdef(name)` written into x at those cells.
         Calling `opdef(name)` stays the out-of-place pass."""
         from ..passes.smoother import MARK, PARITY
 
@@ -268,15 +268,13 @@ class CompiledModule:
         if list(op.operands) != list(fn.body.args) or op.attrs.get(MARK) != PARITY:
             raise ValueError(f"@{name} is not a colour pass (passes.smoother.colour_pass)")
         n_in = op.attrs.get("num_inputs", len(op.operands))
-        dtype = torch_backend.DTYPES[op.results[0].type.element]
         kernel = self.backend in ("auto", "cuda") and cuda_backend.colour_form(op)
         whole = self.opdef(name)
 
         def run(x, *args):
             with span("nt.run", symbol=name):
-                if kernel:
-                    ins = [self._tensor(a, dtype) for a in args[:n_in - 1]]
-                    return cuda_backend.apply_colour(op, x, ins, args[n_in - 1:])
+                if kernel and x.device.type == "cuda":
+                    return cuda_backend.apply_colour(op, x, args[:n_in - 1], args[n_in - 1:])
                 cells = cuda_backend.colour_slices(op, args[-1])
                 x[cells] = whole(x, *args)[cells]
                 return x

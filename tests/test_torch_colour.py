@@ -1,14 +1,19 @@
-"""Kernel A's colour form on the CPU: its plain version against the
-out-of-place colour pass, which applies take it, the sizes its launch spans
-carry, and the symgs V-cycle that runs it in place against the out-of-place
-cycle. The kernel itself is held against the same pass on the card
-(`tests/test_torch_gpu.py`) and emulated block by block in
-`tests/test_torch_tiles.py`."""
+"""Kernel A's colour form on the CPU: its plain version (the out-of-place
+colour pass written at the colour's cells, `CompiledModule.colour_form`'s
+route off the card) against the out-of-place colour pass, which applies
+take the form, the sizes its launch spans carry, its launch data beside
+the whole grid's under one launcher, and the symgs V-cycle that runs it in
+place against the out-of-place cycle. The kernel itself is held against
+the same pass on the card (`tests/test_torch_gpu.py`) and emulated block
+by block in `tests/test_torch_tiles.py`."""
+
+from unittest import mock
 
 import pytest
 import torch
 
 from neptune_tpu_torch import config, stencils
+from neptune_tpu_torch.kernels import build
 from neptune_tpu_torch.lowering import cuda_backend
 from neptune_tpu_torch.lowering.executor import CompiledModule, auto_mg_preconditioner
 from neptune_tpu_torch.passes.coarsen import coarsen_opdef
@@ -100,6 +105,56 @@ def test_only_marked_colour_passes_take_the_form():
             CompiledModule(fresh, backend, "cpu").colour_form(NAME)(x, b, d, 8.0)
     with pytest.raises(ValueError, match="is not a colour pass"):
         CompiledModule(stencils.hpcg27((10, 10, 10)), "auto", "cpu").colour_form("hpcg27")
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_colour_form_launches_on_the_card_only(device):
+    """`apply_colour` is kernel A's launch alone: given tensors off the
+    card it raises naming their device, launching nothing and leaving x as
+    it was."""
+    op = stencils.the_apply(colour_pass(stencils.hpcg27((10, 10, 10)), "hpcg27"))
+    x, b, d = (_data((10,) * 3, s).to(device) for s in (1, 2, 3))
+    before = cuda_backend.counter.count
+    with pytest.raises(ValueError, match=f"colour form: no kernel for device {device}"):
+        cuda_backend.apply_colour(op, x, [b, d], [3.0])
+    assert cuda_backend.counter.count == before
+    if device == "cpu":
+        assert torch.equal(x, _data((10,) * 3, 1))
+
+
+def test_colour_and_whole_grid_forms_are_two_launch_data(monkeypatch):
+    """One launcher for kernel A's forms: a colour pass's whole-grid form and
+    its colour form are two cache entries, each built once, with its own C
+    entry, source, plan, argument buffers and metadata; the op is all they
+    share (`builder.load` recorded, no nvcc)."""
+    loaded = []
+
+    def load(source, stem):
+        loaded.append(source)
+        return mock.NonCallableMock(spec=["nt_apply", "nt_apply_colour"])
+
+    monkeypatch.setattr(build.builder, "load", load)
+    monkeypatch.setattr(cuda_backend, "_kernels", {})
+    op = stencils.the_apply(colour_pass(stencils.hpcg27((10, 10, 10)), "hpcg27"))
+    whole, colour = cuda_backend._launcher(op), cuda_backend._launcher(op, form="colour")
+    assert cuda_backend._launcher(op) is whole
+    assert cuda_backend._launcher(op, form="colour") is colour
+    assert len(cuda_backend._kernels) == 2 and len(loaded) == 2
+    assert whole.op is op and colour.op is op
+    assert loaded[0].startswith('#include "nt_apply.cuh"')
+    assert loaded[1].startswith('#include "nt_colour.cuh"')
+    assert len(whole.fn.argtypes) == 6 and len(colour.fn.argtypes) == 5
+    assert whole.plan == cuda_backend.apply_plan(op)
+    assert colour.plan == cuda_backend.colour_plan(op)
+    for field in ("fn", "in_ptrs", "out_ptrs", "scalars", "addrs", "meta"):
+        assert getattr(whole, field) is not getattr(colour, field), field
+    assert whole.sizes == dict(cells=1000, grids=4, itemsize=8) and whole.windows == {}
+    assert not hasattr(colour, "windows") and not hasattr(whole, "colours")
+    for c, (meta, addr, sizes) in enumerate(colour.colours):
+        cells = cuda_backend.colour_cells(op, c)
+        assert addr == meta.ctypes.data and addr != whole.meta_addr
+        assert meta.tolist() == whole.meta.tolist() + [f for f, _ in cells] + [n for _, n in cells]
+        assert sizes == cuda_backend.colour_sizes(op, c)
 
 
 def _hpcg_levels(shape, n_levels, device, monkeypatch):

@@ -42,6 +42,7 @@ from neptune_tpu_torch.kernels import build, codegen  # noqa: E402
 from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps, torch_backend  # noqa: E402
 from neptune_tpu_torch.lowering.executor import CompiledModule  # noqa: E402
 from neptune_tpu_torch.parallel import GridMesh, cg_sharded, sharded_opdef  # noqa: E402
+from neptune_tpu_torch.passes.smoother import colour_pass  # noqa: E402
 from neptune_tpu_torch.runtime import aot, compile_native  # noqa: E402
 from neptune_tpu_torch.solvers import fused, krylov  # noqa: E402
 from neptune_tpu_torch.utils import tree  # noqa: E402
@@ -225,9 +226,10 @@ def test_pinned_kernel_sources_are_fenced(monkeypatch):
 
 
 def test_launch_data_keyed_on_the_arithmetic(monkeypatch):
-    """The launch-data caches of kernels A, C and D: toggling the mode
-    between two calls builds the fenced kernel, and toggling back reuses
-    the first (`builder.load` recorded, no nvcc)."""
+    """The launch-data caches of kernels A (its whole grid and its colour
+    form), C and D: toggling the mode between two calls builds the fenced
+    kernel, and toggling back reuses the first (`builder.load` recorded,
+    no nvcc)."""
     loaded = []
 
     def load(source, stem):
@@ -241,9 +243,10 @@ def test_launch_data_keyed_on_the_arithmetic(monkeypatch):
     op = stencils.the_apply(module)
     plan_c = sweeps.sweep_plan(module, "adv4", 4)
     plan_d = chain.chain_plan(stencils.composite((64, 128)), "wrapped")
+    pass_op = stencils.the_apply(colour_pass(stencils.hpcg27((10, 10, 10)), "hpcg27"))
     launchers = (
         lambda: cuda_backend._launcher(op), lambda: sweeps._entry(plan_c),
-        lambda: chain._launcher(plan_d),
+        lambda: chain._launcher(plan_d), lambda: cuda_backend._launcher(pass_op, form="colour"),
     )
     for launch in launchers:
         first = launch()
@@ -252,7 +255,7 @@ def test_launch_data_keyed_on_the_arithmetic(monkeypatch):
         monkeypatch.setattr(torch_config, "pinned_arithmetic", False)
         assert second is not first and launch() is first
         assert "isfinite(" not in loaded[-2] and "isfinite(" in loaded[-1]
-    assert len(loaded) == 6
+    assert len(loaded) == 8
 
 
 def test_pinned_scope_gathers(monkeypatch):
