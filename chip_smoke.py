@@ -24,6 +24,11 @@ line, the card's nvidia-smi line, and the result line):
      that the solve site finds (the composite case has none): iterations
      within 1, true residual, solution within 1e-4; per solve its time, time
      per iteration, tiling, and the barrier floor at its grid size;
+     then (3b) generic CG's four vector kernels (cg_vectors) against their
+     plain versions at 322^3 (HPCG's size) and 34^3 f64, with and without
+     a preconditioner: x, r and p bitwise, the dot products within n eps
+     sum|a b|, one launch each (no timing; scripts/torch_kernel_times.py
+     --kernels V times them);
   4. the first main path end to end, with launch counts, against plain runs;
   5. kernel C (stencil_sweeps) against its plain version and against the
      same sweeps as kernel-A launches, bitwise, with launch counts and
@@ -241,6 +246,61 @@ def a_cases():
          colour_pass(stencils.hpcg27((322, 322, 322)), "hpcg27"), True, 5.0),
         ("hpcg27 42^3 f64 (coarsest level)", stencils.hpcg27((42, 42, 42)), True, 0.1),
     ]
+
+
+def phase3_cg_vectors(dev) -> None:
+    """Phase 3b: generic CG's four vector kernels against their plain
+    versions on f64 grids of HPCG's size, 322^3 (a grid of the resident
+    blocks, each thread over many groups of packs, the last block's sum
+    over the partials in several strides), and 34^3 (one group a thread),
+    each step from the same slots, with and without a preconditioner
+    (without one the update takes dot_beta's scalar steps and dot_beta is
+    not launched)."""
+    import torch
+
+    from neptune_tpu_torch.solvers import cg_vectors as cv
+
+    worst = 0.0
+    for n in (322, 34):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x, p, r, ap, z = (torch.randn((n,) * 3, dtype=torch.float64, device=dev, generator=gen)
+                          for _ in range(5))
+        rz = torch.sum(r * z)
+        far = torch.full((), 1e300, dtype=torch.float64, device=dev)
+        for plain in (False, True):
+            sk, sp = (cv.Scalars(x, rz, torch.sqrt(rz), 0 * rz, far) for _ in range(2))
+            xk, rk, pk, xp, rp, pp = (v.clone() for v in (x, r, p, x, r, p))
+            before = cv.counter.count
+            dots = []
+            cv.dot_alpha(p, ap, sk)
+            cv.dot_alpha_plain(p, ap, sp)
+            dots.append((cv.PAP, p, ap))
+            sp.buf.copy_(sk.buf)
+            cv.update(xk, p, rk, ap, sk, plain)
+            cv.update_plain(xp, p, rp, ap, sp, plain)
+            require(torch.equal(xk, xp) and torch.equal(rk, rp), f"phase 3b {n}^3: update != plain")
+            dots.append((cv.RR, rk, rk))
+            zz = rk if plain else z
+            if not plain:
+                cv.dot_beta(rk, z, sk)
+                dots.append((cv.RZ, rk, z))
+            sp.buf.copy_(sk.buf)
+            cv.direction(pk, zz, sk)
+            cv.direction_plain(pp, zz, sp)
+            torch.cuda.synchronize()
+            require(torch.equal(pk, pp), f"phase 3b {n}^3: direction != plain")
+            require(cv.counter.count - before == (3 if plain else 4),
+                    f"phase 3b {n}^3: {cv.counter.count - before} launches")
+            for slot, a, b in dots:
+                prods = (a * b).double()
+                err = abs(sk.buf[slot].item() - prods.sum().item()) / prods.abs().sum().item()
+                require(err <= a.numel() * 2.0**-52, f"phase 3b {n}^3: slot {slot} off by {err!r}")
+                worst = max(worst, err)
+            del sk, sp, xk, rk, pk, xp, rp, pp, dots
+        del x, p, r, ap, z
+    say(f"phase 3b cg_vectors 322^3 and 34^3 f64: x, r, p bitwise the plain versions', with "
+        f"and without M; dot products within {worst!r} of sum|a b| (limit n eps); 4 and 3 "
+        f"launches")
 
 
 def phase2_colour_form(op, args) -> None:
@@ -3829,7 +3889,7 @@ def main() -> int:
     from neptune_tpu_torch.kernels.build import builder
     from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps, torch_backend
     from neptune_tpu_torch.lowering.executor import CompiledModule
-    from neptune_tpu_torch.solvers import fused
+    from neptune_tpu_torch.solvers import cg_vectors, fused
     from neptune_tpu_torch.solvers.precond import extract_diagonal, safe_inv_diag
 
     dev = torch.device("cuda")
@@ -3894,6 +3954,7 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=8) as pool:
         jobs = [pool.submit(builder.load, s, "stencil_apply") for s in sources]
         jobs += [pool.submit(builder.load, s, "fused_cg") for s in cg_sources]
+        jobs.append(pool.submit(builder.load, cg_vectors.SOURCE, "cg_vectors"))
         jobs += [pool.submit(builder.load, sweeps.source(p), "stencil_sweeps") for p in c_plans]
         jobs += [pool.submit(builder.load, codegen.chain_source(p), "stencil_chain") for p in d_plans]
         for j in jobs:
@@ -4036,6 +4097,8 @@ def main() -> int:
             b_extra = {"iters": iters, "us_per_iter": us_it, "barrier_floor_us_per_iter": floor,
                        "blocks": plan.blocks, "tile": list(plan.tile),
                        "smem_bytes": plan.smem_bytes}
+
+    phase3_cg_vectors(dev)
 
     # ---- phase 4: the main path end to end ------------------------------
     step, (u0,) = entry.entry(dev)

@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from ..utils.tree import (
-    allreduce, taxpy, tdot, tdot_f64, tnorm, tscale, tsub, tzeros_like, vdot, vnorm,
+    allreduce, safe, taxpy, tdot, tdot_f64, tnorm, tscale, tsub, tzeros_like, vdot, vnorm,
 )
+from . import cg_vectors
 
 
 class SolveInfo(NamedTuple):
@@ -67,11 +68,6 @@ def _identity(x):
     return x
 
 
-def _safe(d):
-    """d, with 0 replaced by 1 (the reference's division guards)."""
-    return torch.where(d == 0, torch.ones_like(d), d)
-
-
 def _running(k, maxiter, rnorm, target, divbound) -> bool:
     """The while-loop condition, read on the host (one sync)."""
     return k < maxiter and bool(((rnorm > target) & (rnorm <= divbound)).item())
@@ -99,12 +95,18 @@ def cg(
     over a mesh are the whole grid's. Under pinned arithmetic they sum
     through the global pairwise tree instead (`utils.tree`). Without M,
     z is r, so ||r|| is the root of r.z: one reduction fewer a step, the
-    same value."""
+    same value.
+
+    On one tensor (`cg_vectors.engages`) the loop's vector work runs as
+    `cg_vectors`' four steps: four kernel launches an iteration on a card,
+    the plain versions (this loop's arithmetic) on the CPU."""
     plain = M is None
-    M = M or _identity
-    x = tzeros_like(b) if x0 is None else x0
     target, bnorm = _tolerances(b, tol, atol, group, norm=_norm_f64)
     divbound = _divergence_bound(bnorm, divtol)
+    if cg_vectors.engages(b, x0, group):
+        return _cg_one_tensor(matvec, b, x0, target, divbound, maxiter, M)
+    M = M or _identity
+    x = tzeros_like(b) if x0 is None else x0
 
     def norm_r(r, rz):
         return torch.sqrt(rz) if plain else _norm_f64(r, group)
@@ -118,16 +120,48 @@ def cg(
     while _running(k, maxiter, rnorm, target, divbound):
         Ap = matvec(p)
         pAp = tdot_f64(p, Ap, group)
-        alpha = rz / _safe(pAp)
+        alpha = rz / safe(pAp)
         x = taxpy(alpha, p, x)
         r = taxpy(-alpha, Ap, r)
         z = M(r)
         rz_new = tdot_f64(r, z, group)
-        beta = rz_new / _safe(rz)
+        beta = rz_new / safe(rz)
         p = taxpy(beta, p, z)
         rz = rz_new
         k += 1
         rnorm = norm_r(r, rz)
+    return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
+
+
+def _cg_one_tensor(matvec, b, x0, target, divbound, maxiter, M):
+    """`cg`'s loop on one tensor, its vector work in `cg_vectors`' steps:
+    the same recurrence, the same start and the same test, read once an
+    iteration after the step that ends it is queued. The loop owns x, r and
+    p and updates them in place; b, x0 and what M returns are never
+    written. On a card x, r and p are contiguous whatever b's layout (the
+    kernels take dense vectors); on the CPU they keep b's layout, as the
+    tuple loop's do."""
+    plain = M is None
+    fmt = torch.contiguous_format if b.is_cuda else torch.preserve_format
+    x = torch.zeros_like(b, memory_format=fmt) if x0 is None else x0.clone(memory_format=fmt)
+    r = b - matvec(x)
+    if b.is_cuda:
+        r = r.contiguous()
+    z = r if plain else M(r)
+    rz = tdot_f64(r, z)
+    sc = cg_vectors.Scalars(b, rz, torch.sqrt(rz) if plain else _norm_f64(r), target, divbound)
+    p = z.clone(memory_format=fmt)
+    k = 0
+    while k < maxiter and sc.running():
+        Ap = matvec(p)
+        cg_vectors.dot_alpha(p, Ap, sc)
+        cg_vectors.update(x, p, r, Ap, sc, plain)
+        if not plain:
+            z = M(r)
+            cg_vectors.dot_beta(r, z, sc)
+        cg_vectors.direction(p, z, sc)
+        k += 1
+    rnorm = sc.buf[cg_vectors.RNORM]
     return x, SolveInfo(k, float(rnorm), bool(rnorm <= target))
 
 
@@ -164,15 +198,15 @@ def bicgstab(
     rnorm = tnorm(r, group)
     while _running(k, maxiter, rnorm, target, divbound):
         rho_new = tdot(rhat, r, group)
-        beta = (rho_new / _safe(rho)) * (alpha / _safe(omega))
+        beta = (rho_new / safe(rho)) * (alpha / safe(omega))
         p = taxpy(beta, tsub(p, tscale(omega, v)), r)
         phat = M(p)
         v = matvec(phat)
-        alpha = rho_new / _safe(tdot(rhat, v, group))
+        alpha = rho_new / safe(tdot(rhat, v, group))
         s = taxpy(-alpha, v, r)
         shat = M(s)
         t = matvec(shat)
-        omega = tdot(t, s, group) / _safe(tdot(t, t, group))
+        omega = tdot(t, s, group) / safe(tdot(t, t, group))
         x = taxpy(alpha, phat, taxpy(omega, shat, x))
         r = taxpy(-omega, t, s)
         rho = rho_new
@@ -257,7 +291,7 @@ def gmres(
         sn = np.zeros(m, hdt)
         g = np.zeros(m + 1, hdt)
         g[0] = beta
-        V[0] = r / _safe(beta_t)
+        V[0] = r / safe(beta_t)
         resnorm = beta
         done = beta <= target
         niters = 0
@@ -271,7 +305,7 @@ def gmres(
                 w = w - hij * V[i]
                 hs.append(hij)
             hjp1 = vnorm(w, group)
-            V[j + 1] = w / _safe(hjp1)
+            V[j + 1] = w / safe(hjp1)
             hcol = np.zeros(m + 1, hdt)
             hcol[: j + 2] = torch.stack(hs + [hjp1]).cpu().numpy()
             for i in range(j):  # apply the existing rotations

@@ -36,7 +36,8 @@ The port's spans (PERF.md §3 names the metric each feeds):
     checks to the return of its C call, where its `LaunchCounter` counts;
     kernel A's (`stencil_apply`) carries the launch's `cells`, its `grids`
     (inputs and outputs) and their `itemsize`; its colour form's, the
-    colour's cells, 2^rank + 3 grids of them and `form` "colour";
+    colour's cells, 2^rank + 3 grids of them and `form` "colour"; CG's
+    vector kernels' (`cg_vectors`), the `step`;
   * ``nt.mg.cycle`` — one multigrid V-cycle (`levels`);
   * ``nt.mg.smooth`` — one smoother call on one level (`level`,
     `smoother`, `colours` a sweep, `sweeps`).

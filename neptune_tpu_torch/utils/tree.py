@@ -68,6 +68,11 @@ def tzeros_like(a):
     return _map(torch.zeros_like, a)
 
 
+def safe(d):
+    """d, with 0 replaced by 1 (the reference's division guards)."""
+    return torch.where(d == 0, torch.ones_like(d), d)
+
+
 class MeshGroup:
     """What `group=` takes on a mesh: the processes that shard a field of
     `grid_rank` dims on `gm` (a `parallel.GridMesh`), with the layout that

@@ -22,6 +22,11 @@ events after a warm-up call that builds the kernel:
      host microseconds of one launch of the 1024^2 composite
      (`chain.run_chain`, queued without a sync), and the origin form on the
      4096^2 composite as one block.
+  V: generic CG's four vector steps on 322^3 float64 grids (HPCG's finest
+     level), each as its kernel (`solvers.cg_vectors`, where ROOT has it)
+     and as the eager steps it replaces (`utils.tree`'s tdot_f64 and taxpy,
+     as the tuple loop runs them), beside its bound: the grids it reads and
+     writes over 3.35 TB/s. Not in the default set.
 `--abba` runs the two trees in turns, each in a process of its own, on the
 same card, and prints every run's line and one summary line per case.
 Needs a CUDA device and nvcc.
@@ -156,6 +161,62 @@ def times_d(cs, dev, rng, out):
         "ms": cs.cuda_ms(lambda: chain.run_chain(plan, [x], [], global_start=(0, 0)), 10)}
 
 
+def times_v(cs, dev, out):
+    import importlib.util
+
+    import torch
+
+    from neptune_tpu_torch.utils.tree import taxpy, tdot_f64
+
+    def safe(d):  # the loop's division guard, also for trees older than utils.tree.safe
+        return torch.where(d == 0, torch.ones_like(d), d)
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    x, p, r, ap, z = (torch.randn((322,) * 3, dtype=torch.float64, device=dev, generator=gen)
+                      for _ in range(5))
+    rz, alpha, beta = tdot_f64(r, z), tdot_f64(p, p), tdot_f64(z, z)
+    target, far = 0 * rz, torch.full_like(rz, 1e300)
+    grid_ms = x.numel() * 8 / cs.HBM_BYTES_PER_S * 1e3
+
+    def eager_update():
+        taxpy(alpha, p, x), taxpy(-alpha, ap, r)
+        rn = torch.sqrt(tdot_f64(r, r))
+        return (rn > target) & (rn <= far)
+
+    # step: (grids read and written, the eager steps)
+    steps = {
+        "dot_alpha": (2, lambda: rz / safe(tdot_f64(p, ap))),
+        "update": (6, eager_update),
+        "dot_beta": (2, lambda: tdot_f64(r, z) / safe(rz)),
+        "direction": (3, lambda: taxpy(beta, p, z)),
+    }
+    kernels = {}
+    if importlib.util.find_spec("neptune_tpu_torch.solvers.cg_vectors") is not None:
+        from neptune_tpu_torch.solvers import cg_vectors as cv
+
+        sc = cv.Scalars(x, rz, torch.sqrt(rz), target, far)
+        kernels = {
+            "dot_alpha": lambda: cv.dot_alpha(p, ap, sc),
+            "update": lambda: cv.update(x, p, r, ap, sc, False),
+            "dot_beta": lambda: cv.dot_beta(r, z, sc),
+            "direction": lambda: cv.direction(p, z, sc),
+        }
+    total = {"bound_ms": 0.0, "eager_ms": 0.0, "ms": 0.0}
+    for name, (grids, eager) in steps.items():
+        row = {"bound_ms": grids * grid_ms, "eager_ms": cs.cuda_ms(eager, 20)}
+        if name in kernels:
+            row["ms"] = cs.cuda_ms(kernels[name], 20)
+            row["bound_pct"] = 100 * row["bound_ms"] / row["ms"]
+        out[f"V {name} 322^3 f64"] = row
+        for k in total:
+            total[k] += row.get(k, 0.0)
+    if kernels:
+        total["bound_pct"] = 100 * total["bound_ms"] / total["ms"]
+    else:
+        del total["ms"]
+    out["V an iteration's four steps 322^3 f64"] = total
+
+
 def run(root: Path, kernels: str) -> dict:
     cs = smoke()
     sys.path.insert(0, str(root))
@@ -177,6 +238,8 @@ def run(root: Path, kernels: str) -> dict:
             times_c(cs, dev, rng, out["cases"])
         elif kernel == "D":
             times_d(cs, dev, rng, out["cases"])
+        elif kernel == "V":
+            times_v(cs, dev, out["cases"])
     return out
 
 
@@ -195,7 +258,7 @@ def abba(parent: Path, kernels: str) -> int:
     for case in runs[0]["cases"]:
         p = [runs[0]["cases"][case], runs[3]["cases"][case]]
         c = [runs[1]["cases"][case], runs[2]["cases"][case]]
-        key = "us" if "us" in p[0] else "ms"
+        key = "us" if "us" in p[0] else "ms" if "ms" in p[0] else "eager_ms"
         mean_p = sum(r[key] for r in p) / 2
         mean_c = sum(r[key] for r in c) / 2
         line = {"case": case, "card": card, "unit": key,

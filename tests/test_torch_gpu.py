@@ -7,6 +7,7 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from neptune_tpu_torch.ir import verify_and_annotate  # noqa: E402
 from neptune_tpu_torch.kernels.build import Builder  # noqa: E402
 from neptune_tpu_torch.lowering import chain, cuda_backend, sweeps, torch_backend  # noqa: E402
 from neptune_tpu_torch.lowering.executor import CompiledModule  # noqa: E402
-from neptune_tpu_torch.solvers import fused  # noqa: E402
+from neptune_tpu_torch.solvers import cg_vectors, fused  # noqa: E402
 from neptune_tpu_torch.solvers.precond import extract_diagonal, safe_inv_diag  # noqa: E402
 
 APPLIES = {
@@ -1730,7 +1731,7 @@ def test_hpcg_solve_on_the_card_matches_the_reference(cuda):
     for b in (ref.hpcg_rhs((n + 2,) * 3, interior, device=cuda),
               ref.random_rhs((n + 2,) * 3, interior, gen, device=cuda)):
         solve(b)
-        before = cuda_backend.counter.count, fused.counter.count
+        before = cuda_backend.counter.count, fused.counter.count, cg_vectors.counter.count
         x = solve(b)
         torch.cuda.synchronize()
         # the lift, r0, one V-cycle, then 50 of (A p, one V-cycle); a
@@ -1738,9 +1739,162 @@ def test_hpcg_solve_on_the_card_matches_the_reference(cuda):
         # each of 3 levels, one sweep on the coarsest
         assert cuda_backend.counter.count - before[0] == 2 + 51 * (3 * 33 + 16) + 50
         assert fused.counter.count == before[1]
+        # CG's vector work: four launches an iteration, none at the start
+        assert cg_vectors.counter.count - before[2] == 4 * 50
         xr = ref.pcg(b, interior)
         assert ref.rel_diffs(x[None], xr[None]).item() <= 1e-12
         assert ref.rel_residuals(x[None], b[None], interior).item() <= 1e-10
+
+
+# ---- CG's vector kernels (csrc/nt_cg_vectors.cuh) ---------------------------
+
+CG_VEC_SHAPES = {"1": (1,), "33x65": (33, 65), "34^3": (34,) * 3, "130^3": (130,) * 3}
+
+
+def _cg_scalars(v, rz):
+    return cg_vectors.Scalars(v, rz, torch.sqrt(rz), torch.zeros_like(rz),
+                              torch.full_like(rz, 1e30))
+
+
+def _dot_close(got, a, b):
+    """A kernel's dot product against the plain float64 sum of the products
+    (each rounded to the leaves' dtype, as the kernels round them): within
+    n 2^-52 sum|a_i b_i|, the float64 sums' rounding, plus half an ulp in the
+    leaves' dtype, the one rounding of the total to it."""
+    prods = (a * b).double()
+    exact = prods.sum().item()
+    err64 = a.numel() * 2.0**-52 * prods.abs().sum().item()
+    digits = {torch.float32: 24, torch.float64: 53}[a.dtype]
+    half_ulp = 2.0 ** (math.frexp(abs(exact) + err64)[1] - digits - 1)
+    assert abs(got.item() - exact) <= err64 + half_ulp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plain", [False, True], ids=["M", "noM"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", CG_VEC_SHAPES)
+def test_cg_vector_kernels_match_their_plain_versions(shape, dtype, plain, cuda):
+    """Each of CG's four vector kernels against its plain version on the
+    card: x, r and p bitwise for the same alpha and beta, the dot products
+    within n eps sum|a_i b_i| of the plain sum, the scalar steps bitwise
+    from the kernel's dots, one launch each, and the same bits again on a
+    second launch from the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x, p, r, Ap, z = (torch.randn(CG_VEC_SHAPES[shape], dtype=dtype, device=cuda, generator=gen)
+                      for _ in range(5))
+    rz = torch.sum(r * z, dtype=torch.float64).to(dtype)
+    runs = []
+    for _ in range(2):
+        sk, sp = _cg_scalars(x, rz), _cg_scalars(x, rz)
+        xk, rk, pk, xp, rp, pp = x.clone(), r.clone(), p.clone(), x.clone(), r.clone(), p.clone()
+        before = cg_vectors.counter.count
+        cg_vectors.dot_alpha(p, Ap, sk)
+        cg_vectors.dot_alpha_plain(p, Ap, sp)
+        _dot_close(sk.buf[cg_vectors.PAP], p, Ap)
+        assert torch.equal(sk.buf[cg_vectors.ALPHA], rz / torch.where(
+            sk.buf[cg_vectors.PAP] == 0, 1.0, sk.buf[cg_vectors.PAP]).to(dtype))
+        sp.buf.copy_(sk.buf)
+        cg_vectors.update(xk, p, rk, Ap, sk, plain)
+        cg_vectors.update_plain(xp, p, rp, Ap, sp, plain)
+        assert torch.equal(xk, xp) and torch.equal(rk, rp)
+        rr = sk.buf[cg_vectors.RR]
+        _dot_close(rr, rk, rk)
+        assert torch.equal(sk.buf[cg_vectors.RNORM], torch.sqrt(rr))
+        assert bool(sk.ctl[1]) == bool(torch.sqrt(rr) > 0) and int(sk.ctl[0]) == 0
+        if plain:
+            assert torch.equal(sk.buf[cg_vectors.RZ], rr)
+            assert torch.equal(sk.buf[cg_vectors.BETA], rr / rz)
+            zz = rk
+        else:
+            cg_vectors.dot_beta(rk, z, sk)
+            _dot_close(sk.buf[cg_vectors.RZ], rk, z)
+            assert torch.equal(sk.buf[cg_vectors.BETA], sk.buf[cg_vectors.RZ] / rz)
+            zz = z
+        sp.buf.copy_(sk.buf)
+        cg_vectors.direction(pk, zz, sk)
+        cg_vectors.direction_plain(pp, zz, sp)
+        assert torch.equal(pk, pp)
+        torch.cuda.synchronize()
+        assert cg_vectors.counter.count - before == (3 if plain else 4)
+        runs.append((sk.buf.clone(), xk, rk, pk))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", [None, "jacobi"])
+def test_cg_vectors_on_a_poisson_solve_beyond_kernel_bs_gate(precond, cuda):
+    """A 700^2 f32 5-pt Poisson CG on the card (over kernel B's 12 MiB
+    working set, so the executor would take generic CG): the one-tensor
+    loop on the vector kernels takes the tuple loop's iterations within 1,
+    and its true residual, in f64, is under tol or within 5% of the tuple
+    loop's (f32 CG's true residual drifts from its recurrence's: 1.75e-4
+    at tol 1e-4 here)."""
+    from neptune_tpu_torch.solvers import krylov
+
+    n, tol = 700, 1e-4
+    assert not fused.supported(stencils.poisson5(n), "poisson", TempType(
+        "float32", Bounds.of([0, 0], [n, n])))
+    matvec = CompiledModule(stencils.poisson5(n), "auto", cuda).opdef("poisson")
+    b = torch.zeros(n, n, device=cuda)
+    b[1:-1, 1:-1] = _randn((n - 2, n - 2), cuda, 23)
+    M = None if precond is None else (lambda r: 0.25 * r)
+    before = cg_vectors.counter.count
+    x, info = krylov.cg(matvec, b, tol=tol, maxiter=5000, M=M)
+    launched = cg_vectors.counter.count - before
+    (xt,), tinfo = krylov.cg(lambda t: (matvec(t[0]),), (b,), tol=tol, maxiter=5000,
+                             M=None if M is None else (lambda t: (M(t[0]),)))
+    assert info.converged and abs(info.iters - tinfo.iters) <= 1
+    assert launched == (3 if M is None else 4) * info.iters
+    ref = CompiledModule(stencils.poisson5(n, "float64"), "torch", cuda).opdef("poisson")
+    bd = b.double()
+
+    def true_residual(v):
+        return (torch.linalg.norm(bd - ref(v.double())) / torch.linalg.norm(bd)).item()
+
+    got, tuple_loop = true_residual(x), true_residual(xt)
+    print(f"700^2 f32 CG, M {precond}: {info.iters} iterations (tuple loop {tinfo.iters}), "
+          f"true residual {got!r} (tuple loop {tuple_loop!r}), tol {tol}")
+    assert got <= max(tol, 1.05 * tuple_loop)
+
+
+def _dirichlet5(v):
+    """The 5-pt Laplacian with a zero ring outside the grid, on a tensor of
+    any layout (the result takes v's)."""
+    out = 4 * v
+    out[1:] -= v[:-1]
+    out[:-1] -= v[1:]
+    out[:, 1:] -= v[:, :-1]
+    out[:, :-1] -= v[:, 1:]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", [None, "jacobi"])
+def test_cg_vectors_take_a_permuted_right_hand_side(precond, cuda):
+    """A dense but non-contiguous b and x0 on the card (transposed grids):
+    the one-tensor loop owns contiguous x, r and p, so it runs on the
+    vector kernels, gives the bits of the same solve from contiguous copies
+    and the tuple loop's answer, and writes neither b nor x0."""
+    from neptune_tpu_torch.solvers import krylov
+
+    base = _randn((48, 40), cuda, 24).double()
+    b, x0 = base.t(), (0.5 * base).t()
+    assert not b.is_contiguous() and not x0.is_contiguous()
+    kept = b.clone(), x0.clone()
+    M = None if precond is None else (lambda r: 0.25 * r)
+    steps = 30
+    before = cg_vectors.counter.count
+    x, info = krylov.cg(_dirichlet5, b, x0, tol=0.0, maxiter=steps, M=M)
+    assert cg_vectors.counter.count - before == (3 if M is None else 4) * steps
+    xc, infoc = krylov.cg(_dirichlet5, b.contiguous(), x0.contiguous(), tol=0.0,
+                          maxiter=steps, M=M)
+    assert info == infoc and info.iters == steps and torch.equal(x, xc)
+    (xt,), tinfo = krylov.cg(lambda t: (_dirichlet5(t[0]),), (b,), (x0,), tol=0.0,
+                             maxiter=steps, M=None if M is None else (lambda t: (M(t[0]),)))
+    assert tinfo.iters == steps
+    torch.testing.assert_close(x, xt, rtol=1e-10, atol=1e-10)
+    assert torch.equal(b, kept[0]) and torch.equal(x0, kept[1])
 
 
 def _colour_apply(shape, dtype="float64"):
